@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of FCN3 on one CUDA card and check its kernels.
 
-    python3 chip_smoke.py [--config full] [--members 2] [--lead-steps 2]
+    python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure ends the run with a
 non-zero exit code and no result line:
@@ -26,7 +26,6 @@ Exits non-zero without CUDA, and in a directory without the repository.
 
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -44,7 +43,9 @@ PEAK_BYTES = 3.35e12
 #: kernel vs plain: max |kernel - plain| <= REL_TOL * max |plain|
 #: (fp32 sums of up to S*D = 3.3k terms in another order)
 REL_TOL = 1e-4
-#: LSUV calibration rounds before the forecast (the serve CLI runs 4)
+#: the main path: fcn3_full at its published widths, 2 members x 2 leads,
+#: after this many LSUV calibration rounds (the serve CLI runs 4)
+CONFIG, MEMBERS, LEAD_STEPS = "full", 2, 2
 CALIBRATION_ROUNDS = 1
 
 
@@ -106,7 +107,8 @@ class Recorder:
         def legendre(x, table):
             key = (table.data_ptr(), table.stride())
             ent = self.legendre.setdefault(key, {"table": table, "b": 0,
-                                                 "shape": None})
+                                                 "shape": None,
+                                                 "dtype": x.dtype})
             if x.shape[0] > ent["b"]:
                 ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
             return self._orig[1](x, table)
@@ -126,42 +128,44 @@ def errors(got, ref) -> tuple[float, float]:
     return diff, diff / max(float(ref.abs().max()), 1e-30)
 
 
-def check_legendre(table, shape, name) -> dict:
+def check_legendre(table, shape, dtype, name) -> dict:
     """Legendre kernel vs its plain version at one main-path shape."""
     import torch
     from repro_torch.kernels.legendre import ops
     from repro_torch.kernels.legendre.ref import legendre_contract_ref
     g = torch.Generator(device="cuda").manual_seed(11)
-    x = torch.randn(shape, generator=g, device="cuda")
+    x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
     got = ops.legendre_contract(x, table)
     torch.cuda.synchronize()
     ref = legendre_contract_ref(x, table)
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref)
+    del got, ref
     b, k, m = shape
     n = table.shape[1]
-    xm = x.permute(2, 0, 1).contiguous()
-    tm = table.permute(2, 0, 1).contiguous()
+    parts = 2 if x.is_complex() else 1     # real and imaginary rows
     ms = cuda_ms(lambda: ops.legendre_contract(x, table), reps=10)
-    mmajor_ms = cuda_ms(lambda: ops.legendre_contract_mmajor(xm, tm),
-                        reps=10)
     plain_ms = cuda_ms(lambda: legendre_contract_ref(x, table), reps=5)
+    # yardstick: torch.bmm on m-major operands, permuted beforehand
+    xr = torch.view_as_real(x) if parts == 2 else x[..., None]
+    xm = xr.permute(2, 0, 3, 1).reshape(m, parts * b, k)
+    tm = table.permute(2, 0, 1).contiguous()
     lib_ms = cuda_ms(lambda: torch.bmm(xm, tm), reps=10)
+    del xm, tm
     # the tables are zero for m > l: count the products the data needs
     nnz = int((table != 0).sum())
-    flops = 2.0 * b * nnz
-    flops_dense = 2.0 * b * k * n * m
-    nbytes = 4.0 * (b * k * m + k * n * m + b * n * m)
-    row = dict(shape=f"x{shape} table{tuple(table.shape)}", what=name,
+    flops = 2.0 * parts * b * nnz
+    flops_dense = 2.0 * parts * b * k * n * m
+    nbytes = 4.0 * (parts * b * k * m + k * n * m + parts * b * n * m)
+    row = dict(shape=f"x{shape} {str(dtype).split('.')[-1]} "
+               f"table{tuple(table.shape)}", what=name,
                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-               kernel_only_ms=mmajor_ms, plain_ms=plain_ms,
-               library_ms=lib_ms, flops=flops, flops_dense=flops_dense,
-               bytes=nbytes, **bound(flops, nbytes))
+               plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
+               flops_dense=flops_dense, bytes=nbytes, **bound(flops, nbytes))
     log(f"[kernel] legendre {name} {row['shape']}: abs_err={abs_err:.3e} "
-        f"rel_err={rel_err:.3e} ms={ms:.3f} (m-major kernel alone "
-        f"{mmajor_ms:.3f}) plain_ms={plain_ms:.3f} bmm_ms={lib_ms:.3f} "
-        f"bound_ms={row['bound_ms']:.3f} "
-        f"dense_tflops={flops_dense / mmajor_ms / 1e9:.2f}")
+        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"bmm_ms={lib_ms:.3f} bound_ms={row['bound_ms']:.3f} "
+        f"dense_tflops={flops_dense / ms / 1e9:.2f}")
     if not rel_err <= REL_TOL:
         raise AssertionError(f"legendre {name}: kernel disagrees with its "
                              f"plain version (rel {rel_err:.3e})")
@@ -264,12 +268,6 @@ def small_input_check() -> float:
 
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default="full")
-    ap.add_argument("--members", type=int, default=2)
-    ap.add_argument("--lead-steps", type=int, default=2)
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -310,7 +308,7 @@ def main() -> int:
     legendre_ops.reset_launches()
     t0 = time.time()
     results = serve_mod.serve(
-        args.config, args.members, args.lead_steps, lead_chunk=1,
+        CONFIG, MEMBERS, LEAD_STEPS, lead_chunk=1,
         device="cuda", calibration_rounds=CALIBRATION_ROUNDS, report=report)
     torch.cuda.synchronize()
     total_s = time.time() - t0
@@ -319,15 +317,15 @@ def main() -> int:
     rec.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lead_s = [b - a for a, b in zip(stamps[:-1], stamps[1:-1])]
-    log(f"[main] config={args.config} members={args.members} "
-        f"leads={args.lead_steps} calibration_rounds={CALIBRATION_ROUNDS} "
+    log(f"[main] config={CONFIG} members={MEMBERS} "
+        f"leads={LEAD_STEPS} calibration_rounds={CALIBRATION_ROUNDS} "
         f"total_s={total_s:.1f} "
         f"setup_and_calibration_s={stamps[0] - t0:.1f} "
         f"per_lead_s={[round(s, 2) for s in lead_s]} "
         f"peak_mem_gb={peak_gb:.2f} launches={launches}")
     for name in ("crps", "ens_rmse", "spread", "ssr"):
         vals = torch.cat([r.scores[name] for r in results])
-        if vals.shape[0] != args.lead_steps or not torch.isfinite(vals).all():
+        if vals.shape[0] != LEAD_STEPS or not torch.isfinite(vals).all():
             raise AssertionError(f"score {name} not finite / wrong shape "
                                  f"{tuple(vals.shape)}")
     final = results[-1].final_state
@@ -349,7 +347,7 @@ def main() -> int:
         # the inverse SHT passes pct as a transposed (L, H, M) view
         what = "forward" if ent["table"].is_contiguous() else "inverse"
         rows["legendre_contract"].append(
-            check_legendre(ent["table"], ent["shape"], what))
+            check_legendre(ent["table"], ent["shape"], ent["dtype"], what))
     for ent in rec.disco.values():
         _, h_in, w_in = ent["shape"]
         what = (f"{h_in}x{w_in}->{ent['psi'].shape[1]}x"

@@ -1,0 +1,1 @@
+"""Model configurations of the port."""

@@ -1,0 +1,1 @@
+"""Model core of the port: blocks, FCN3, CRPS and sphere operators."""

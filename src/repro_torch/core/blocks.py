@@ -22,6 +22,7 @@ from repro_torch.kernels.config import KernelConfig
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU, the default of ``jax.nn.gelu``."""
     return F.gelu(x, approximate="tanh")
 
 
@@ -41,6 +42,7 @@ class MLP(nn.Module):
 
     @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
+        """Draw fresh weights from ``generator`` (He-scaled, zero bias)."""
         c_hidden, c_in = self.w1.shape
         self.w1.copy_(discolib.randn_like_param(self.w1, generator)
                       * float(np.sqrt(2.0 / c_in)))
@@ -94,6 +96,7 @@ class Block(nn.Module):
 
     @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
+        """Draw fresh weights for every sub-module from ``generator``."""
         self.conv.reset(generator)
         self.mlp.reset(generator)
         self.layer_scale.fill_(self.spec.layer_scale_init)

@@ -40,4 +40,5 @@ def crps_fair(ens: torch.Tensor, obs: torch.Tensor, dim: int = 0
 
 def crps_ensemble(ens: torch.Tensor, obs: torch.Tensor, dim: int = 0,
                   fair: bool = False) -> torch.Tensor:
+    """Fair or pairwise ensemble CRPS along ``dim``."""
     return crps_fair(ens, obs, dim) if fair else crps_pairwise(ens, obs, dim)

@@ -69,14 +69,17 @@ class FCN3Config:
 
     @property
     def n_state(self) -> int:
+        """Prognostic channels: atmospheric levels plus surface."""
         return self.n_levels * self.n_atmos + self.n_surface
 
     @property
     def n_cond_in(self) -> int:
+        """Conditioning channels: auxiliary fields plus noise."""
         return self.n_aux + self.n_noise
 
     @property
     def c_latent(self) -> int:
+        """Channels of the latent state."""
         return self.n_levels * self.atmos_embed + self.surface_embed
 
     def water_channel_indices(self) -> np.ndarray:
@@ -86,6 +89,7 @@ class FCN3Config:
         return np.concatenate([q, tcwv])
 
     def block_specs(self) -> list[blk.BlockSpec]:
+        """The ``BlockSpec`` of every processor block, in order."""
         n_basis = len(discolib.morlet_basis_spec(self.filter_ell_max,
                                                  self.filter_m_max))
         specs = []

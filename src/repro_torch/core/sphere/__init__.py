@@ -1,0 +1,1 @@
+"""Operators on the sphere: grids, SHT, DISCO, resampling, noise."""

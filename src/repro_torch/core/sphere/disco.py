@@ -321,6 +321,7 @@ class DiscoConv(nn.Module):
 
     def forward(self, x: torch.Tensor, buffers: dict, stride: int,
                 chunk_bytes: int = Z_CHUNK_BYTES) -> torch.Tensor:
+        """``apply_disco_conv`` with this module's weight and bias."""
         return apply_disco_conv(self.weight, self.bias, x, buffers, stride,
                                 self.groups, chunk_bytes)
 

@@ -46,6 +46,7 @@ class SphereGrid:
 
     @property
     def dphi(self) -> float:
+        """Longitude spacing in radians."""
         return 2.0 * np.pi / self.nlon
 
     @property
@@ -55,6 +56,7 @@ class SphereGrid:
 
     @property
     def shape(self) -> tuple[int, int]:
+        """(nlat, nlon)."""
         return (self.nlat, self.nlon)
 
     def area_weights_2d(self) -> np.ndarray:
@@ -99,6 +101,7 @@ def _legendre_gauss_nodes(nlat: int) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=64)
 def make_grid(nlat: int, nlon: int, kind: str = "equiangular") -> SphereGrid:
+    """The (cached) grid of ``kind`` with nlat x nlon points."""
     if kind not in GRID_KINDS:
         raise ValueError(f"unknown grid kind {kind!r}; expected one of {GRID_KINDS}")
     if kind == "equiangular":

@@ -30,6 +30,7 @@ class BilinearResample:
 
     @classmethod
     def create(cls, grid_in: glib.SphereGrid, grid_out: glib.SphereGrid):
+        """Plan the bilinear resampling from ``grid_in`` onto ``grid_out``."""
         ti, to = grid_in.colat, grid_out.colat
         # latitude: find interval; allow virtual pole rows at theta=0, pi.
         idx0 = np.searchsorted(ti, to, side="right") - 1  # in [-1, H_in-1]

@@ -72,4 +72,5 @@ def table_key(lmax: int, mmax: int, colat: np.ndarray) -> tuple:
 
 
 def cached_legendre_table(lmax: int, mmax: int, colat: np.ndarray) -> np.ndarray:
+    """``legendre_table``, cached by (lmax, mmax, colat)."""
     return _cached_table(*table_key(lmax, mmax, colat))

@@ -71,10 +71,12 @@ class SphericalDiffusion:
 
     @property
     def n_proc(self) -> int:
+        """Number of diffusion processes."""
         return len(self.k_t)
 
     @property
     def phi(self) -> float:
+        """Per-step AR(1) decay factor exp(-lam)."""
         return float(np.exp(-self.lam))
 
     def sigma_l(self) -> np.ndarray:
@@ -111,6 +113,7 @@ class SphericalDiffusion:
             buffers["sigma_l"], self.sht.lmax, self.sht.mmax)
 
     def stationary_scale(self) -> float:
+        """1/sqrt(1 - phi^2): the stationary std over the innovation std."""
         phi = np.exp(-self.lam)
         return float(1.0 / np.sqrt(max(1.0 - phi * phi, 1e-12)))
 

@@ -60,6 +60,7 @@ class SHT:
     @classmethod
     def create(cls, grid: glib.SphereGrid, lmax: int | None = None,
                mmax: int | None = None) -> "SHT":
+        """The SHT of ``grid``; lmax defaults to nlat, mmax to min(lmax, nlon//2+1)."""
         lmax = int(lmax if lmax is not None else grid.nlat)
         mmax = int(mmax if mmax is not None else min(lmax, grid.nlon // 2 + 1))
         return cls(grid=grid, lmax=lmax, mmax=mmax)
@@ -80,9 +81,11 @@ class SHT:
         }
 
     def forward(self, x: torch.Tensor, buffers: dict) -> torch.Tensor:
+        """``sht_forward`` with this grid's tables."""
         return sht_forward(x, buffers["wpct"])
 
     def inverse(self, c: torch.Tensor, buffers: dict) -> torch.Tensor:
+        """``sht_inverse`` with this grid's tables."""
         return sht_inverse(c, buffers["pct"], self.grid.nlon)
 
 

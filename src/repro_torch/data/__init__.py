@@ -1,0 +1,1 @@
+"""Synthetic data on the device."""

@@ -52,14 +52,17 @@ class SyntheticERA5:
 
     @functools.cached_property
     def dev(self) -> torch.device:
+        """The resolved device the fields are made on."""
         return resolve_device(self.device)
 
     @functools.cached_property
     def grid(self) -> glib.SphereGrid:
+        """The data grid."""
         return glib.make_grid(self.cfg.nlat, self.cfg.nlon, self.cfg.grid)
 
     @functools.cached_property
     def sht(self) -> shtlib.SHT:
+        """The SHT of the data grid."""
         return shtlib.SHT.create(self.grid)
 
     @functools.cached_property

@@ -32,6 +32,7 @@ def rmse(pred: torch.Tensor, target: torch.Tensor,
 
 
 def ensemble_mean(ens: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Mean over the ensemble dimension ``dim``."""
     return ens.mean(dim=dim)
 
 

@@ -1,0 +1,1 @@
+"""Parameters and the ensemble forecast engine."""

@@ -110,10 +110,12 @@ class GeneratorNoise:
         self.generator = generator
 
     def initial(self, engine):
+        """Initial noise state drawn from the generator."""
         return engine.model.noise.init_state(
             self.generator, (engine.cfg.members,), engine.noise_buffers)
 
     def eta(self, engine, n, z_hat):
+        """White spectral draws for lead ``n``."""
         return engine.model.noise.sample_coeffs(
             self.generator, z_hat.shape[:-3], engine.noise_buffers)
 
@@ -126,9 +128,11 @@ class InjectedNoise:
         self.etas = etas
 
     def initial(self, engine):
+        """The injected initial noise state."""
         return torch.as_tensor(self.z_hat0).to(engine.model.device)
 
     def eta(self, engine, n, z_hat):
+        """The injected white draws of lead ``n``."""
         return torch.as_tensor(self.etas[n]).to(z_hat.device)
 
 

@@ -1,0 +1,1 @@
+"""Hand-written CUDA kernels, their plain versions and dispatch."""

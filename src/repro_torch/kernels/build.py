@@ -34,6 +34,7 @@ build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
+    """Path of ``nvcc``: on PATH, under CUDA_HOME or /usr/local/cuda."""
     cand = shutil.which("nvcc")
     if cand:
         return cand

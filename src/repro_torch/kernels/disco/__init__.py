@@ -1,0 +1,1 @@
+"""Banded DISCO contraction: CUDA kernel wrapper and plain version."""

@@ -24,6 +24,7 @@ _TW, _TBP, _KP = 128, 8, 8
 
 
 def reset_launches() -> None:
+    """Set the launch count to 0."""
     global launches
     launches = 0
 

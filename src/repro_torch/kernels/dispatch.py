@@ -25,7 +25,8 @@ from repro_torch.kernels.legendre.ref import legendre_contract_ref
 def _plain_vjp(fn, inputs, grad):
     """Gradients of the plain version ``fn`` w.r.t. its float inputs."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(t.is_floating_point())
+        leaves = [t.detach().requires_grad_(t.is_floating_point()
+                                            or t.is_complex())
                   for t in inputs]
         out = fn(*leaves)
         wrt = [t for t in leaves if t.requires_grad]
@@ -64,29 +65,29 @@ class _BandContract(torch.autograd.Function):
 # SHT with the Legendre stage on the kernel
 # ---------------------------------------------------------------------------
 
+def _batched(c: torch.Tensor) -> torch.Tensor:
+    """(..., K, M) complex64 as (B, K, M) with unit stride along m."""
+    c = c.to(torch.complex64).reshape((-1,) + c.shape[-2:])
+    return c if c.stride(-1) == 1 else c.contiguous()
+
+
 def sht_forward(x: torch.Tensor, wpct: torch.Tensor) -> torch.Tensor:
     """Forward SHT, (..., H, W) -> (..., L, M) complex64.  Real and
-    imaginary parts share one kernel launch (stacked on the batch)."""
+    imaginary parts share one kernel launch, read in place."""
     h, l, m = wpct.shape
     w = x.shape[-1]
     xf = fourier.rfft(x.float())[..., :m] * (2.0 * math.pi / w)
-    batch = xf.shape[:-2]
-    xs = torch.stack([xf.real, xf.imag]).reshape(-1, h, m)
-    out = _Legendre.apply(xs.contiguous(), wpct).reshape((2,) + batch
-                                                         + (l, m))
-    return torch.complex(out[0], out[1])
+    out = _Legendre.apply(_batched(xf), wpct)
+    return out.reshape(xf.shape[:-2] + (l, m))
 
 
 def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int
                 ) -> torch.Tensor:
     """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real."""
     h, l, m = pct.shape
-    batch = c.shape[:-2]
-    cs = torch.stack([c.real, c.imag]).float().reshape(-1, l, m)
-    # contract over degree: table (L, H, M)
-    out = _Legendre.apply(cs.contiguous(), pct.permute(1, 0, 2))
-    out = out.reshape((2,) + batch + (h, m))
-    spec = shtlib.pad_orders(torch.complex(out[0], out[1]), nlon)
+    # contract over degree: table (L, H, M), a transposed view of pct
+    out = _Legendre.apply(_batched(c), pct.permute(1, 0, 2))
+    spec = shtlib.pad_orders(out.reshape(c.shape[:-2] + (h, m)), nlon)
     return fourier.irfft(spec, nlon) * nlon
 
 

@@ -1,0 +1,1 @@
+"""Legendre contraction: CUDA kernel wrapper and plain version."""

@@ -1,7 +1,10 @@
 """Wrapper of the hand-written Legendre CUDA kernel (``csrc/legendre.cu``).
 
 On a CPU tensor it computes the plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  The kernel reads and writes the
+m-minor layout of the SHT as it is, so the wrapper copies nothing: a
+complex ``x`` is read as interleaved floats, and a table may be a strided
+view (the inverse SHT passes ``pct`` transposed).
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ from repro_torch.kernels.legendre.ref import legendre_contract_ref
 
 #: kernel launches since the last ``reset_launches`` (a plain integer).
 launches = 0
+#: the kernel's tile: adjacent j (floats along m), rows b, columns n
+_TJ, _TB, _TN = 8, 32, 64
 
 
 def reset_launches() -> None:
+    """Set the launch count to 0."""
     global launches
     launches = 0
 
@@ -25,7 +31,8 @@ def reset_launches() -> None:
 def _lib():
     lib = build.load_library("legendre")
     fn = lib.legendre_contract_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -40,50 +47,50 @@ def _check(x: torch.Tensor, table: torch.Tensor) -> None:
     if (k, m) != (k2, m2):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)} vs table "
                          f"{tuple(table.shape)}")
+    if x.dtype not in (torch.float32, torch.complex64):
+        raise TypeError(f"legendre_contract: x must be float32 or "
+                        f"complex64, got {x.dtype}")
+    if table.dtype != torch.float32:
+        raise TypeError(f"legendre_contract: table must be float32, got "
+                        f"{table.dtype}")
     for name, t in (("x", x), ("table", table)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"legendre_contract: {name} must be float32, "
-                            f"got {t.dtype}")
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"legendre_contract: {name} must be on "
                              f"{x.device}, got {t.device}")
-
-
-def legendre_contract_mmajor(xm: torch.Tensor, tm: torch.Tensor
-                             ) -> torch.Tensor:
-    """The kernel on m-major operands: (M,B,K) x (M,K,N) -> (M,B,N)."""
-    global launches
-    m, b, k = xm.shape
-    n = tm.shape[2]
-    if tm.shape[:2] != (m, k) or not (xm.is_contiguous()
-                                      and tm.is_contiguous()):
-        raise ValueError("legendre_contract_mmajor wants contiguous "
-                         "(M,B,K) and (M,K,N) operands")
-    if max(b, k, n) >= 2 ** 31 or m > 65535 or (b + 127) // 128 > 65535:
-        raise ValueError(f"legendre_contract: shape {(m, b, k, n)} exceeds "
+        if t.stride(-1) != 1:
+            raise ValueError(f"legendre_contract: {name} must have unit "
+                             f"stride along m, got strides {t.stride()}")
+    j = m * (2 if x.is_complex() else 1)
+    if (max(b, k, n, j) >= 2 ** 31 or (b + _TB - 1) // _TB > 65535
+            or (j + _TJ - 1) // _TJ > 65535):
+        raise ValueError(f"legendre_contract: shape {(b, k, n, m)} exceeds "
                          "the kernel's grid")
-    out = torch.empty((m, b, n), dtype=torch.float32, device=xm.device)
-    if out.numel() == 0:
-        return out
-    fn = _lib()
-    stream = torch.cuda.current_stream(xm.device).cuda_stream
-    err = fn(xm.data_ptr(), tm.data_ptr(), out.data_ptr(), m, b, k, n,
-             stream)
-    build.check_launch(err, "legendre_contract")
-    launches += 1
-    return out
 
 
 def legendre_contract(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """out[b, n, m] = sum_k x[b, k, m] * table[k, n, m].
 
-    x: (B, K, M) float32; table: (K, N, M) float32 -> (B, N, M) float32.
-    On CUDA the operands are permuted to m-major (a copy each, counted in
-    the kernel's measured time) and the result permuted back.
+    x: (B, K, M) float32 or complex64; table: (K, N, M) float32 -> (B, N,
+    M) of x's dtype, contiguous.  A complex x contracts its real and
+    imaginary parts with the same table in one launch.
     """
+    global launches
     if x.device.type == "cpu" and table.device.type == "cpu":
         return legendre_contract_ref(x, table)
     _check(x, table)
-    xm = x.permute(2, 0, 1).contiguous()
-    tm = table.permute(2, 0, 1).contiguous()
-    return legendre_contract_mmajor(xm, tm).permute(1, 2, 0).contiguous()
+    b, k, m = x.shape
+    n = table.shape[1]
+    out = torch.empty((b, n, m), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    cshift = 1 if x.is_complex() else 0
+    xf = torch.view_as_real(x) if cshift else x
+    outf = torch.view_as_real(out) if cshift else out
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(xf.data_ptr(), table.data_ptr(), outf.data_ptr(), b, k, n,
+             m << cshift, cshift, xf.stride(0), xf.stride(1),
+             table.stride(0), table.stride(1), stream)
+    build.check_launch(err, "legendre_contract")
+    launches += 1
+    return out

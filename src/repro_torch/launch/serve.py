@@ -28,6 +28,7 @@ CONFIGS = fcn3cfg.NAMED_CONFIGS
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The serve CLI's argument parser."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="smoke", choices=sorted(CONFIGS))
     ap.add_argument("--members", type=int, default=4)
@@ -82,6 +83,7 @@ def serve(config: str, members: int, lead_steps: int, lead_chunk: int = 8,
 
 
 def main(argv: list[str] | None = None) -> None:
+    """Run the serve CLI."""
     args = build_parser().parse_args(argv)
     serve(args.config, args.members, args.lead_steps, args.lead_chunk,
           args.sample, args.ckpt, args.device)

@@ -40,15 +40,24 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64],
+                         ids=["real", "complex"])
 @pytest.mark.parametrize("b,k,n,m", [(3, 16, 16, 9), (130, 70, 65, 33)])
-def test_cuda_legendre_kernel(cuda, b, k, n, m):
+def test_cuda_legendre_kernel(cuda, b, k, n, m, dtype, transposed):
+    # the SHT's calls read complex x in place, and the inverse passes its
+    # table as a transposed view
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((b, k, m), generator=gen, device=cuda)
-    t = torch.randn((k, n, m), generator=gen, device=cuda)
+    x = torch.randn((b, k, m), generator=gen, device=cuda, dtype=dtype)
+    t = torch.randn((n, k, m) if transposed else (k, n, m), generator=gen,
+                    device=cuda)
+    if transposed:
+        t = t.permute(1, 0, 2)
     before = legendre_ops.launches
     got = legendre_ops.legendre_contract(x, t)
     torch.cuda.synchronize()
     assert legendre_ops.launches == before + 1
+    assert got.dtype == dtype
     torch.testing.assert_close(got, legendre_contract_ref(x, t),
                                rtol=1e-5, atol=1e-4)
 
@@ -80,6 +89,9 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         legendre_ops.legendre_contract(x.float(), torch.zeros((3, 5, 3),
                                                               device=cuda))
+    with pytest.raises(ValueError):   # m must have unit stride
+        legendre_ops.legendre_contract(
+            x.float(), torch.zeros((3, 5, 4), device=cuda).permute(2, 1, 0))
     tp = _plan(PAIRS[1])
     tb = tp.banded_buffers(cuda)
     with pytest.raises(ValueError):

@@ -67,6 +67,21 @@ class TestLegendre:
         assert legendre_contract_ref(torch.from_numpy(x),
                                      torch.from_numpy(t)).shape == (b, n, m)
 
+    def test_complex_strided_plain_matches_oracle(self):
+        # the SHT's call: complex x, and (inverse) a transposed table view
+        r = _rng(9)
+        xr, xi = r.standard_normal((2, 4, 16, 9)).astype(np.float32)
+        t = r.standard_normal((20, 16, 9)).astype(np.float32)
+        tt = torch.from_numpy(t).permute(1, 0, 2)          # (16, 20, 9)
+        got = legendre_ops.legendre_contract(
+            torch.complex(torch.from_numpy(xr), torch.from_numpy(xi)), tt)
+        assert got.dtype == torch.complex64 and got.shape == (4, 20, 9)
+        jt = jnp.asarray(t).transpose(1, 0, 2)
+        for part, xp in ((got.real, xr), (got.imag, xi)):
+            np.testing.assert_allclose(
+                part.numpy(), np.asarray(j_leg_ref(jnp.asarray(xp), jt)),
+                rtol=1e-5, atol=1e-5)
+
     def test_sht_dispatch_matches_pallas_dispatch(self):
         g = (32, 64, "gauss")
         j = jsht.SHT.create(jgrids.make_grid(*g))
@@ -94,6 +109,20 @@ class TestLegendre:
         legendre_contract_ref(xr, tr).square().sum().backward()
         torch.testing.assert_close(x.grad, xr.grad)
         torch.testing.assert_close(t.grad, tr.grad)
+
+    def test_complex_backward_runs_plain_vjp(self):
+        r = _rng(2)
+        xr, xi = r.standard_normal((2, 2, 6, 4)).astype(np.float32)
+        x = torch.complex(torch.from_numpy(xr), torch.from_numpy(xi))
+        t = torch.from_numpy(r.standard_normal((6, 5, 4)).astype(np.float32))
+        grads = []
+        for fn in (tdispatch._Legendre.apply, legendre_contract_ref):
+            xl = x.clone().requires_grad_()
+            tl = t.clone().requires_grad_()
+            fn(xl, tl).abs().square().sum().backward()
+            grads.append((xl.grad, tl.grad))
+        assert grads[0][0].dtype == torch.complex64
+        torch.testing.assert_close(grads[0], grads[1])
 
 
 class TestDiscoBand:
