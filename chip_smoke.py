@@ -15,18 +15,33 @@ non-zero exit code and no result line:
    every kernel must have launched, every score must be finite;
 3. a small-input check: one ``fcn3_smoke`` step on the card through the
    kernels against the port's reference (FFT/einsum) path;
-4. every kernel against its plain torch version, on the card, at each
-   distinct shape the main path launched it with; timings (CUDA events,
-   median), the ``library_ms`` yardstick and the least time the card
-   could take (``bound_ms``);
-5. the ``kernels`` JSON line, then the result line.
+4. training: ``repro_torch.launch.train``'s path at ``fcn3_full`` (stage
+   ``pretrain_stage2``, 2 members, batch 1, rollout 1, 2 steps, 1
+   calibration round), with every launch counter set to 0 just before
+   and read just after; every kernel entry point (band contraction and
+   its transpose, Legendre, CRPS forward and backward) must have
+   launched, loss and gradient norm must be finite, the parameters must
+   have changed, and no plain version (``kernels/*/ref.py``) may have
+   been called on a CUDA tensor;
+5. a small-input gradient check: one ``fcn3_smoke`` train step's
+   gradients through the kernels against the reference path's;
+6. every kernel against its plain torch version, on the card: the
+   forward kernels at each distinct shape the forecast launched them
+   with, the transpose and CRPS kernels at each distinct shape training
+   launched them with; timings (CUDA events, median), the
+   ``library_ms`` yardstick (the transpose's only at the largest shape of
+   each geometry: it is far slower than the kernel, see PERF.md) and the
+   least time the card could take (``bound_ms``);
+7. the ``kernels`` JSON line, then the result line.
 
 Exits non-zero without CUDA, and in a directory without the repository.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,6 +62,16 @@ REL_TOL = 1e-4
 #: after this many LSUV calibration rounds (the serve CLI runs 4)
 CONFIG, MEMBERS, LEAD_STEPS = "full", 2, 2
 CALIBRATION_ROUNDS = 1
+#: the training path: fcn3_full, all 10 blocks, Table 3's second stage
+#: with its own ensemble of 2; batch 32 -> 1, rollout 4 -> 1 and
+#: calibration rounds 4 -> 1 are the cuts
+TRAIN_STAGE, TRAIN_ENSEMBLE, TRAIN_BATCH, TRAIN_ROLLOUT = (
+    "pretrain_stage2", 2, 1, 1)
+TRAIN_STEPS = 2
+#: gradient bar of tests/test_kernel_dispatch.py's grad-parity test
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+#: CRPS kernel vs plain: relative error (a handful of fp32 terms)
+CRPS_REL_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -83,16 +108,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class Recorder:
     """Wraps the kernel wrappers' module attributes to note the operands
-    of every main-path call (the wrappers still count the launches)."""
+    of every call (the wrappers still count the launches): the forward
+    kernels at their largest batch per geometry, the transpose and CRPS
+    kernels at every distinct shape."""
 
     def __init__(self):
+        from repro_torch.kernels.crps import ops as crps_ops
         from repro_torch.kernels.disco import ops as disco_ops
         from repro_torch.kernels.legendre import ops as legendre_ops
         self.disco: dict = {}
         self.legendre: dict = {}
-        self._mods = (disco_ops, legendre_ops)
-        self._orig = (disco_ops.disco_band_contract,
-                      legendre_ops.legendre_contract)
+        self.transpose: dict = {}
+        self.crps: dict = {}
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (disco_ops, "disco_band_contract"),
+            (disco_ops, "disco_band_transpose"),
+            (legendre_ops, "legendre_contract"),
+            (crps_ops, "crps_fused"), (crps_ops, "crps_fused_bwd"))]
+        orig = {name: fn for _, name, fn in self._saved}
 
         def disco(x, psi_band, lat_idx, stride=1):
             key = (psi_band.data_ptr(), stride)
@@ -102,7 +135,18 @@ class Recorder:
                                               "shape": None})
             if x.shape[0] > ent["b"]:
                 ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
-            return self._orig[0](x, psi_band, lat_idx, stride)
+            return orig["disco_band_contract"](x, psi_band, lat_idx, stride)
+
+        def transpose(g, psi_band, lat_idx, row_ptr, row_ent, h_in,
+                      stride=1):
+            key = (psi_band.data_ptr(), stride, tuple(g.shape))
+            self.transpose.setdefault(key, {
+                "psi": psi_band, "lat_idx": lat_idx, "row_ptr": row_ptr,
+                "row_ent": row_ent, "h_in": h_in, "stride": stride,
+                "shape": tuple(g.shape)})
+            return orig["disco_band_transpose"](g, psi_band, lat_idx,
+                                                row_ptr, row_ent, h_in,
+                                                stride)
 
         def legendre(x, table):
             key = (table.data_ptr(), table.stride())
@@ -111,15 +155,75 @@ class Recorder:
                                                  "dtype": x.dtype})
             if x.shape[0] > ent["b"]:
                 ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
-            return self._orig[1](x, table)
+            return orig["legendre_contract"](x, table)
 
-        disco_ops.disco_band_contract = disco
-        legendre_ops.legendre_contract = legendre
+        def crps(ens, obs, fair=False):
+            self.crps.setdefault((tuple(ens.shape), fair),
+                                 {"shape": tuple(ens.shape), "fair": fair})
+            return orig["crps_fused"](ens, obs, fair)
+
+        def crps_bwd(g, ens, obs, fair=False):
+            self.crps.setdefault((tuple(ens.shape), fair),
+                                 {"shape": tuple(ens.shape), "fair": fair})
+            return orig["crps_fused_bwd"](g, ens, obs, fair)
+
+        wrappers = {"disco_band_contract": disco,
+                    "disco_band_transpose": transpose,
+                    "legendre_contract": legendre, "crps_fused": crps,
+                    "crps_fused_bwd": crps_bwd}
+        for mod, name, _ in self._saved:
+            setattr(mod, name, wrappers[name])
 
     def close(self) -> None:
         """Put the original wrappers back."""
-        self._mods[0].disco_band_contract = self._orig[0]
-        self._mods[1].legendre_contract = self._orig[1]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class PlainGuard:
+    """Counts calls of every plain version (the functions defined in
+    ``repro_torch/kernels/*/ref.py``) that get a CUDA tensor, wherever
+    they were imported to."""
+
+    def __init__(self):
+        import importlib
+        import pkgutil
+        import repro_torch
+        for info in pkgutil.walk_packages(repro_torch.__path__,
+                                          "repro_torch."):
+            importlib.import_module(info.name)
+        self.counts: dict[str, int] = {}
+        refs = {}
+        for mod in ("legendre", "disco", "crps"):
+            ref = importlib.import_module(f"repro_torch.kernels.{mod}.ref")
+            for name, fn in vars(ref).items():
+                if (name.endswith("_ref") and callable(fn)
+                        and getattr(fn, "__module__", "") == ref.__name__):
+                    refs[id(fn)] = self._counting(f"{mod}.{name}", fn)
+        self._saved = []
+        for mod in list(sys.modules.values()):
+            if not getattr(mod, "__name__", "").startswith("repro_torch"):
+                continue
+            for name, val in list(vars(mod).items()):
+                if id(val) in refs:
+                    self._saved.append((mod, name, val))
+                    setattr(mod, name, refs[id(val)])
+
+    def _counting(self, label: str, fn):
+        import torch
+        self.counts[label] = 0
+
+        def wrapped(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                self.counts[label] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def close(self) -> None:
+        """Put the plain versions back."""
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
 
 
 def errors(got, ref) -> tuple[float, float]:
@@ -235,6 +339,134 @@ def check_disco(ent, name) -> dict:
     return row
 
 
+def check_transpose(ent, name, yardstick: bool) -> dict:
+    """Band transpose kernel vs its plain version at one training shape;
+    with ``yardstick``, also the ``conv_transpose1d`` time (the caller
+    asks for it only at the largest shape of each geometry: it is far
+    slower than the kernel, see PERF.md)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.disco import ops
+    from repro_torch.kernels.disco.ref import disco_band_transpose_ref
+    psi, lat_idx, stride, shape, h_in = (ent["psi"], ent["lat_idx"],
+                                         ent["stride"], ent["shape"],
+                                         ent["h_in"])
+    b, k, h_out, w_out = shape
+    _, _, s, d = psi.shape
+    w_in = w_out * stride
+    g = torch.randn(shape, generator=torch.Generator(
+        device="cuda").manual_seed(13), device="cuda")
+
+    def kernel():
+        return ops.disco_band_transpose(g, psi, lat_idx, ent["row_ptr"],
+                                        ent["row_ent"], h_in, stride)
+
+    def plain():
+        return disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = errors(got, ref)
+    del got
+    ms = cuda_ms(kernel, reps=5)
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    lib_ms = lib_err = None
+    if yardstick:
+        # the grouped conv1d of check_disco, transposed: one
+        # conv_transpose1d onto the wrap-padded gathered rows (cuDNN, TF32
+        # off); folding the pad back and adding rows is not timed
+        wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
+        gl = g.permute(0, 2, 1, 3).reshape(b, h_out * k, w_out)
+
+        def lib():
+            return F.conv_transpose1d(gl, wt, stride=stride, groups=h_out)
+
+        try:
+            gxp = lib()
+            fold = gxp[..., :w_in].clone()
+            fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
+            del gxp
+            gxr = torch.zeros((b, h_in, w_in), device="cuda").index_add_(
+                1, lat_idx.reshape(-1).long(),
+                fold.reshape(b, h_out * s, w_in))
+            del fold
+            lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
+            del gxr
+            lib_ms = cuda_ms(lib, reps=1, warmup=0)
+        except RuntimeError as exc:  # the yardstick only; never in the port
+            log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
+        del gl
+    del ref
+    torch.cuda.empty_cache()
+    nnz = int((psi != 0).sum())
+    flops_dense = 2.0 * k * h_out * s * d * w_out * b
+    flops = 2.0 * nnz * w_out * b
+    nbytes = 4.0 * (b * k * h_out * w_out + psi.numel()
+                    + ent["row_ptr"].numel() + ent["row_ent"].numel()
+                    + b * h_in * w_in)
+    row = dict(shape=f"g{shape} psi{tuple(psi.shape)} stride{stride}",
+               what=name, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library_rel_err=lib_err,
+               flops=flops, flops_dense=flops_dense, bytes=nbytes,
+               **bound(flops, nbytes))
+    log(f"[kernel] transpose {name} {row['shape']}: abs_err={abs_err:.3e} "
+        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"conv_transpose1d_ms={lib_ms} (rel_err {lib_err}) "
+        f"bound_ms={row['bound_ms']:.3f} "
+        f"dense_band_tflops={flops_dense / ms / 1e9:.2f}")
+    if not rel_err <= REL_TOL:
+        raise AssertionError(f"transpose {name}: kernel disagrees with its "
+                             f"plain version (rel {rel_err:.3e})")
+    return row
+
+
+def check_crps(ent) -> list[dict]:
+    """CRPS forward and backward kernels vs their plain versions at one
+    training shape.  No single torch call computes CRPS: no yardstick."""
+    import torch
+    from repro_torch.kernels.crps import ops
+    from repro_torch.kernels.crps.ref import crps_fused_bwd_ref, crps_fused_ref
+    (e, n), fair = ent["shape"], ent["fair"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ens = torch.randn((e, n), generator=gen, device="cuda")
+    obs = torch.randn((n,), generator=gen, device="cuda")
+    g = torch.randn((n,), generator=gen, device="cuda")
+    rows = []
+    for what, kernel, plain, out_floats, in_floats, ops_per_point in (
+            ("forward", lambda: ops.crps_fused(ens, obs, fair),
+             lambda: crps_fused_ref(ens, obs, fair), 1, e + 1,
+             3 * e + 3 * e * (e - 1) // 2 + 4),
+            ("backward", lambda: ops.crps_fused_bwd(g, ens, obs, fair),
+             lambda: crps_fused_bwd_ref(g, ens, obs, fair), e, e + 2,
+             e * (3 * e + 6))):
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref)
+        del got, ref
+        ms = cuda_ms(kernel, reps=10)
+        plain_ms = cuda_ms(plain, reps=5)
+        flops = float(ops_per_point) * n
+        nbytes = 4.0 * n * (in_floats + out_floats)
+        row = dict(shape=f"ens({e}, {n}) fair={fair}", what=what,
+                   max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, flops=flops,
+                   bytes=nbytes, **bound(flops, nbytes))
+        log(f"[kernel] crps {what} {row['shape']}: abs_err={abs_err:.3e} "
+            f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms=none (no single torch call computes CRPS) "
+            f"bound_ms={row['bound_ms']:.3f} "
+            f"GB/s={nbytes / ms / 1e6:.0f}")
+        if not rel_err <= CRPS_REL_TOL:
+            raise AssertionError(f"crps {what}: kernel disagrees with its "
+                                 f"plain version (rel {rel_err:.3e})")
+        rows.append(row)
+    return rows
+
+
 def bound(flops: float, nbytes: float) -> dict:
     """Least time on the card: the larger of operations and bytes."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
@@ -264,6 +496,84 @@ def small_input_check() -> float:
             outs.append(model(model.make_buffers(), state, cond))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
     return float((outs[0] - outs[1]).abs().max())
+
+
+def small_gradient_check() -> float:
+    """One fcn3_smoke train step's gradients on the card: kernel path vs
+    the reference path, from the same init, batch and noise draws."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import fcn3 as cfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.train import trainer as trlib
+    grads = []
+    for mode in ("kernel", "reference"):
+        cfg = dataclasses.replace(cfgs.fcn3_smoke(),
+                                  kernels=KernelConfig(mode, mode))
+        model = FCN3(cfg, device="cuda")
+        model.init(torch.Generator(device="cuda").manual_seed(5))
+        tr = trlib.EnsembleTrainer(
+            model, trlib.TrainConfig(ensemble_size=2, rollout_steps=2,
+                                     fair_crps=True, noise_centering=True),
+            cfgs.channel_weights(cfg.n_levels))
+        batch = next(iter(dlib.Loader(dlib.SyntheticERA5(cfg, "cuda"),
+                                      global_batch=1, rollout=2)))
+        buffers = dict(model.make_buffers(), **tr.make_loss_buffers())
+        _, _, g = tr.loss_and_grads(
+            buffers, batch,
+            GeneratorNoise(torch.Generator(device="cuda").manual_seed(6)))
+        grads.append(g)
+    worst = 0.0
+    for name, gk in grads[0].items():
+        gr = grads[1][name]
+        torch.testing.assert_close(gk, gr, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+        worst = max(worst, float((gk - gr).abs().max()))
+    return worst
+
+
+def train_phase(report) -> dict:
+    """The fcn3_full training path with fresh launch counts; returns the
+    summary the ``[train]`` lines print."""
+    import torch
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import train as train_mod
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (disco_ops, legendre_ops, crps_ops):
+        mod.reset_launches()
+    t0 = time.time()
+    run = train_mod.setup(CONFIG, TRAIN_STAGE, TRAIN_BATCH, TRAIN_ENSEMBLE,
+                          TRAIN_ROLLOUT, seed=0, device="cuda",
+                          calibration_rounds=CALIBRATION_ROUNDS,
+                          report=report)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    before = {k: p.detach().cpu().clone()
+              for k, p in run.model.named_parameters()}
+    stamps = [time.time()]
+    history = train_mod.run_steps(
+        run, TRAIN_STEPS,
+        report=lambda line: (stamps.append(time.time()), report(line)))
+    torch.cuda.synchronize()
+    launches = {"disco_band_contract": disco_ops.launches,
+                "disco_band_transpose": disco_ops.transpose_launches,
+                "legendre_contract": legendre_ops.launches,
+                "crps_fused": crps_ops.launches,
+                "crps_fused_bwd": crps_ops.bwd_launches}
+    changed = sum(int(not torch.equal(p.detach().cpu(), before[k]))
+                  for k, p in run.model.named_parameters())
+    n_params = len(before)
+    del run, before
+    return {"setup_s": setup_s,
+            "step_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "history": history,
+            "changed": changed, "n_params": n_params}
 
 
 def main() -> int:
@@ -296,6 +606,7 @@ def main() -> int:
                 log(f"[build] {name}: {ln.strip()}")
 
     # -- phase 2: the main path -------------------------------------------
+    guard = PlainGuard()
     rec = Recorder()
     stamps: list[float] = []
 
@@ -334,15 +645,66 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if any(guard.counts.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors in the "
+                             f"forecast: {guard.counts}")
     del results, final
 
     # -- phase 3: small input against the reference path -------------------
     err = small_input_check()
     log(f"[check] fcn3_smoke kernel path vs reference path on the card: "
         f"max_abs_err={err:.3e} (rtol=1e-4, atol=1e-5)")
+    torch.cuda.empty_cache()
 
-    # -- phase 4: kernels against their plain versions ---------------------
-    rows = {"legendre_contract": [], "disco_band_contract": []}
+    # -- phase 4: training (the forecast's model is gone) ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rec = Recorder()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    summary = train_phase(
+        lambda line: log(line if line.startswith("[") else f"[train] {line}"))
+    train_rec.close()
+    plain_calls = dict(guard.counts)
+    guard.close()
+    for i, (h, sec) in enumerate(zip(summary["history"],
+                                     summary["step_s"])):
+        log(f"[train] step {i} loss={h['loss']:.6f} nodal={h['nodal_0']:.6f}"
+            f" spectral={h['spectral_0']:.6f} |g|={h['grad_norm']:.6f} "
+            f"seconds={sec:.2f}")
+    log(f"[train] config={CONFIG} stage={TRAIN_STAGE} "
+        f"ensemble={TRAIN_ENSEMBLE} batch={TRAIN_BATCH} "
+        f"rollout={TRAIN_ROLLOUT} steps={TRAIN_STEPS} "
+        f"calibration_rounds={CALIBRATION_ROUNDS} "
+        f"setup_s={summary['setup_s']:.1f} "
+        f"step_s={[round(x, 2) for x in summary['step_s']]} "
+        f"peak_mem_gb={summary['peak_mem_gb']:.2f} "
+        f"params_changed={summary['changed']}/{summary['n_params']} "
+        f"launches={summary['launches']} plain_calls_on_cuda={plain_calls}")
+    for name, n in summary["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the training "
+                                 "path")
+    for h in summary["history"]:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"training diverged or has no gradient: {h}")
+    if summary["changed"] == 0:
+        raise AssertionError("no parameter changed in training")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors during "
+                             f"training: {plain_calls}")
+    torch.cuda.empty_cache()
+
+    # -- phase 5: small-input gradients against the reference path ----------
+    gerr = small_gradient_check()
+    log(f"[check] fcn3_smoke train-step gradients, kernel path vs reference "
+        f"path on the card: max_abs_err={gerr:.3e} "
+        f"(rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
+    torch.cuda.empty_cache()
+
+    # -- phase 6: kernels against their plain versions ---------------------
+    rows = {"legendre_contract": [], "disco_band_contract": [],
+            "disco_band_transpose": [], "crps_fused": []}
     for ent in rec.legendre.values():
         # the inverse SHT passes pct as a transposed (L, H, M) view
         what = "forward" if ent["table"].is_contiguous() else "inverse"
@@ -354,24 +716,63 @@ def main() -> int:
                 f"{w_in // ent['stride']}")
         rows["disco_band_contract"].append(check_disco(ent, what))
         torch.cuda.empty_cache()
+    largest = {}
+    for ent in train_rec.transpose.values():
+        key = ent["psi"].data_ptr()
+        if ent["shape"][0] > largest.get(key, (0,))[0]:
+            largest[key] = ent["shape"]
+    for ent in train_rec.transpose.values():
+        what = (f"{ent['psi'].shape[1]}x{ent['shape'][-1]}->{ent['h_in']}x"
+                f"{ent['shape'][-1] * ent['stride']}")
+        rows["disco_band_transpose"].append(check_transpose(
+            ent, what, ent["shape"] == largest[ent["psi"].data_ptr()]))
+        torch.cuda.empty_cache()
+    for ent in train_rec.crps.values():
+        rows["crps_fused"].extend(check_crps(ent))
+        torch.cuda.empty_cache()
 
     meta = {
         "legendre_contract": ("cuda", "src/repro_torch/csrc/legendre.cu",
                               "src/repro/kernels/legendre/legendre.py:91"),
         "disco_band_contract": ("cuda", "src/repro_torch/csrc/disco_band.cu",
                                 "src/repro/kernels/disco/disco.py:110"),
+        # the VJP of the same TPU kernel
+        "disco_band_transpose": ("cuda",
+                                 "src/repro_torch/csrc/disco_band_bwd.cu",
+                                 "src/repro/kernels/disco/disco.py:110"),
+        "crps_fused": ("cuda", "src/repro_torch/csrc/crps.cu",
+                       "src/repro/kernels/crps/crps.py:67"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        top = max(rows[name], key=lambda r: r["flops"])
-        kernels.append({
+        fwd = [r for r in rows[name] if r["what"] != "backward"]
+        top = max(fwd, key=lambda r: r["flops"])
+        by_path = {"serve": launches.get(name, 0),
+                   "train": summary["launches"][name]}
+        ent = {
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            # the forward kernels' main path is the forecast; the
+            # transpose and CRPS kernels run on the training path only
+            "launches": by_path["serve"] or by_path["train"],
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "at": top["shape"],
-            "shapes": rows[name]})
+            "shapes": rows[name]}
+        bwd = [r for r in rows[name] if r["what"] == "backward"]
+        if bwd:
+            # the CRPS backward kernel of the same source, at its largest
+            # shape: its launches, times and bound
+            b = max(bwd, key=lambda r: r["bytes"])
+            ent["backward"] = {
+                "launches": summary["launches"]["crps_fused_bwd"],
+                "ms": b["ms"],
+                "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None,
+                "at": b["shape"]}
+        kernels.append(ent)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

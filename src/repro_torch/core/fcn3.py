@@ -10,6 +10,8 @@
 
 ``FCN3`` is an ``nn.Module`` whose parameter names map 1:1 onto the JAX
 package's parameter tree (``blocks.0.conv.w_re`` <-> ``blocks/0/conv/w_re``).
+Parameters are built frozen; ``model.requires_grad_(True)`` makes them
+trainable (the trainer does), and serving runs under ``inference_mode``.
 Static geometry (DISCO filters, Legendre tables) travels in a separate
 ``buffers`` dict from ``make_buffers``, in the layout ``cfg.kernels``
 selects.  ``forward(buffers, state, cond_in)`` is the JAX ``FCN3.apply``.
@@ -22,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import blocks as blk
 from repro_torch.core.sphere import disco as discolib
@@ -274,12 +277,22 @@ class FCN3(nn.Module):
 
         state: (..., n_state, H, W); cond_in: (..., n_aux + n_noise, H, W).
         Returns u_{n+1}, same shape as ``state`` (direct prediction, C.7).
+        With gradients on each processor block is rematerialised.
         """
         x, cond = self._encode(buffers, state, cond_in)
+        remat = torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(p.requires_grad for p in self.blocks.parameters()))
         for block in self.blocks:
             buf = (buffers["latent"] if block.spec.kind == "local"
                    else buffers["latent_sht"])
-            x = block(x, cond, buf, kernels=self.cfg.kernels)
+            if remat:
+                # recompute each block in backward, keeping only its
+                # inputs (the JAX model's jax.checkpoint per block)
+                x = checkpoint(block, x, cond, buf, self.cfg.kernels,
+                               use_reentrant=False)
+            else:
+                x = block(x, cond, buf, kernels=self.cfg.kernels)
         del cond
         out = self._decode(buffers, x)
         # Output transformation (C.8): softclamp water channels.

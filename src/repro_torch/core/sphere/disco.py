@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sphere import fourier
 from repro_torch.core.sphere import grids as glib
@@ -115,14 +116,19 @@ class DiscoPlan:
                        ) -> dict[str, torch.Tensor]:
         """``psi_band`` (K, H, S, D) with wrap rows zeroed, ``psi_wrap``
         (K, H_wrap, S, W) full-circle psi of the wrap rows, ``wrap_rows``
-        and ``lat_idx``.  The full (K, H, S, W) psi never reaches the
-        device."""
+        and ``lat_idx``, plus the band's per-input-row lists ``row_ptr`` /
+        ``row_ent`` that the transpose kernel reads (``band_row_lists``).
+        The full (K, H, S, W) psi never reaches the device."""
         band, wrap_rows, psi_wrap = self.banded_split()
+        row_ptr, row_ent = band_row_lists(self.lat_idx, band,
+                                          self.grid_in.nlat)
         return {
             "psi_band": torch.from_numpy(band).to(device),
             "psi_wrap": torch.from_numpy(psi_wrap).to(device),
             "wrap_rows": torch.from_numpy(wrap_rows.astype(np.int64)).to(device),
             "lat_idx": torch.from_numpy(self.lat_idx).to(device),
+            "row_ptr": torch.from_numpy(row_ptr).to(device),
+            "row_ent": torch.from_numpy(row_ent).to(device),
         }
 
     def banded_split(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -253,6 +259,26 @@ def split_psi_band(psi: np.ndarray, d_max: int | None = None
     return band.astype(np.float32), wrap_rows, psi_wrap.astype(np.float32)
 
 
+def band_row_lists(lat_idx: np.ndarray, band: np.ndarray, h_in: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The inverse of ``lat_idx`` as CSR lists, for the band's transpose.
+
+    Returns ``row_ptr`` (h_in + 1,) and ``row_ent`` int32: the entries of
+    input row r are ``row_ent[row_ptr[r]:row_ptr[r + 1]]``, each
+    ``h * S + s`` with ``lat_idx[h, s] == r``, in increasing order.  Pairs
+    whose ``band[:, h, s, :]`` is all zero (clamped rows outside the
+    filter's support, wrap rows) are left out: they add nothing.
+    """
+    h_out, s = lat_idx.shape
+    live = np.abs(band).max(axis=(0, 3)).reshape(-1) > 0      # (H_out*S,)
+    ent = np.flatnonzero(live)
+    rows = lat_idx.reshape(-1)[ent]
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=h_in)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)])
+    return row_ptr.astype(np.int32), ent[order].astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # Convolution application
 # ---------------------------------------------------------------------------
@@ -345,6 +371,13 @@ def init_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
         bias.zero_()
 
 
+def _contract_merge(eq: str, x: torch.Tensor, w: torch.Tensor,
+                    buffers: dict, stride: int, zshape: tuple[int, ...]
+                    ) -> torch.Tensor:
+    z = contract(x, buffers, stride)
+    return torch.einsum(eq, z.reshape(zshape + z.shape[-3:]), w)
+
+
 def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
                      x: torch.Tensor, buffers: dict, stride: int,
                      groups: int = 1, chunk_bytes: int = Z_CHUNK_BYTES
@@ -356,6 +389,11 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
     merged with its weights before the next.  ``groups == 1`` accumulates
     the output over C_in chunks; grouped convs chunk whole groups and the
     leading batch.  Only the order of the sums changes with the chunking.
+
+    With gradients on, each chunk's contraction and merge run under
+    ``torch.utils.checkpoint``: autograd keeps only the chunk's input and
+    recomputes its contraction in backward (the kept contractions would
+    be 18.6 GB per member at the fcn3_full decoder).
     """
     c_out, cpg, k = weight.shape
     lead = x.shape[:-3]
@@ -365,6 +403,15 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
     n = xf.shape[0]
     planes = max(1, chunk_bytes // (4 * k * h_out * w_out))
     w = weight.float()
+    track = torch.is_grad_enabled() and (x.requires_grad
+                                         or weight.requires_grad)
+
+    def merged(eq, xc, wc, zshape=()):
+        if track:
+            return checkpoint(_contract_merge, eq, xc, wc, buffers, stride,
+                              zshape, use_reentrant=False)
+        return _contract_merge(eq, xc, wc, buffers, stride, zshape)
+
     y = torch.empty((n, c_out, h_out, w_out), dtype=torch.float32,
                     device=x.device)
     if groups == 1:
@@ -375,9 +422,10 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
             acc = None
             for c0 in range(0, c_in, cb):
                 c1 = min(c_in, c0 + cb)
-                z = contract(xf[n0:n1, c0:c1], buffers, stride)
-                part = torch.einsum("nikhw,oik->nohw", z, w[:, c0:c1])
-                acc = part if acc is None else acc.add_(part)
+                part = merged("nikhw,oik->nohw", xf[n0:n1, c0:c1],
+                              w[:, c0:c1], (n1 - n0, c1 - c0))
+                acc = (part if acc is None
+                       else acc + part if track else acc.add_(part))
             y[n0:n1] = acc
     else:
         opg = c_out // groups
@@ -387,10 +435,10 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
             n1 = min(n, n0 + nb)
             for g0 in range(0, groups, gb):
                 g1 = min(groups, g0 + gb)
-                z = contract(xf[n0:n1, g0 * cpg:g1 * cpg], buffers, stride)
-                z = z.reshape((n1 - n0, g1 - g0, cpg) + z.shape[-3:])
                 wg = w[g0 * opg:g1 * opg].reshape(g1 - g0, opg, cpg, k)
-                out = torch.einsum("ngikhw,goik->ngohw", z, wg)
+                out = merged("ngikhw,goik->ngohw",
+                             xf[n0:n1, g0 * cpg:g1 * cpg], wg,
+                             (n1 - n0, g1 - g0, cpg))
                 y[n0:n1, g0 * opg:g1 * opg] = out.reshape(
                     (n1 - n0, (g1 - g0) * opg, h_out, w_out))
     if bias is not None:

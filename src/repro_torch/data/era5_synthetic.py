@@ -1,4 +1,5 @@
-"""Synthetic ERA5-like states and auxiliary fields, generated on the device.
+"""Synthetic ERA5-like states and auxiliary fields, generated on the device,
+and the sharded batch loader training reads them through.
 
 Each variable is a Gaussian random field with a band-limited atmospheric
 power-law spectrum, a zonally varying climatology and AR(1) persistence
@@ -137,3 +138,67 @@ class SyntheticERA5:
         mask = torch.zeros((c,), dtype=torch.bool, device=self.dev)
         mask[torch.from_numpy(self.cfg.water_channel_indices())] = True
         return torch.where(mask[:, None, None], F.softplus(x), x)
+
+    def sample_pair(self, sample_idx: int, rollout: int = 1
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(input (C,H,W), targets (T,C,H,W), aux (T, n_aux, H, W))."""
+        x0 = self.state(sample_idx, 0)
+        targets = torch.stack([self.state(sample_idx, k)
+                               for k in range(1, rollout + 1)])
+        t0 = (sample_idx % 1460) * 6.0
+        aux = torch.stack([self.aux_fields(t0 + 6.0 * k)
+                           for k in range(rollout)])
+        return x0, targets, aux
+
+
+@dataclasses.dataclass
+class Loader:
+    """Sharded batch iterator.
+
+    Each data-parallel rank generates only its ``rank``-th slice of the
+    global batch; with ``lat_shard = (i, n)`` it also keeps only its
+    latitude band, as the JAX package's loader does.
+    """
+
+    ds: SyntheticERA5
+    global_batch: int
+    rollout: int = 1
+    rank: int = 0
+    world: int = 1
+    lat_shard: tuple[int, int] = (0, 1)
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.global_batch % self.world:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split over {self.world} ranks")
+        self._step = 0
+
+    def __iter__(self):
+        self._step = 0
+        return self
+
+    def local_batch(self) -> int:
+        """Samples this rank generates per batch."""
+        return self.global_batch // self.world
+
+    def __next__(self) -> dict[str, torch.Tensor]:
+        b = self.local_batch()
+        idx0 = self.seed * 10_000_000 + self._step * self.global_batch
+        ids = [idx0 + self.rank * b + j for j in range(b)]
+        xs, ys, aux = zip(*(self.ds.sample_pair(i, self.rollout)
+                            for i in ids))
+        batch = {"state": torch.stack(xs), "targets": torch.stack(ys),
+                 "aux": torch.stack(aux)}
+        i, n = self.lat_shard
+        if n > 1:
+            h = batch["state"].shape[-2]
+            lo, hi = (h * i) // n, (h * (i + 1)) // n
+            batch = {k: v[..., lo:hi, :] for k, v in batch.items()}
+        self._step += 1
+        return batch
+
+
+def climatology(ds: SyntheticERA5, n: int = 8) -> torch.Tensor:
+    """(C, H, W) climatological mean over ``n`` deterministic samples."""
+    return torch.stack([ds.state(i) for i in range(n)]).mean(dim=0)

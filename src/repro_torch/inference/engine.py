@@ -93,13 +93,15 @@ def _concat_results(parts: list[ForecastResult]) -> ForecastResult:
 
 
 class NoiseSource(Protocol):
-    """Where the noise process's white draws come from."""
+    """Where the noise process's white draws come from (the engine's
+    rollout and the trainer's both read them)."""
 
-    def initial(self, engine: "ForecastEngine") -> torch.Tensor:
-        """z_hat at lead 0: (E, n_proc, L, M) complex64."""
+    def initial(self, model: FCN3, batch_shape: tuple[int, ...],
+                buffers: dict) -> torch.Tensor:
+        """z_hat at lead 0: (*batch_shape, n_proc, L, M) complex64."""
 
-    def eta(self, engine: "ForecastEngine", n: int,
-            z_hat: torch.Tensor) -> torch.Tensor:
+    def eta(self, model: FCN3, n: int, z_hat: torch.Tensor, buffers: dict
+            ) -> torch.Tensor:
         """The white draw of the AR(1) update after lead ``n``."""
 
 
@@ -109,29 +111,33 @@ class GeneratorNoise:
     def __init__(self, generator: torch.Generator):
         self.generator = generator
 
-    def initial(self, engine):
+    def initial(self, model, batch_shape, buffers):
         """Initial noise state drawn from the generator."""
-        return engine.model.noise.init_state(
-            self.generator, (engine.cfg.members,), engine.noise_buffers)
+        return model.noise.init_state(self.generator, batch_shape, buffers)
 
-    def eta(self, engine, n, z_hat):
+    def eta(self, model, n, z_hat, buffers):
         """White spectral draws for lead ``n``."""
-        return engine.model.noise.sample_coeffs(
-            self.generator, z_hat.shape[:-3], engine.noise_buffers)
+        return model.noise.sample_coeffs(self.generator, z_hat.shape[:-3],
+                                         buffers)
 
 
 class InjectedNoise:
-    """Given draws: ``z_hat0`` (E, n_proc, L, M) and ``etas[n]`` per lead."""
+    """Given draws: ``z_hat0`` (*batch, n_proc, L, M) and ``etas[n]`` per
+    lead."""
 
     def __init__(self, z_hat0, etas):
         self.z_hat0 = z_hat0
         self.etas = etas
 
-    def initial(self, engine):
+    def initial(self, model, batch_shape, buffers):
         """The injected initial noise state."""
-        return torch.as_tensor(self.z_hat0).to(engine.model.device)
+        z = torch.as_tensor(self.z_hat0).to(model.device)
+        if tuple(z.shape[:-3]) != tuple(batch_shape):
+            raise ValueError(f"injected z_hat0 has batch {tuple(z.shape[:-3])}"
+                             f", the caller wants {tuple(batch_shape)}")
+        return z
 
-    def eta(self, engine, n, z_hat):
+    def eta(self, model, n, z_hat, buffers):
         """The injected white draws of lead ``n``."""
         return torch.as_tensor(self.etas[n]).to(z_hat.device)
 
@@ -161,7 +167,7 @@ class ForecastEngine:
         e = self.cfg.members
         s = state0.to(self.model.device).float().expand(
             (e,) + tuple(state0.shape)).contiguous()
-        return s, noise.initial(self)
+        return s, noise.initial(self.model, (e,), self.noise_buffers)
 
     def noise_fields(self, z_hat: torch.Tensor) -> torch.Tensor:
         """Grid-space conditioning noise as the step sees it."""
@@ -215,7 +221,8 @@ class ForecastEngine:
             with torch.inference_mode():
                 per_lead: list[dict] = []
                 for n in range(start, stop):
-                    eta = noise.eta(self, n, z_hat)
+                    eta = noise.eta(self.model, n, z_hat,
+                                    self.noise_buffers)
                     s, z_hat = self.step(buffers, s, z_hat,
                                          self._at(aux, n, dev), eta)
                     if truth is not None:

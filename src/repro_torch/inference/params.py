@@ -1,11 +1,13 @@
 """Forecast-model parameters: calibrated init, or weights carried over
-from the JAX package.
+from and to the JAX package.
 
 ``params_from_numpy`` takes the JAX parameter tree flattened to numpy
 arrays keyed by tree path (``enc_atmos/weight``, ``blocks/3/mlp/w1``,
-...) and returns the port's ``state_dict`` names; ``load_arrays_npz``
-reads the reference checkpoint format (``arrays.npz`` with keys prefixed
-``params/``).
+...) and returns the port's ``state_dict`` names; ``params_to_numpy``
+goes the other way, and ``opt_state_to_numpy`` / ``opt_state_from_numpy``
+do the same for an Adam state (``step``, ``mu/<path>``, ``nu/<path>``).
+``load_arrays_npz`` reads the reference checkpoint format (``arrays.npz``
+with keys prefixed ``params/``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,34 @@ def params_from_numpy(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """JAX tree-path keys -> the port's ``state_dict`` keys (``/`` -> ``.``)."""
     return {key.replace("/", "."): torch.from_numpy(np.array(val))
             for key, val in flat.items()}
+
+
+def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's names -> JAX tree-path keys (``.`` -> ``/``), on the host."""
+    return {key.replace(".", "/"): val.detach().cpu().numpy()
+            for key, val in params.items()}
+
+
+def opt_state_to_numpy(state: dict) -> dict[str, np.ndarray]:
+    """An Adam state as the JAX package flattens it: ``step`` (int32
+    scalar), ``mu/<path>`` and ``nu/<path>``."""
+    flat = {"step": state["step"].detach().cpu().numpy().astype(np.int32)}
+    for part in ("mu", "nu"):
+        flat.update({f"{part}/{k}": v for k, v in
+                     params_to_numpy(state[part]).items()})
+    return flat
+
+
+def opt_state_from_numpy(flat: dict[str, np.ndarray],
+                         device: str | torch.device = "cpu") -> dict:
+    """The inverse of ``opt_state_to_numpy``, on ``device``."""
+    def part(name: str) -> dict[str, torch.Tensor]:
+        sub = {k[len(name) + 1:]: v for k, v in flat.items()
+               if k.startswith(name + "/")}
+        return {k: v.to(device) for k, v in params_from_numpy(sub).items()}
+
+    step = torch.as_tensor(np.asarray(flat["step"]), dtype=torch.int32)
+    return {"step": step.to(device), "mu": part("mu"), "nu": part("nu")}
 
 
 def load_arrays_npz(path: str) -> dict[str, np.ndarray]:

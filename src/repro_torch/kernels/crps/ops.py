@@ -1,0 +1,138 @@
+"""Wrappers of the hand-written CRPS CUDA kernels (``csrc/crps.cu``) and
+the autograd function that pairs them.
+
+On CPU tensors each wrapper computes its plain version (``ref.py``); on
+CUDA tensors it launches its kernel or raises.  ``crps_pointwise`` is the
+counterpart of the JAX package's ``crps_pointwise_pallas``; the nodal
+average of ``nodal_crps_pallas`` is ``core.crps.nodal_crps_loss``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.crps.ref import (crps_coeff, crps_fused_bwd_ref,
+                                          crps_fused_ref)
+
+#: forward / backward kernel launches since the last ``reset_launches``
+launches = 0
+bwd_launches = 0
+#: the largest ensemble the kernels take (members live in registers);
+#: must equal ``E_MAX`` in ``csrc/crps.cu``
+MAX_MEMBERS = 16
+
+
+def reset_launches() -> None:
+    """Set both launch counts to 0."""
+    global launches, bwd_launches
+    launches = bwd_launches = 0
+
+
+def _lib():
+    lib = build.load_library("crps")
+    fwd, bwd = lib.crps_fwd_launch, lib.crps_bwd_launch
+    fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_float, ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_float, ctypes.c_void_p])
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check(ens: torch.Tensor, obs: torch.Tensor,
+           g: torch.Tensor | None = None) -> None:
+    named = [("ens", ens), ("obs", obs)] + ([("g", g)] if g is not None
+                                            else [])
+    if ens.dim() != 2 or any(tuple(t.shape) != (ens.shape[1],)
+                             for _, t in named[1:]):
+        raise ValueError(f"crps_fused wants ens (E, N) and obs, g (N,), got "
+                         f"{[tuple(t.shape) for _, t in named]}")
+    e = ens.shape[0]
+    if not 1 <= e <= MAX_MEMBERS:
+        raise ValueError(f"crps_fused: the kernel holds at most MAX_MEMBERS="
+                         f"{MAX_MEMBERS} members in registers, got E={e}")
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"crps_fused: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_cuda or t.device != ens.device:
+            raise ValueError(f"crps_fused: {name} must be on {ens.device}, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"crps_fused: {name} must be contiguous")
+
+
+def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
+               ) -> torch.Tensor:
+    """Pointwise ensemble CRPS: ens (E, N), obs (N,) -> (N,) float32."""
+    global launches
+    if ens.device.type == "cpu" and obs.device.type == "cpu":
+        return crps_fused_ref(ens, obs, fair)
+    _check(ens, obs)
+    e, n = ens.shape
+    out = torch.empty((n,), dtype=torch.float32, device=ens.device)
+    if n == 0:
+        return out
+    fwd, _ = _lib()
+    stream = torch.cuda.current_stream(ens.device).cuda_stream
+    err = fwd(ens.data_ptr(), obs.data_ptr(), out.data_ptr(), e, n,
+              crps_coeff(e, fair), stream)
+    build.check_launch(err, "crps_fused")
+    launches += 1
+    return out
+
+
+def crps_fused_bwd(g: torch.Tensor, ens: torch.Tensor, obs: torch.Tensor,
+                   fair: bool = False) -> torch.Tensor:
+    """Gradient of ``sum(g * crps_fused(ens, obs))`` w.r.t. ens: (E, N)."""
+    global bwd_launches
+    if all(t.device.type == "cpu" for t in (g, ens, obs)):
+        return crps_fused_bwd_ref(g, ens, obs, fair)
+    _check(ens, obs, g)
+    e, n = ens.shape
+    grad = torch.empty((e, n), dtype=torch.float32, device=ens.device)
+    if n == 0:
+        return grad
+    _, bwd = _lib()
+    stream = torch.cuda.current_stream(ens.device).cuda_stream
+    err = bwd(g.data_ptr(), ens.data_ptr(), obs.data_ptr(), grad.data_ptr(),
+              e, n, crps_coeff(e, fair), stream)
+    build.check_launch(err, "crps_fused_bwd")
+    bwd_launches += 1
+    return grad
+
+
+class _CRPS(torch.autograd.Function):
+    """``crps_fused`` with ``crps_fused_bwd`` as its backward; the
+    observations get no gradient (they are data)."""
+
+    @staticmethod
+    def forward(ctx, ens, obs, fair):
+        ctx.save_for_backward(ens, obs)
+        ctx.fair = fair
+        return crps_fused(ens, obs, fair)
+
+    @staticmethod
+    def backward(ctx, g):
+        ens, obs = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = crps_fused_bwd(g.contiguous(), ens, obs, ctx.fair)
+        return grad, None, None
+
+
+def crps_pointwise(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
+                   ) -> torch.Tensor:
+    """Drop-in for ``core.crps.crps_ensemble`` with the ensemble on dim 0.
+
+    ens: (E, ...); obs: (...) -> (...) float32, through the kernels in
+    both directions.
+    """
+    e = ens.shape[0]
+    flat = ens.float().reshape(e, -1).contiguous()
+    out = _CRPS.apply(flat, obs.float().reshape(-1).contiguous(), fair)
+    return out.reshape(obs.shape)
+

@@ -1,9 +1,10 @@
-"""Wrapper of the hand-written banded DISCO CUDA kernel
-(``csrc/disco_band.cu``).
+"""Wrappers of the hand-written banded DISCO CUDA kernels: the
+contraction (``csrc/disco_band.cu``) and its transpose, the gradient in x
+(``csrc/disco_band_bwd.cu``).
 
-On CPU tensors it computes the plain version
-(``ref.disco_gather_band_contract_ref``); on CUDA tensors it launches the
-kernel or raises.
+On CPU tensors each computes its plain version
+(``ref.disco_gather_band_contract_ref``, ``ref.disco_band_transpose_ref``);
+on CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.disco.ref import disco_gather_band_contract_ref
+from repro_torch.kernels.disco.ref import (disco_band_transpose_ref,
+                                           disco_gather_band_contract_ref)
 
-#: kernel launches since the last ``reset_launches`` (a plain integer).
+#: contraction / transpose launches since the last ``reset_launches``
 launches = 0
+transpose_launches = 0
 #: shared memory one block may use on the H100
 _MAX_SMEM = 227 * 1024
 #: the kernel's tile: longitudes per block, planes per block, padded K
@@ -24,9 +27,9 @@ _TW, _TBP, _KP = 128, 8, 8
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    global launches
-    launches = 0
+    """Set both launch counts to 0."""
+    global launches, transpose_launches
+    launches = transpose_launches = 0
 
 
 def _lib():
@@ -41,6 +44,17 @@ def _lib():
 def smem_bytes(d: int, stride: int) -> int:
     """Dynamic shared memory one block of the kernel uses."""
     return 4 * (d * _KP + _TBP * ((_TW - 1) * stride + d))
+
+
+def _check_tensors(what: str, ref: torch.Tensor, named) -> None:
+    for name, t, dt in named:
+        if t.dtype != dt:
+            raise TypeError(f"{what}: {name} must be {dt}, got {t.dtype}")
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be on {ref.device}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def _check(x, psi_band, lat_idx, stride) -> None:
@@ -61,18 +75,10 @@ def _check(x, psi_band, lat_idx, stride) -> None:
     if smem_bytes(d, stride) > _MAX_SMEM:
         raise ValueError(f"band width D={d} at stride {stride} needs more "
                          "shared memory than a block has")
-    for name, t, dt in (("x", x, torch.float32),
-                        ("psi_band", psi_band, torch.float32),
-                        ("lat_idx", lat_idx, torch.int32)):
-        if t.dtype != dt:
-            raise TypeError(f"disco_band_contract: {name} must be {dt}, "
-                            f"got {t.dtype}")
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"disco_band_contract: {name} must be on "
-                             f"{x.device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"disco_band_contract: {name} must be "
-                             "contiguous")
+    _check_tensors("disco_band_contract", x,
+                   (("x", x, torch.float32),
+                    ("psi_band", psi_band, torch.float32),
+                    ("lat_idx", lat_idx, torch.int32)))
     if (x.shape[0] + _TBP - 1) // _TBP > 65535 or h_out > 65535:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
 
@@ -103,3 +109,68 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
     build.check_launch(err, "disco_band_contract")
     launches += 1
     return out
+
+
+def _bwd_lib():
+    lib = build.load_library("disco_band_bwd")
+    fn = lib.disco_band_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def transpose_smem_bytes(d: int, stride: int) -> int:
+    """Dynamic shared memory one block of the transpose kernel uses
+    (``smem_bytes`` in ``csrc/disco_band_bwd.cu``)."""
+    return 4 * (d + _TBP * ((_TW + d - 1) // stride + 2))
+
+
+def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
+                         lat_idx: torch.Tensor, row_ptr: torch.Tensor,
+                         row_ent: torch.Tensor, h_in: int, stride: int = 1
+                         ) -> torch.Tensor:
+    """Gradient of ``disco_band_contract`` in x, in one kernel.
+
+    g: (B, K, H_out, W_out) float32 -> (B, h_in, W_out * stride) float32.
+    ``row_ptr`` (h_in + 1,) / ``row_ent`` int32 list, for each input row
+    r, the entries ``h * S + s`` with ``lat_idx[h, s] == r`` and a nonzero
+    psi slice (``core.sphere.disco.band_row_lists``); the kernel reads
+    them, the plain version ``ref.disco_band_transpose_ref`` reads
+    ``lat_idx``.  Deterministic: every output is written once.
+    """
+    global transpose_launches
+    if all(t.device.type == "cpu" for t in (g, psi_band, lat_idx)):
+        return disco_band_transpose_ref(g, psi_band, lat_idx, h_in, stride)
+    if g.dim() != 4 or psi_band.dim() != 4:
+        raise ValueError(f"disco_band_transpose wants g (B,K,H_out,W_out) "
+                         f"and psi_band (K,H_out,S,D), got {tuple(g.shape)}, "
+                         f"{tuple(psi_band.shape)}")
+    b, k, h_out, w_out = g.shape
+    _, _, s, d = psi_band.shape
+    if psi_band.shape[:2] != (k, h_out) or tuple(row_ptr.shape) != (h_in + 1,):
+        raise ValueError(f"disco_band_transpose: g {tuple(g.shape)}, psi_band "
+                         f"{tuple(psi_band.shape)} and row_ptr "
+                         f"{tuple(row_ptr.shape)} (h_in={h_in}) disagree")
+    if transpose_smem_bytes(d, stride) > _MAX_SMEM:
+        raise ValueError(f"band width D={d} at stride {stride} needs more "
+                         "shared memory than a block has")
+    _check_tensors("disco_band_transpose", g,
+                   (("g", g, torch.float32),
+                    ("psi_band", psi_band, torch.float32),
+                    ("row_ptr", row_ptr, torch.int32),
+                    ("row_ent", row_ent, torch.int32)))
+    if h_in > 65535 or (b + _TBP - 1) // _TBP > 65535:
+        raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's grid")
+    w_in = w_out * stride
+    gx = torch.empty((b, h_in, w_in), dtype=torch.float32, device=g.device)
+    if gx.numel() == 0:
+        return gx
+    fn = _bwd_lib()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(g.data_ptr(), psi_band.data_ptr(), row_ptr.data_ptr(),
+             row_ent.data_ptr(), gx.data_ptr(), b, k, h_out, w_out, h_in,
+             w_in, s, d, stride, stream)
+    build.check_launch(err, "disco_band_transpose")
+    transpose_launches += 1
+    return gx

@@ -1,10 +1,13 @@
 """Kernel path of the SHT Legendre stage and the banded DISCO contraction.
 
-Each kernel call sits in a ``torch.autograd.Function`` whose backward
-runs the plain version (the counterpart of the JAX package's
-``jax.custom_vjp`` pairs), so a model on the kernel path still has
-gradients.  The wrappers themselves decide CPU (plain version) versus
-CUDA (kernel launch) by where the tensors lie.
+Each kernel call sits in a ``torch.autograd.Function`` whose backward is
+a kernel too, through the same wrappers: the Legendre contraction's
+gradient in x is a Legendre contraction with the table transposed, and
+the band contraction's is its transpose (``disco_band_transpose``).  Both
+are linear in x, so neither saves x.  The tables, ``psi_band`` and the
+index buffers are constants: neither backward returns a gradient for
+them.  The wrappers themselves decide CPU (plain version) versus CUDA
+(kernel launch) by where the tensors lie.
 """
 
 from __future__ import annotations
@@ -17,48 +20,38 @@ from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import fourier
 from repro_torch.core.sphere import sht as shtlib
 from repro_torch.kernels.disco import ops as disco_ops
-from repro_torch.kernels.disco.ref import disco_gather_band_contract_ref
 from repro_torch.kernels.legendre import ops as legendre_ops
-from repro_torch.kernels.legendre.ref import legendre_contract_ref
-
-
-def _plain_vjp(fn, inputs, grad):
-    """Gradients of the plain version ``fn`` w.r.t. its float inputs."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(t.is_floating_point()
-                                            or t.is_complex())
-                  for t in inputs]
-        out = fn(*leaves)
-        wrt = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
-    return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 class _Legendre(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, table):
-        ctx.save_for_backward(x, table)
+        ctx.save_for_backward(table)
         return legendre_ops.legendre_contract(x, table)
 
     @staticmethod
     def backward(ctx, g):
-        return _plain_vjp(legendre_contract_ref, ctx.saved_tensors, g)
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (table,) = ctx.saved_tensors
+        return legendre_ops.legendre_contract(g.contiguous(),
+                                              table.transpose(0, 1)), None
 
 
 class _BandContract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, psi_band, lat_idx, stride):
-        ctx.save_for_backward(x, psi_band, lat_idx)
-        ctx.stride = stride
+    def forward(ctx, x, psi_band, lat_idx, row_ptr, row_ent, stride):
+        ctx.save_for_backward(psi_band, lat_idx, row_ptr, row_ent)
+        ctx.stride, ctx.h_in = stride, x.shape[1]
         return disco_ops.disco_band_contract(x, psi_band, lat_idx, stride)
 
     @staticmethod
     def backward(ctx, g):
-        stride = ctx.stride
-        grads = _plain_vjp(
-            lambda x, p, i: disco_gather_band_contract_ref(x, p, i, stride),
-            ctx.saved_tensors, g)
-        return grads + (None,)
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = disco_ops.disco_band_transpose(
+                g.contiguous(), *ctx.saved_tensors, ctx.h_in, ctx.stride)
+        return gx, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +103,8 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     batch = x.shape[:-2]
     h_in, w_in = x.shape[-2:]
     xb = x.reshape((-1, h_in, w_in)).float().contiguous()
-    out = _BandContract.apply(xb, psi_band, lat_idx, stride)
+    out = _BandContract.apply(xb, psi_band, lat_idx, buffers["row_ptr"],
+                              buffers["row_ent"], stride)
     wrap_rows = buffers["wrap_rows"]
     if wrap_rows.numel():
         rows = lat_idx.index_select(0, wrap_rows)          # (Hw, S)

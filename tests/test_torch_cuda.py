@@ -12,8 +12,12 @@ import torch
 
 from repro_torch.core.sphere import disco as tdisco
 from repro_torch.core.sphere import grids as tgrids
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.crps import ops as crps_ops
+from repro_torch.kernels.crps.ref import crps_fused_bwd_ref, crps_fused_ref
 from repro_torch.kernels.disco import ops as disco_ops
-from repro_torch.kernels.disco.ref import disco_gather_band_contract_ref
+from repro_torch.kernels.disco.ref import (disco_band_transpose_ref,
+                                           disco_gather_band_contract_ref)
 from repro_torch.kernels.legendre import ops as legendre_ops
 from repro_torch.kernels.legendre.ref import legendre_contract_ref
 
@@ -98,3 +102,90 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
         disco_ops.disco_band_contract(
             torch.zeros((2, 16, 32), device=cuda), tb["psi_band"].cpu(),
             tb["lat_idx"], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+def test_cuda_disco_band_transpose_kernel(cuda, pair):
+    tp = _plan(pair)
+    tb = tp.banded_buffers(cuda)
+    h_in, w_in = pair[0][:2]
+    k, h_out = tb["psi_band"].shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g = torch.randn((11, k, h_out, w_in // tp.stride), generator=gen,
+                    device=cuda)
+    args = (tb["psi_band"], tb["lat_idx"], tb["row_ptr"], tb["row_ent"],
+            h_in, tp.stride)
+    before = disco_ops.transpose_launches
+    got = disco_ops.disco_band_transpose(g, *args)
+    again = disco_ops.disco_band_transpose(g, *args)
+    torch.cuda.synchronize()
+    assert disco_ops.transpose_launches == before + 2
+    assert torch.equal(got, again)          # no atomics: deterministic
+    ref = disco_band_transpose_ref(g, tb["psi_band"], tb["lat_idx"], h_in,
+                                   tp.stride)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fair", [False, True], ids=["biased", "fair"])
+@pytest.mark.parametrize("e,n", [(1, 1000), (2, 77777), (5, 300),
+                                 (16, 4099)])
+def test_cuda_crps_kernels(cuda, e, n, fair):
+    gen = torch.Generator(device=cuda).manual_seed(e)
+    ens = torch.randn((e, n), generator=gen, device=cuda)
+    obs = torch.randn((n,), generator=gen, device=cuda)
+    g = torch.randn((n,), generator=gen, device=cuda)
+    ens[:, :7] = ens[0, :7].clone()         # ties: sgn(0) = 0 in both
+    obs[:3] = ens[0, :3]
+    before = (crps_ops.launches, crps_ops.bwd_launches)
+    got = crps_ops.crps_fused(ens, obs, fair)
+    grad = crps_ops.crps_fused_bwd(g, ens, obs, fair)
+    torch.cuda.synchronize()
+    assert (crps_ops.launches, crps_ops.bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    torch.testing.assert_close(got, crps_fused_ref(ens, obs, fair),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, crps_fused_bwd_ref(g, ens, obs, fair),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_crps_refuses_too_many_members(cuda):
+    ens = torch.zeros((crps_ops.MAX_MEMBERS + 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="MAX_MEMBERS"):
+        crps_ops.crps_fused(ens, torch.zeros((8,), device=cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_runs_kernels(cuda):
+    # the autograd functions' backward launches the kernels and agrees
+    # with autograd through the plain versions on the same card
+    tp = _plan(PAIRS[0])
+    tb = tp.banded_buffers(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((3, 64, 128), generator=gen, device=cuda,
+                    requires_grad=True)
+    before = disco_ops.transpose_launches
+    out = dispatch._BandContract.apply(x, tb["psi_band"], tb["lat_idx"],
+                                       tb["row_ptr"], tb["row_ent"],
+                                       tp.stride)
+    (gx,) = torch.autograd.grad(out.square().sum(), x)
+    xr = x.detach().clone().requires_grad_()
+    ref = disco_gather_band_contract_ref(xr, tb["psi_band"], tb["lat_idx"],
+                                         tp.stride)
+    (gr,) = torch.autograd.grad(ref.square().sum(), xr)
+    assert disco_ops.transpose_launches == before + 1
+    torch.testing.assert_close(gx, gr, rtol=1e-4, atol=1e-4)
+
+    xc = torch.randn((4, 16, 9), generator=gen, device=cuda,
+                     dtype=torch.complex64, requires_grad=True)
+    t = torch.randn((16, 12, 9), generator=gen, device=cuda)
+    before = legendre_ops.launches
+    (gl,) = torch.autograd.grad(
+        dispatch._Legendre.apply(xc, t).abs().square().sum(), xc)
+    assert legendre_ops.launches == before + 2
+    xr = xc.detach().clone().requires_grad_()
+    (glr,) = torch.autograd.grad(
+        legendre_contract_ref(xr, t).abs().square().sum(), xr)
+    torch.testing.assert_close(gl, glr, rtol=1e-5, atol=1e-4)

@@ -2,8 +2,9 @@
 
 * importing every ``repro_torch`` module loads neither ``jax`` nor any
   module of the JAX package;
-* the serve entry point without ``--device cpu`` refuses a machine that
-  has no CUDA card, and with it prints one line per lead.
+* the serve and train entry points without ``--device cpu`` refuse a
+  machine that has no CUDA card; with it, serve prints one line per lead
+  and train one line per step.
 """
 
 import os
@@ -81,3 +82,26 @@ def test_serve_cli_on_cpu_prints_each_lead():
     for ln, hours in zip(leads, ("6h", "12h")):
         assert hours in ln and "CRPS=" in ln and "ensRMSE=" in ln \
             and "SSR=" in ln
+
+
+def test_train_cli_without_device_flag_raises_on_cpu_only_machine():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    proc = _run("", "-m", "repro_torch.launch.train", "--config", "smoke",
+                "--steps", "1")
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert "step" not in proc.stdout
+
+
+def test_train_cli_on_cpu_prints_each_step_and_checkpoints(tmp_path):
+    proc = _run("", "-m", "repro_torch.launch.train", "--config", "smoke",
+                "--steps", "2", "--device", "cpu", "--ckpt-dir",
+                str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step")]
+    assert len(steps) == 2
+    for ln in steps:
+        assert all(k in ln for k in ("loss=", "nodal=", "spectral=", "|g|="))
+    assert (tmp_path / "ckpt_00000002" / "arrays.npz").exists()
+    assert (tmp_path / "ckpt_00000002" / "manifest.json").exists()
