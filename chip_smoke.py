@@ -25,14 +25,25 @@ non-zero exit code and no result line:
    been called on a CUDA tensor;
 5. a small-input gradient check: one ``fcn3_smoke`` train step's
    gradients through the kernels against the reference path's;
-6. every kernel against its plain torch version, on the card: the
+6. the LM path: ``repro_torch.launch.lm`` at the full width of
+   ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
+   random weights): one prefill at ``prefill_32k`` with its batch cut
+   32 -> 2 (the SSD launch count set to 0 just before and read just
+   after: exactly 24, one per layer; logits finite), a second prefill
+   for the steady time, 32 decode steps at ``decode_32k``'s batch of
+   128 from an empty cache, and the prefill's logits for 256 tokens of
+   2 sequences against 256 recurrent decode steps (``LM_CONSIST_TOL``);
+   no plain version may run on a CUDA tensor; then the ``mamba2-130m``
+   smoke widths with the SSD kernel against the reference scan;
+7. every kernel against its plain torch version, on the card: the
    forward kernels at each distinct shape the forecast launched them
    with, the transpose and CRPS kernels at each distinct shape training
-   launched them with; timings (CUDA events, median), the
-   ``library_ms`` yardstick (the transpose's only at the largest shape of
-   each geometry: it is far slower than the kernel, see PERF.md) and the
+   launched them with, the SSD kernel on the operands of the prefill's
+   first layer; timings (CUDA events, median), the ``library_ms``
+   yardstick (the transpose's only at the largest shape of each
+   geometry: it is far slower than the kernel, see PERF.md) and the
    least time the card could take (``bound_ms``);
-7. the ``kernels`` JSON line, then the result line.
+8. the ``kernels`` JSON line, then the result line.
 
 Exits non-zero without CUDA, and in a directory without the repository.
 """
@@ -72,6 +83,18 @@ TRAIN_STEPS = 2
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 #: CRPS kernel vs plain: relative error (a handful of fp32 terms)
 CRPS_REL_TOL = 1e-5
+#: the LM path: mamba2-130m at its published widths; prefill_32k with its
+#: global batch cut 32 -> 2 (logits 2 x 32768 x 50432 fp32 = 13.2 GB);
+#: decode_32k's batch of 128 for 32 steps from an empty cache
+LM_ARCH, LM_PREFILL_BATCH, LM_DECODE_STEPS = "mamba2-130m", 2, 32
+#: prefill (two chunks of 128, through the kernel) vs the recurrence, 256
+#: tokens of 2 sequences: max |diff| <= LM_CONSIST_TOL * max |logits|.
+#: Both paths are fp32 but sum in other orders: the chunked path takes
+#: exp(cs_l - cs_s) of cumsums that reach hundreds within a chunk (an
+#: absolute error of ~300 * 6e-8 = 2e-5 in the exponent), the recurrence
+#: multiplies 128 per-step decays; ~1e-5 relative per layer, through 24
+#: residual layers, with a margin of ~10x
+LM_CONSIST_TOKENS, LM_CONSIST_TOL = 256, 1e-3
 
 
 def log(msg: str) -> None:
@@ -110,21 +133,24 @@ class Recorder:
     """Wraps the kernel wrappers' module attributes to note the operands
     of every call (the wrappers still count the launches): the forward
     kernels at their largest batch per geometry, the transpose and CRPS
-    kernels at every distinct shape."""
+    kernels at every distinct shape, the SSD kernel at its first call."""
 
     def __init__(self):
         from repro_torch.kernels.crps import ops as crps_ops
         from repro_torch.kernels.disco import ops as disco_ops
         from repro_torch.kernels.legendre import ops as legendre_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
         self.disco: dict = {}
         self.legendre: dict = {}
         self.transpose: dict = {}
         self.crps: dict = {}
+        self.ssd: tuple | None = None
         self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (disco_ops, "disco_band_contract"),
             (disco_ops, "disco_band_transpose"),
             (legendre_ops, "legendre_contract"),
-            (crps_ops, "crps_fused"), (crps_ops, "crps_fused_bwd"))]
+            (crps_ops, "crps_fused"), (crps_ops, "crps_fused_bwd"),
+            (ssd_ops, "ssd_intra_chunk"))]
         orig = {name: fn for _, name, fn in self._saved}
 
         def disco(x, psi_band, lat_idx, stride=1):
@@ -167,10 +193,15 @@ class Recorder:
                                  {"shape": tuple(ens.shape), "fair": fair})
             return orig["crps_fused_bwd"](g, ens, obs, fair)
 
+        def ssd(x, da_cs, b_mat, c_mat):
+            if self.ssd is None:   # the operands of the first call
+                self.ssd = (x, da_cs, b_mat, c_mat)
+            return orig["ssd_intra_chunk"](x, da_cs, b_mat, c_mat)
+
         wrappers = {"disco_band_contract": disco,
                     "disco_band_transpose": transpose,
                     "legendre_contract": legendre, "crps_fused": crps,
-                    "crps_fused_bwd": crps_bwd}
+                    "crps_fused_bwd": crps_bwd, "ssd_intra_chunk": ssd}
         for mod, name, _ in self._saved:
             setattr(mod, name, wrappers[name])
 
@@ -194,7 +225,7 @@ class PlainGuard:
             importlib.import_module(info.name)
         self.counts: dict[str, int] = {}
         refs = {}
-        for mod in ("legendre", "disco", "crps"):
+        for mod in ("legendre", "disco", "crps", "ssd"):
             ref = importlib.import_module(f"repro_torch.kernels.{mod}.ref")
             for name, fn in vars(ref).items():
                 if (name.endswith("_ref") and callable(fn)
@@ -467,6 +498,144 @@ def check_crps(ent) -> list[dict]:
     return rows
 
 
+def check_ssd(ins, batch: int) -> dict:
+    """SSD intra-chunk kernel vs its plain version on the operands of the
+    prefill's first layer (``batch`` sequences); also times the chunked
+    scan around it and its inter-chunk loop.  No single torch call
+    computes the masked, decayed intra-chunk product: no yardstick."""
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    x, da_cs, b, c = ins
+    bc, l, h, p = x.shape
+    g, n = b.shape[2:]
+    got = ops.ssd_intra_chunk(x, da_cs, b, c)
+    torch.cuda.synchronize()
+    ref = ssd_intra_chunk_ref(x, da_cs, b, c)
+    torch.cuda.synchronize()
+    errs = [errors(a, r) for a, r in zip(got, ref)]
+    abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    states = got[1].reshape(batch, bc // batch, h, p, n)
+    del got, ref
+    ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, da_cs, b, c), reps=10)
+    plain_ms = cuda_ms(lambda: ssd_intra_chunk_ref(x, da_cs, b, c), reps=3)
+    # the scan around the kernel: its chunk loop, and the whole of it
+    decay = torch.exp(da_cs[:, -1, :]).reshape(batch, bc // batch, h)
+    init = torch.zeros_like(states[:, 0])
+    loop_ms = cuda_ms(lambda: ops.chunk_recurrence(states, decay, init),
+                      reps=5)
+    da = torch.diff(da_cs, dim=1, prepend=torch.zeros_like(da_cs[:, :1]))
+    seq = (batch, bc // batch * l)
+    chunked_ms = cuda_ms(lambda: ops.ssd_chunked_kernel(
+        x.reshape(seq + (h, p)), da.reshape(seq + (h,)),
+        b.reshape(seq + (g, n)), c.reshape(seq + (g, n)), l), reps=5)
+    del states, decay, init, da
+    taps = l * (l + 1) // 2
+    # the work the data needs: C B^T once per group on the s <= l taps,
+    # att @ X on those taps and the state product, per head
+    flops = 2.0 * bc * (g * taps * n + h * taps * p + h * l * p * n)
+    flops_dense = 2.0 * bc * h * (l * l * n + l * l * p + l * p * n)
+    nbytes = 4.0 * (2 * x.numel() + da_cs.numel() + 2 * b.numel()
+                    + bc * h * p * n)
+    row = dict(shape=f"x{tuple(x.shape)} B,C{tuple(b.shape)}", what="prefill",
+               max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+               plain_ms=plain_ms, library_ms=None, flops=flops,
+               flops_dense=flops_dense, bytes=nbytes,
+               chunk_loop_ms=loop_ms, chunked_scan_ms=chunked_ms,
+               **bound(flops, nbytes))
+    log(f"[kernel] ssd {row['shape']}: abs_err={abs_err:.3e} "
+        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"library_ms=none (no single torch call computes the masked, "
+        f"decayed intra-chunk product) bound_ms={row['bound_ms']:.3f} "
+        f"({row['bound_by']}) dense_tflops={flops_dense / ms / 1e9:.2f} "
+        f"chunk_loop_ms={loop_ms:.3f} chunked_scan_ms={chunked_ms:.3f}")
+    if not (finite and rel_err <= REL_TOL):
+        raise AssertionError(f"ssd: kernel disagrees with its plain version "
+                             f"(rel {rel_err:.3e}, finite={finite})")
+    return row
+
+
+def lm_small_input_check() -> float:
+    """mamba2-130m smoke widths on the card: the SSD kernel path vs the
+    reference scan, from the same weights and tokens."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.models.transformer import LM
+    cfg = archs.smoke_config(LM_ARCH)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(8))
+    outs = []
+    for mode in ("kernel", "reference"):
+        model = LM(cfg, device="cuda", kernels=KernelConfig(ssd=mode))
+        model.init(torch.Generator(device="cuda").manual_seed(9))
+        outs.append(model(tokens))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def lm_phase(report) -> dict:
+    """The mamba2-130m serving path at full width: prefill (counted),
+    prefill again (steady), decode, and prefill vs recurrence."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import lm as lm_mod
+    pre = shapes.INPUT_SHAPES["prefill_32k"]
+    dec = shapes.INPUT_SHAPES["decode_32k"]
+    t0 = time.time()
+    model = lm_mod.build_model(LM_ARCH, shape=pre.name, seed=0,
+                               device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    report(f"[lm] arch={cfg.name} layers={cfg.n_layers} "
+           f"d_model={cfg.d_model} vocab={cfg.padded_vocab} "
+           f"d_state={cfg.ssm.d_state} heads={cfg.ssm.n_heads} "
+           f"chunk={cfg.ssm.chunk} params={model.param_count()} "
+           f"setup_s={time.time() - t0:.1f}")
+    out = {"n_layers": cfg.n_layers}
+    ssd_ops.reset_launches()
+    first = lm_mod.run_prefill(model, LM_PREFILL_BATCH, pre.seq_len, seed=1,
+                               report=report)
+    out["launches"] = ssd_ops.launches
+    logits = first.pop("logits")
+    out["logits_shape"] = tuple(logits.shape)
+    out["logits_finite"] = bool(torch.isfinite(logits).all())
+    out["logits_max"] = float(logits.abs().max())
+    del logits
+    out["prefill"] = first
+    steady = lm_mod.run_prefill(model, LM_PREFILL_BATCH, pre.seq_len, seed=1,
+                                report=report)
+    del steady["logits"]
+    out["prefill_steady"] = steady
+    torch.cuda.empty_cache()
+    out["decode_finite"] = True
+    for key in ("decode", "decode_steady"):
+        d = lm_mod.run_decode(model, dec.global_batch, dec.seq_len,
+                              LM_DECODE_STEPS, seed=2, report=report)
+        out["decode_finite"] &= bool(torch.isfinite(d.pop("logits")).all())
+        del d["cache"]
+        out[key] = d
+    torch.cuda.empty_cache()
+    # prefill logits vs the recurrence over the same tokens
+    tokens = lm_mod.random_tokens(model, (2, LM_CONSIST_TOKENS), seed=3)
+    before = ssd_ops.launches
+    full = model(tokens)
+    out["consist_launches"] = ssd_ops.launches - before
+    cache = model.init_cache(2, LM_CONSIST_TOKENS)
+    diffs = []
+    for t in range(LM_CONSIST_TOKENS):
+        step, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+        diffs.append((step[:, 0] - full[:, t]).abs().max())
+    out["consist_err"] = float(torch.stack(diffs).max())
+    out["consist_scale"] = float(full.abs().max())
+    del model, full, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def bound(flops: float, nbytes: float) -> dict:
     """Least time on the card: the larger of operations and bytes."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
@@ -665,7 +834,6 @@ def main() -> int:
         lambda line: log(line if line.startswith("[") else f"[train] {line}"))
     train_rec.close()
     plain_calls = dict(guard.counts)
-    guard.close()
     for i, (h, sec) in enumerate(zip(summary["history"],
                                      summary["step_s"])):
         log(f"[train] step {i} loss={h['loss']:.6f} nodal={h['nodal_0']:.6f}"
@@ -702,9 +870,57 @@ def main() -> int:
         f"(rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
     torch.cuda.empty_cache()
 
-    # -- phase 6: kernels against their plain versions ---------------------
+    # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_rec = Recorder()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    lm = lm_phase(log)
+    lm_rec.close()
+    lm_plain_calls = dict(guard.counts)
+    guard.close()
+    pf, ps, dc, ds = (lm["prefill"], lm["prefill_steady"], lm["decode"],
+                      lm["decode_steady"])
+    consist_rel = lm["consist_err"] / lm["consist_scale"]
+    log(f"[lm] prefill batch={LM_PREFILL_BATCH} seq_len=32768: "
+        f"seconds={pf['seconds']:.3f} (steady {ps['seconds']:.3f}) "
+        f"tokens_per_s={pf['tokens_per_s']:.0f} (steady "
+        f"{ps['tokens_per_s']:.0f}) peak_mem_gb={pf['peak_mem_gb']} "
+        f"ssd_launches={lm['launches']} logits={lm['logits_shape']} "
+        f"finite={lm['logits_finite']} max_abs_logit={lm['logits_max']:.3f}")
+    log(f"[lm] decode batch=128 steps={LM_DECODE_STEPS}: "
+        f"ms_per_step={dc['ms_per_step']:.3f} (steady "
+        f"{ds['ms_per_step']:.3f}) tokens_per_s={dc['tokens_per_s']:.0f} "
+        f"(steady {ds['tokens_per_s']:.0f}) peak_mem_gb={dc['peak_mem_gb']} "
+        f"ssd_launches={dc['ssd_launches']} finite={lm['decode_finite']}")
+    log(f"[lm] prefill vs recurrence, 2 x {LM_CONSIST_TOKENS} tokens: "
+        f"max_abs_err={lm['consist_err']:.3e} max_abs_logit="
+        f"{lm['consist_scale']:.3f} rel={consist_rel:.3e} (bar "
+        f"{LM_CONSIST_TOL:g}) ssd_launches={lm['consist_launches']} "
+        f"plain_calls_on_cuda={lm_plain_calls}")
+    if lm["launches"] != lm["n_layers"]:
+        raise AssertionError(f"SSD kernel launched {lm['launches']} times in "
+                             f"one prefill, want one per layer")
+    if lm["logits_shape"] != (LM_PREFILL_BATCH, 32768, 50432) or not (
+            lm["logits_finite"] and lm["decode_finite"]):
+        raise AssertionError(f"LM logits wrong shape or not finite: {lm}")
+    if not consist_rel <= LM_CONSIST_TOL:
+        raise AssertionError(f"prefill and recurrence disagree: rel "
+                             f"{consist_rel:.3e} > {LM_CONSIST_TOL}")
+    if any(lm_plain_calls.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors on the LM "
+                             f"path: {lm_plain_calls}")
+    lerr = lm_small_input_check()
+    log(f"[check] {LM_ARCH} smoke widths, SSD kernel vs reference scan on the "
+        f"card: max_abs_err={lerr:.3e} (rtol=1e-4, atol=1e-5)")
+    torch.cuda.empty_cache()
+
+    # -- phase 7: kernels against their plain versions ---------------------
     rows = {"legendre_contract": [], "disco_band_contract": [],
-            "disco_band_transpose": [], "crps_fused": []}
+            "disco_band_transpose": [], "crps_fused": [],
+            "ssd_intra_chunk": [check_ssd(lm_rec.ssd, LM_PREFILL_BATCH)]}
+    lm_rec.ssd = None
+    torch.cuda.empty_cache()
     for ent in rec.legendre.values():
         # the inverse SHT passes pct as a transposed (L, H, M) view
         what = "forward" if ent["table"].is_contiguous() else "inverse"
@@ -742,19 +958,25 @@ def main() -> int:
                                  "src/repro/kernels/disco/disco.py:110"),
         "crps_fused": ("cuda", "src/repro_torch/csrc/crps.cu",
                        "src/repro/kernels/crps/crps.py:67"),
+        "ssd_intra_chunk": ("cuda", "src/repro_torch/csrc/ssd.cu",
+                            "src/repro/kernels/ssd/ssd.py:106"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
         fwd = [r for r in rows[name] if r["what"] != "backward"]
         top = max(fwd, key=lambda r: r["flops"])
         by_path = {"serve": launches.get(name, 0),
-                   "train": summary["launches"][name]}
+                   "train": summary["launches"].get(name, 0),
+                   "lm_prefill": lm["launches"] if name == "ssd_intra_chunk"
+                   else 0}
         ent = {
             "name": name, "route": route, "source": source,
-            "replaces": replaces,
-            # the forward kernels' main path is the forecast; the
-            # transpose and CRPS kernels run on the training path only
-            "launches": by_path["serve"] or by_path["train"],
+            "replaces": replaces, "tpu_kernel": replaces,
+            # each kernel's main path: the forward kernels' is the
+            # forecast, the transpose and CRPS kernels' is training, the
+            # SSD kernel's is the LM prefill
+            "launches": (by_path["serve"] or by_path["train"]
+                         or by_path["lm_prefill"]),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],

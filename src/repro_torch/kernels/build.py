@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` (``build/`` is git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("legendre", "disco_band", "disco_band_bwd", "crps")
+SOURCES = ("legendre", "disco_band", "disco_band_bwd", "crps", "ssd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Kernel path of the SHT Legendre stage and the banded DISCO contraction.
+"""Kernel path of the SHT Legendre stage, the banded DISCO contraction and
+the chunked SSD scan.
 
 Each kernel call sits in a ``torch.autograd.Function`` whose backward is
 a kernel too, through the same wrappers: the Legendre contraction's
@@ -7,7 +8,8 @@ the band contraction's is its transpose (``disco_band_transpose``).  Both
 are linear in x, so neither saves x.  The tables, ``psi_band`` and the
 index buffers are constants: neither backward returns a gradient for
 them.  The wrappers themselves decide CPU (plain version) versus CUDA
-(kernel launch) by where the tensors lie.
+(kernel launch) by where the tensors lie.  The SSD kernel has no
+backward yet (ROADMAP A13): ``ssd_chunked`` serves the prefill only.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ import torch
 from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import fourier
 from repro_torch.core.sphere import sht as shtlib
+from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.disco import ops as disco_ops
 from repro_torch.kernels.legendre import ops as legendre_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models import ssm as ssmlib
 
 
 class _Legendre(torch.autograd.Function):
@@ -112,3 +117,20 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
         outw = discolib.fft_correlate(xw, buffers["psi_wrap"], stride)
         out.index_copy_(2, wrap_rows, outw)
     return out.reshape(batch + (k, h_out, w_in // stride))
+
+
+# ---------------------------------------------------------------------------
+# Chunked SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
+                c_mat: torch.Tensor, chunk: int, kernels: KernelConfig,
+                initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan on the path ``kernels.ssd`` names: the
+    intra-chunk kernel (``ssd_chunked_kernel``) or the plain einsum scan
+    (``models.ssm.ssd_chunked``).  Same contract as both."""
+    if kernels.ssd == "kernel":
+        return ssd_ops.ssd_chunked_kernel(x, da, b_mat, c_mat, chunk,
+                                          initial_state)
+    return ssmlib.ssd_chunked(x, da, b_mat, c_mat, chunk, initial_state)

@@ -1,0 +1,183 @@
+"""Wrapper of the hand-written SSD intra-chunk CUDA kernel
+(``csrc/ssd.cu``) and the chunked scan around it.
+
+``ssd_intra_chunk`` computes its plain version (``ref.py``) on CPU
+tensors and launches the kernel on CUDA tensors, or raises.  It has no
+backward: LM training waits for an SSD backward kernel (ROADMAP A13), so
+a CUDA input that requires grad is refused rather than differentiated
+through a plain version.  ``ssd_chunked_kernel`` is the counterpart of
+the JAX package's ``ssd_chunked_pallas``: the within-chunk cumsum, the
+recurrence over chunks and the incoming-state term stay plain torch, as
+the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+#: kernel launches since the last ``reset_launches`` (a plain integer).
+launches = 0
+#: the largest chunk, head dim and state dim the kernel takes; must equal
+#: ``L_MAX``, ``P_MAX`` and ``N_MAX`` in ``csrc/ssd.cu``
+L_MAX, P_MAX, N_MAX = 128, 64, 128
+
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    global launches
+    launches = 0
+
+
+def _lib():
+    fn = build.load_library("ssd").ssd_intra_chunk_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, da_cs, b_mat, c_mat) -> None:
+    """Shapes, dtype and groups: refused on any device."""
+    named = (("x", x), ("da_cs", da_cs), ("b_mat", b_mat), ("c_mat", c_mat))
+    if x.dim() != 4 or da_cs.dim() != 3 or b_mat.dim() != 4:
+        raise ValueError(f"ssd_intra_chunk wants x (BC,L,H,P), da_cs "
+                         f"(BC,L,H), b_mat and c_mat (BC,L,G,N), got "
+                         f"{[tuple(t.shape) for _, t in named]}")
+    bc, l, h, _ = x.shape
+    g, n = b_mat.shape[2:]
+    if (tuple(da_cs.shape) != (bc, l, h)
+            or tuple(b_mat.shape) != (bc, l, g, n)
+            or tuple(c_mat.shape) != (bc, l, g, n)):
+        raise ValueError(f"ssd_intra_chunk: shape mismatch "
+                         f"{[tuple(t.shape) for _, t in named]}")
+    if g < 1 or h % g:
+        raise ValueError(f"ssd_intra_chunk: H={h} heads must split evenly "
+                         f"into G={g} groups")
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_intra_chunk: {name} must be float32, got "
+                            f"{t.dtype}")
+
+
+def _check_cuda(x, da_cs, b_mat, c_mat) -> None:
+    """What the kernel itself needs: one card, contiguity, no grad, sizes."""
+    named = (("x", x), ("da_cs", da_cs), ("b_mat", b_mat), ("c_mat", c_mat))
+    for name, t in named:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"ssd_intra_chunk: {name} must be on "
+                             f"{x.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_intra_chunk: {name} must be contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"ssd_intra_chunk: {name} requires grad, and the SSD kernel "
+                "has no backward yet (LM training with an SSD backward "
+                "kernel is ROADMAP A13); run the forward under "
+                "torch.no_grad() or use KernelConfig(ssd='reference')")
+    _, l, h, p = x.shape
+    n = b_mat.shape[3]
+    if not (l <= L_MAX and p <= P_MAX and n <= N_MAX):
+        raise ValueError(f"ssd_intra_chunk: the kernel takes L <= {L_MAX}, "
+                         f"P <= {P_MAX}, N <= {N_MAX}; got L={l}, P={p}, "
+                         f"N={n}")
+    if x.shape[0] * h >= 2 ** 31:
+        raise ValueError(f"ssd_intra_chunk: BC * H = {x.shape[0] * h} "
+                         "exceeds the kernel's grid")
+
+
+def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
+                    c_mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused intra-chunk SSD, the counterpart of the JAX package's
+    ``ssd_intra_chunk``.
+
+    x: (BC, L, H, P) dt-scaled inputs; da_cs: (BC, L, H) inclusive cumsum
+    of dt*A within each chunk; b_mat, c_mat: (BC, L, G, N), shared by the
+    H/G heads of a group; all float32.  Returns (y_diag (BC, L, H, P),
+    states (BC, H, P, N)).
+    """
+    global launches
+    _check(x, da_cs, b_mat, c_mat)
+    if all(t.device.type == "cpu" for t in (x, da_cs, b_mat, c_mat)):
+        return ssd_intra_chunk_ref(x, da_cs, b_mat, c_mat)
+    _check_cuda(x, da_cs, b_mat, c_mat)
+    bc, l, h, p = x.shape
+    g, n = b_mat.shape[2:]
+    y = torch.empty((bc, l, h, p), dtype=torch.float32, device=x.device)
+    st = torch.empty((bc, h, p, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 or st.numel() == 0:
+        return y.zero_(), st.zero_()
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), da_cs.data_ptr(), b_mat.data_ptr(),
+             c_mat.data_ptr(), y.data_ptr(), st.data_ptr(), bc, l, h, p, g, n,
+             stream)
+    build.check_launch(err, "ssd_intra_chunk")
+    launches += 1
+    return y, st
+
+
+def chunk_recurrence(states: torch.Tensor, chunk_decay: torch.Tensor,
+                     init: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inter-chunk scan, a plain loop over the chunks.
+
+    states: (B, nc, H, P, N) each chunk's own end state; chunk_decay:
+    (B, nc, H) exp of each chunk's dA sum; init: (B, H, P, N).  Returns
+    (the state entering each chunk (B, nc, H, P, N), the final state).
+    """
+    decay = chunk_decay[..., None, None]
+    prev = torch.empty_like(states)
+    carry = init
+    for i in range(states.shape[1]):
+        prev[:, i] = carry
+        carry = torch.addcmul(states[:, i], carry, decay[:, i])
+    return prev, carry
+
+
+def ssd_chunked_kernel(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
+                       c_mat: torch.Tensor, chunk: int,
+                       initial_state: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan with the intra-chunk step on the kernel; the same
+    contract as ``repro_torch.models.ssm.ssd_chunked``.
+
+    x: (B, S, H, P) dt-scaled; da: (B, S, H); b_mat, c_mat: (B, S, G, N);
+    S a multiple of ``chunk``.  Returns (y (B, S, H, P) float32,
+    final_state (B, H, P, N) float32).
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2:]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    rep = h // g
+
+    def to_chunks(t, tail):
+        return t.float().reshape((bsz * nc, chunk) + tail).contiguous()
+
+    xc = to_chunks(x, (h, p))
+    bc = to_chunks(b_mat, (g, n))
+    cc = to_chunks(c_mat, (g, n))
+    da_cs = torch.cumsum(to_chunks(da, (h,)), dim=1)
+
+    y_diag, states = ssd_intra_chunk(xc, da_cs, bc, cc)
+    states = states.reshape(bsz, nc, h, p, n)
+    da_cs = da_cs.reshape(bsz, nc, chunk, h)
+
+    init = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+            if initial_state is None else initial_state.float())
+    prev, final = chunk_recurrence(states, torch.exp(da_cs[:, :, -1, :]),
+                                   init)
+
+    # y_off[l, h, p] = exp(cs[l, h]) * sum_n C[l, g(h), n] prev[h, p, n]:
+    # one batched product per group, the H/G heads of a group side by side
+    cg = cc.reshape(bsz * nc, chunk, g, n).transpose(1, 2)        # (BC,G,L,N)
+    pg = prev.reshape(bsz * nc, g, rep * p, n).transpose(2, 3)    # (BC,G,N,rP)
+    y_off = torch.matmul(cg, pg).transpose(1, 2)                  # (BC,L,G,rP)
+    y_off = y_off.reshape(bsz, nc, chunk, h, p) * torch.exp(da_cs)[..., None]
+    y = y_diag.reshape(bsz, nc, chunk, h, p) + y_off
+    return y.reshape(bsz, s, h, p), final

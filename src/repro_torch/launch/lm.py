@@ -1,0 +1,217 @@
+"""LM serving steps: prefill and decode at the zoo's input shapes.
+
+The port's counterpart of the JAX package's ``launch/dryrun.py``
+``build_lm_case``: the same ``prefill`` (full-sequence logits) and
+``serve_step`` (one token against the cache) at the same
+``configs/shapes.py`` shapes, run eagerly on real tensors instead of
+lowered and compiled.  Meshes and XLA cost analysis have no counterpart
+here yet (ROADMAP A12).  Weights are random, drawn from ``--seed``.
+
+Runs on the CUDA card unless ``--device cpu`` is given.  ``--batch`` and
+``--seq-len`` cut the shape (``--smoke`` defaults them to 2 and 128);
+prints one line per phase with seconds, tokens/s, peak device memory and
+the SSD kernel's launches.  ``--profile`` runs the phase once more under
+``torch.profiler`` and prints the device's busy share of that run and
+its kernels by device time (``[profile]`` lines).
+
+  PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
+      --smoke --shape prefill_32k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
+      --shape decode_32k --decode-steps 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import torch
+
+from repro_torch.configs import archs, shapes
+from repro_torch.kernels.config import KernelConfig
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models.transformer import LM
+from repro_torch.runtime import resolve_device
+
+#: the cuts ``--smoke`` takes unless --batch / --seq-len say otherwise
+SMOKE_BATCH, SMOKE_SEQ_LEN = 2, 128
+
+
+def build_model(arch: str, smoke: bool = False, shape: str = "prefill_32k",
+                seed: int = 0, device: str = "cuda",
+                kernels: KernelConfig | None = None) -> LM:
+    """``arch`` (or its smoke variant) adapted to ``shape``, with random
+    weights drawn on the device from ``seed``."""
+    dev = resolve_device(device)
+    cfg = archs.smoke_config(arch) if smoke else archs.get_arch(arch)
+    cfg = shapes.adapt_arch_for_shape(cfg, shapes.INPUT_SHAPES[shape])
+    model = LM(cfg, device=dev, kernels=kernels)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_pad), the dry run's ``prefill``."""
+    return model(tokens)
+
+
+def serve_step(model: LM, tokens: torch.Tensor, cache: dict, pos: int
+               ) -> tuple[torch.Tensor, dict]:
+    """One token (B, 1) against ``cache``, the dry run's ``serve_step``."""
+    return model.decode_step(tokens, cache, pos)
+
+
+def random_tokens(model: LM, shape: tuple[int, ...], seed: int
+                  ) -> torch.Tensor:
+    """Token ids below the unpadded vocabulary, drawn on the device."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return torch.randint(0, model.cfg.vocab_size, shape, generator=gen,
+                         device=model.device)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(dev: torch.device) -> str:
+    if dev.type != "cuda":
+        return "n/a"
+    return f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+
+
+def _reset_peak(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def run_prefill(model: LM, batch: int, seq_len: int, seed: int = 1,
+                report=print) -> dict:
+    """One timed prefill of random tokens; returns the logits and what the
+    ``[prefill]`` line reports."""
+    dev = model.device
+    tokens = random_tokens(model, (batch, seq_len), seed)
+    _sync(dev)
+    _reset_peak(dev)
+    before = ssd_ops.launches
+    t0 = time.perf_counter()
+    logits = prefill(model, tokens)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    out = {"seconds": sec, "tokens_per_s": batch * seq_len / sec,
+           "peak_mem_gb": _peak(dev), "ssd_launches": ssd_ops.launches - before,
+           "logits": logits}
+    report(f"[prefill] arch={model.cfg.name} batch={batch} seq_len={seq_len} "
+           f"seconds={sec:.3f} tokens_per_s={out['tokens_per_s']:.1f} "
+           f"peak_mem_gb={out['peak_mem_gb']} "
+           f"ssd_launches={out['ssd_launches']} "
+           f"logits={tuple(logits.shape)}")
+    return out
+
+
+def run_decode(model: LM, batch: int, seq_len: int, steps: int,
+               seed: int = 2, report=print) -> dict:
+    """``steps`` greedy decode steps from an empty cache (a random first
+    token each sequence); returns the last logits and what the
+    ``[decode]`` line reports."""
+    dev = model.device
+    cache = model.init_cache(batch, seq_len)
+    tokens = random_tokens(model, (batch, 1), seed)
+    _sync(dev)
+    _reset_peak(dev)
+    before = ssd_ops.launches
+    t0 = time.perf_counter()
+    for pos in range(steps):
+        logits, cache = serve_step(model, tokens, cache, pos)
+        tokens = logits[:, -1, :model.cfg.vocab_size].argmax(-1, keepdim=True)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    out = {"seconds": sec, "ms_per_step": 1e3 * sec / steps,
+           "tokens_per_s": batch * steps / sec, "peak_mem_gb": _peak(dev),
+           "ssd_launches": ssd_ops.launches - before, "logits": logits,
+           "cache": cache}
+    report(f"[decode] arch={model.cfg.name} batch={batch} steps={steps} "
+           f"seconds={sec:.3f} ms_per_step={out['ms_per_step']:.3f} "
+           f"tokens_per_s={out['tokens_per_s']:.1f} "
+           f"peak_mem_gb={out['peak_mem_gb']} "
+           f"ssd_launches={out['ssd_launches']}")
+    return out
+
+
+def report_profile(prof, wall_s: float, report=print, top: int = 8) -> dict:
+    """Device busy time of a profiled run and its ``top`` kernels by
+    device time, from the profiler's device events; prints ``[profile]``
+    lines and returns the totals."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        report("[profile] the profiler saw no device events")
+        return {"busy_s": None, "wall_s": wall_s}
+    by_name: dict = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_s = sum(us for _, us in by_name.values()) / 1e6
+    report(f"[profile] wall_s={wall_s:.3f} device_busy_s={busy_s:.3f} "
+           f"busy_share={busy_s / wall_s:.3f} kernel_launches={len(kernels)}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (count, us) in ranked[:top]:
+        report(f"[profile]   {us / 1e3:10.3f} ms {us / 1e4 / busy_s:5.1f}% "
+               f"x{count:<6d} {name[:90]}")
+    return {"busy_s": busy_s, "wall_s": wall_s}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The LM CLI's argument parser."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="mamba2-130m", choices=sorted(archs.ARCHS))
+    ap.add_argument("--shape", default="prefill_32k",
+                    choices=("prefill_32k", "decode_32k"))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="cut of the shape's global batch")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="cut of the shape's sequence (prefill) or cache "
+                         "(decode) length")
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced variant")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for")
+    ap.add_argument("--profile", action="store_true",
+                    help="run the phase again under torch.profiler")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Run the LM CLI."""
+    args = build_parser().parse_args(argv)
+    shape = shapes.INPUT_SHAPES[args.shape]
+    batch = args.batch or (SMOKE_BATCH if args.smoke else shape.global_batch)
+    seq_len = args.seq_len or (SMOKE_SEQ_LEN if args.smoke
+                               else shape.seq_len)
+    model = build_model(args.arch, args.smoke, args.shape, args.seed,
+                        args.device)
+    print(f"[lm] arch={model.cfg.name} shape={shape.name} batch={batch} "
+          f"(of {shape.global_batch}) seq_len={seq_len} (of "
+          f"{shape.seq_len}) params={model.param_count()} "
+          f"device={model.device}")
+    def run():
+        if shape.mode == "prefill":
+            return run_prefill(model, batch, seq_len, seed=args.seed + 1)
+        return run_decode(model, batch, seq_len, args.decode_steps,
+                          seed=args.seed + 2)
+
+    run()
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if model.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            out = run()
+        report_profile(prof, out["seconds"])
+
+
+if __name__ == "__main__":
+    main()

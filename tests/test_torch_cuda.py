@@ -20,6 +20,8 @@ from repro_torch.kernels.disco.ref import (disco_band_transpose_ref,
                                            disco_gather_band_contract_ref)
 from repro_torch.kernels.legendre import ops as legendre_ops
 from repro_torch.kernels.legendre.ref import legendre_contract_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
 PAIRS = [((64, 128, "equiangular"), (32, 64, "gauss")),   # encoder, stride 2
          ((16, 32, "gauss"), (16, 32, "gauss")),          # latent block
@@ -189,3 +191,110 @@ def test_cuda_backward_runs_kernels(cuda):
     (glr,) = torch.autograd.grad(
         legendre_contract_ref(xr, t).abs().square().sum(), xr)
     torch.testing.assert_close(gl, glr, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk kernel
+# ---------------------------------------------------------------------------
+
+#: (BC, L, H, P, G, N): tests/test_kernels_ssd.py's four shapes, G = 4,
+#: BC = 1 at the mamba2-130m tile, and 16 chunks of the prefill shape
+SSD_SHAPES = [(2, 16, 4, 8, 1, 16), (3, 32, 6, 16, 2, 8), (1, 8, 2, 4, 2, 4),
+              (4, 128, 8, 64, 1, 128), (2, 64, 8, 32, 4, 64),
+              (1, 128, 24, 64, 1, 128), (16, 128, 24, 64, 1, 128)]
+
+
+def _ssd_inputs(shape, device, da_scale=0.1, seed=0):
+    bc, l, h, p, g, n = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    da = -randn(bc, l, h).abs() * da_scale
+    return (randn(bc, l, h, p), torch.cumsum(da, dim=1), randn(bc, l, g, n),
+            randn(bc, l, g, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=[str(s) for s in SSD_SHAPES])
+def test_cuda_ssd_kernel(cuda, shape):
+    ins = _ssd_inputs(shape, cuda)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_intra_chunk(*ins)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_ref, st_ref = ssd_intra_chunk_ref(*ins)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_large_decay_is_finite(cuda):
+    # chunk |dA| sums far above 88: exp(cs_l - cs_s) above the diagonal
+    # would overflow; the kernel masks before exp
+    ins = _ssd_inputs((4, 128, 24, 64, 1, 128), cuda, da_scale=2.0, seed=1)
+    assert float(ins[1][:, -1].abs().min()) > 88.0
+    y, st = ssd_ops.ssd_intra_chunk(*ins)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_ref, st_ref = ssd_intra_chunk_ref(*ins)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_is_deterministic(cuda):
+    ins = _ssd_inputs((8, 128, 24, 64, 1, 128), cuda, seed=2)
+    y1, s1 = ssd_ops.ssd_intra_chunk(*ins)
+    y2, s2 = ssd_ops.ssd_intra_chunk(*ins)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_grad_and_bad_inputs(cuda):
+    x, da_cs, b, c = _ssd_inputs((2, 16, 4, 8, 1, 16), cuda)
+    with pytest.raises(NotImplementedError, match="A13"):
+        ssd_ops.ssd_intra_chunk(x.requires_grad_(), da_cs, b, c)
+    x = x.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_intra_chunk(x.transpose(1, 2).contiguous()
+                                .transpose(1, 2), da_cs, b, c)
+    with pytest.raises(ValueError, match="must be on"):
+        ssd_ops.ssd_intra_chunk(x, da_cs.cpu(), b, c)
+    big = _ssd_inputs((1, 256, 2, 8, 1, 8), cuda)
+    with pytest.raises(ValueError, match="L <= 128"):
+        ssd_ops.ssd_intra_chunk(*big)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunked_and_lm_kernel_vs_reference(cuda):
+    from repro_torch.configs import archs
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.models import ssm as ssmlib
+    from repro_torch.models.transformer import LM
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, da, b, c = (torch.randn(s, generator=gen, device=cuda) for s in
+                   ((2, 256, 8, 32), (2, 256, 8), (2, 256, 2, 16),
+                    (2, 256, 2, 16)))
+    da = -da.abs() * 0.5
+    init = torch.randn((2, 8, 32, 16), generator=gen, device=cuda)
+    before = ssd_ops.launches
+    y, f = ssd_ops.ssd_chunked_kernel(x, da, b, c, 64, init)
+    assert ssd_ops.launches == before + 1
+    y_ref, f_ref = ssmlib.ssd_chunked(x, da, b, c, 64, init)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-4)
+
+    cfg = archs.smoke_config("mamba2-130m")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 50), generator=gen,
+                           device=cuda)
+    logits = []
+    for mode in ("kernel", "reference"):
+        model = LM(cfg, device=cuda,
+                   kernels=KernelConfig(ssd=mode))
+        model.init(torch.Generator(device=cuda).manual_seed(4))
+        before = ssd_ops.launches
+        logits.append(model(tokens))
+        assert ssd_ops.launches - before == (cfg.n_layers if mode == "kernel"
+                                             else 0)
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-5)
