@@ -12,7 +12,9 @@ non-zero exit code and no result line:
 2. the main path: ``repro_torch.launch.serve``'s scored ensemble forecast
    (calibrated init, then members x leads against synthetic truth) with
    every kernel launch counter set to 0 just before and read just after;
-   every kernel must have launched, every score must be finite;
+   every kernel must have launched, every score must be finite; the last
+   (steady) lead runs under ``torch.profiler``: the device's busy share of
+   it and its kernels by device time (``[profile]`` lines);
 3. a small-input check: one ``fcn3_smoke`` step on the card through the
    kernels against the port's reference (FFT/einsum) path;
 4. training: ``repro_torch.launch.train``'s path at ``fcn3_full`` (stage
@@ -36,13 +38,16 @@ non-zero exit code and no result line:
    no plain version may run on a CUDA tensor; then the ``mamba2-130m``
    smoke widths with the SSD kernel against the reference scan;
 7. every kernel against its plain torch version, on the card: the
-   forward kernels at each distinct shape the forecast launched them
-   with, the transpose and CRPS kernels at each distinct shape training
-   launched them with, the SSD kernel on the operands of the prefill's
-   first layer; timings (CUDA events, median), the ``library_ms``
-   yardstick (the transpose's only at the largest shape of each
-   geometry: it is far slower than the kernel, see PERF.md) and the
-   least time the card could take (``bound_ms``);
+   Legendre kernel at each table the forecast used (its largest batch),
+   the band contraction timed at every distinct (psi, stride, batch) the
+   forecast launched it with and held to its plain version at the
+   largest batch of each geometry, the transpose and CRPS kernels at each
+   distinct shape training launched them with, the SSD kernel on the
+   operands of the prefill's first layer; timings (CUDA events, median),
+   the ``library_ms`` yardstick (the band kernels' only at the largest
+   shape of each geometry: it is far slower than the kernel, see PERF.md)
+   and the least time the card could take, in fp32 (``bound_ms``) and
+   on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
 8. the ``kernels`` JSON line, then the result line.
 
 Exits non-zero without CUDA, and in a directory without the repository.
@@ -63,15 +68,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores, and HBM3 bandwidth.
+#: cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 #: kernel vs plain: max |kernel - plain| <= REL_TOL * max |plain|
 #: (fp32 sums of up to S*D = 3.3k terms in another order)
 REL_TOL = 1e-4
-#: the main path: fcn3_full at its published widths, 2 members x 2 leads,
-#: after this many LSUV calibration rounds (the serve CLI runs 4)
-CONFIG, MEMBERS, LEAD_STEPS = "full", 2, 2
+#: the main path: fcn3_full at its published widths, 2 members x 3 leads
+#: (the third one profiled), after this many LSUV calibration rounds (the
+#: serve CLI runs 4)
+CONFIG, MEMBERS, LEAD_STEPS = "full", 2, 3
 CALIBRATION_ROUNDS = 1
 #: the training path: fcn3_full, all 10 blocks, Table 3's second stage
 #: with its own ensemble of 2; batch 32 -> 1, rollout 4 -> 1 and
@@ -131,9 +138,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 class Recorder:
     """Wraps the kernel wrappers' module attributes to note the operands
-    of every call (the wrappers still count the launches): the forward
-    kernels at their largest batch per geometry, the transpose and CRPS
-    kernels at every distinct shape, the SSD kernel at its first call."""
+    of every call (the wrappers still count the launches): the Legendre
+    kernel at its largest batch per table, the band contraction, its
+    transpose and the CRPS kernels at every distinct shape (the band
+    contraction with its launches per shape), the SSD kernel at its first
+    call."""
 
     def __init__(self):
         from repro_torch.kernels.crps import ops as crps_ops
@@ -153,15 +162,14 @@ class Recorder:
             (ssd_ops, "ssd_intra_chunk"))]
         orig = {name: fn for _, name, fn in self._saved}
 
-        def disco(x, psi_band, lat_idx, stride=1):
-            key = (psi_band.data_ptr(), stride)
-            ent = self.disco.setdefault(key, {"psi": psi_band,
-                                              "lat_idx": lat_idx,
-                                              "stride": stride, "b": 0,
-                                              "shape": None})
-            if x.shape[0] > ent["b"]:
-                ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
-            return orig["disco_band_contract"](x, psi_band, lat_idx, stride)
+        def disco(x, psi_band, lat_idx, taps, stride=1):
+            key = (psi_band.data_ptr(), stride, tuple(x.shape))
+            ent = self.disco.setdefault(key, {
+                "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
+                "stride": stride, "shape": tuple(x.shape), "launches": 0})
+            ent["launches"] += 1
+            return orig["disco_band_contract"](x, psi_band, lat_idx, taps,
+                                               stride)
 
         def transpose(g, psi_band, lat_idx, row_ptr, row_ent, h_in,
                       stride=1):
@@ -174,14 +182,15 @@ class Recorder:
                                                 row_ptr, row_ent, h_in,
                                                 stride)
 
-        def legendre(x, table):
+        def legendre(x, table, extents):
             key = (table.data_ptr(), table.stride())
             ent = self.legendre.setdefault(key, {"table": table, "b": 0,
+                                                 "extents": extents,
                                                  "shape": None,
                                                  "dtype": x.dtype})
             if x.shape[0] > ent["b"]:
                 ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
-            return orig["legendre_contract"](x, table)
+            return orig["legendre_contract"](x, table, extents)
 
         def crps(ens, obs, fair=False):
             self.crps.setdefault((tuple(ens.shape), fair),
@@ -263,14 +272,14 @@ def errors(got, ref) -> tuple[float, float]:
     return diff, diff / max(float(ref.abs().max()), 1e-30)
 
 
-def check_legendre(table, shape, dtype, name) -> dict:
+def check_legendre(table, extents, shape, dtype, name) -> dict:
     """Legendre kernel vs its plain version at one main-path shape."""
     import torch
     from repro_torch.kernels.legendre import ops
     from repro_torch.kernels.legendre.ref import legendre_contract_ref
     g = torch.Generator(device="cuda").manual_seed(11)
     x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
-    got = ops.legendre_contract(x, table)
+    got = ops.legendre_contract(x, table, extents)
     torch.cuda.synchronize()
     ref = legendre_contract_ref(x, table)
     torch.cuda.synchronize()
@@ -279,7 +288,7 @@ def check_legendre(table, shape, dtype, name) -> dict:
     b, k, m = shape
     n = table.shape[1]
     parts = 2 if x.is_complex() else 1     # real and imaginary rows
-    ms = cuda_ms(lambda: ops.legendre_contract(x, table), reps=10)
+    ms = cuda_ms(lambda: ops.legendre_contract(x, table, extents), reps=10)
     plain_ms = cuda_ms(lambda: legendre_contract_ref(x, table), reps=5)
     # yardstick: torch.bmm on m-major operands, permuted beforehand
     xr = torch.view_as_real(x) if parts == 2 else x[..., None]
@@ -291,7 +300,8 @@ def check_legendre(table, shape, dtype, name) -> dict:
     nnz = int((table != 0).sum())
     flops = 2.0 * parts * b * nnz
     flops_dense = 2.0 * parts * b * k * n * m
-    nbytes = 4.0 * (parts * b * k * m + k * n * m + parts * b * n * m)
+    nbytes = 4.0 * (parts * b * k * m + k * n * m + parts * b * n * m
+                    + extents.numel())
     row = dict(shape=f"x{shape} {str(dtype).split('.')[-1]} "
                f"table{tuple(table.shape)}", what=name,
                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
@@ -300,73 +310,89 @@ def check_legendre(table, shape, dtype, name) -> dict:
     log(f"[kernel] legendre {name} {row['shape']}: abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"bmm_ms={lib_ms:.3f} bound_ms={row['bound_ms']:.3f} "
-        f"dense_tflops={flops_dense / ms / 1e9:.2f}")
+        f"bound_tc_ms={row['bound_tc_ms']:.3f} "
+        f"tflops={flops / ms / 1e9:.2f} dense_tflops={flops_dense / ms / 1e9:.2f}")
     if not rel_err <= REL_TOL:
         raise AssertionError(f"legendre {name}: kernel disagrees with its "
                              f"plain version (rel {rel_err:.3e})")
     return row
 
 
-def check_disco(ent, name) -> dict:
-    """Banded DISCO kernel vs its plain version at one main-path shape."""
+def check_disco(ent, name, full: bool) -> dict:
+    """Banded DISCO kernel at one main-path shape: its time, and with
+    ``full`` (the largest batch of each geometry) the plain version's and
+    the ``conv1d`` yardstick's, and the kernel against the plain
+    version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
     from repro_torch.kernels.disco.ref import disco_gather_band_contract_ref
-    psi, lat_idx, stride, shape = (ent["psi"], ent["lat_idx"], ent["stride"],
-                                   ent["shape"])
+    psi, lat_idx, taps, stride, shape = (ent["psi"], ent["lat_idx"],
+                                         ent["taps"], ent["stride"],
+                                         ent["shape"])
     g = torch.Generator(device="cuda").manual_seed(12)
     x = torch.randn(shape, generator=g, device="cuda")
-    got = ops.disco_band_contract(x, psi, lat_idx, stride)
-    torch.cuda.synchronize()
-    ref = disco_gather_band_contract_ref(x, psi, lat_idx, stride)
-    torch.cuda.synchronize()
-    abs_err, rel_err = errors(got, ref)
-    del got
     b, h_in, w_in = shape
     k, h_out, s, d = psi.shape
     w_out = w_in // stride
-    ms = cuda_ms(lambda: ops.disco_band_contract(x, psi, lat_idx, stride),
-                 reps=5)
-    plain_ms = cuda_ms(
-        lambda: disco_gather_band_contract_ref(x, psi, lat_idx, stride),
-        reps=2, warmup=0)
-    # yardstick: one grouped conv1d over the rolled, gathered, wrap-padded
-    # rows computes the same band correlation (cuDNN, TF32 off)
-    xr = torch.roll(x, d // 2, dims=-1)
-    xg = xr.index_select(-2, lat_idx.reshape(-1).long()).reshape(
-        b, h_out, s, w_in)
-    del xr
-    xp = torch.cat([xg, xg[..., :d - 1]], dim=-1).reshape(b, h_out * s, -1)
-    del xg
-    wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
 
-    def lib():
-        return F.conv1d(xp, wt, stride=stride, groups=h_out)
+    def kernel():
+        return ops.disco_band_contract(x, psi, lat_idx, taps, stride)
 
-    lib_out = lib().reshape(b, h_out, k, w_out).permute(0, 2, 1, 3)
-    lib_err = errors(lib_out, ref)[1]
-    del lib_out, ref
-    lib_ms = cuda_ms(lib, reps=3)
-    del xp
+    ms = cuda_ms(kernel, reps=5)
+    abs_err = rel_err = plain_ms = lib_ms = lib_err = None
+    if full:
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = disco_gather_band_contract_ref(x, psi, lat_idx, stride)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref)
+        deterministic = torch.equal(got, kernel())
+        del got
+        plain_ms = cuda_ms(
+            lambda: disco_gather_band_contract_ref(x, psi, lat_idx, stride),
+            reps=2, warmup=0)
+        # yardstick: one grouped conv1d over the rolled, gathered,
+        # wrap-padded rows computes the same band correlation (cuDNN,
+        # TF32 off)
+        xr = torch.roll(x, d // 2, dims=-1)
+        xg = xr.index_select(-2, lat_idx.reshape(-1).long()).reshape(
+            b, h_out, s, w_in)
+        del xr
+        xp = torch.cat([xg, xg[..., :d - 1]], dim=-1).reshape(
+            b, h_out * s, -1)
+        del xg
+        wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
+
+        def lib():
+            return F.conv1d(xp, wt, stride=stride, groups=h_out)
+
+        lib_out = lib().reshape(b, h_out, k, w_out).permute(0, 2, 1, 3)
+        lib_err = errors(lib_out, ref)[1]
+        del lib_out, ref
+        lib_ms = cuda_ms(lib, reps=3)
+        del xp
+        if not (rel_err <= REL_TOL and deterministic):
+            raise AssertionError(f"disco {name}: kernel disagrees with its "
+                                 f"plain version (rel {rel_err:.3e}) or is "
+                                 f"not deterministic ({deterministic})")
     nnz = int((psi != 0).sum())
     flops_dense = 2.0 * k * h_out * s * d * w_out * b
     flops = 2.0 * nnz * w_out * b   # the taps this filter really has
     nbytes = 4.0 * (b * h_in * w_in + psi.numel() + lat_idx.numel()
                     + b * k * h_out * w_out)
     row = dict(shape=f"x{shape} psi{tuple(psi.shape)} stride{stride}",
-               what=name, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, library_rel_err=lib_err,
-               flops=flops, flops_dense=flops_dense, bytes=nbytes,
-               **bound(flops, nbytes))
-    log(f"[kernel] disco {name} {row['shape']}: abs_err={abs_err:.3e} "
-        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"conv1d_ms={lib_ms:.3f} (rel_err {lib_err:.1e}) "
-        f"bound_ms={row['bound_ms']:.3f} "
-        f"dense_band_tflops={flops_dense / ms / 1e9:.2f}")
-    if not rel_err <= REL_TOL:
-        raise AssertionError(f"disco {name}: kernel disagrees with its "
-                             f"plain version (rel {rel_err:.3e})")
+               what=name, launches=ent["launches"], max_abs_err=abs_err,
+               max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_rel_err=lib_err, flops=flops,
+               flops_dense=flops_dense, bytes=nbytes, **bound(flops, nbytes))
+    log(f"[kernel] disco {name} {row['shape']}: launches={ent['launches']} "
+        f"ms={ms:.3f} bound_ms={row['bound_ms']:.3f} "
+        f"bound_tc_ms={row['bound_tc_ms']:.3f} "
+        f"tflops={flops / ms / 1e9:.2f}"
+        + (f" abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
+           f"plain_ms={plain_ms:.3f} conv1d_ms={lib_ms:.3f} "
+           f"(rel_err {lib_err:.1e})" if full else ""))
     return row
 
 
@@ -637,10 +663,13 @@ def lm_phase(report) -> dict:
 
 
 def bound(flops: float, nbytes: float) -> dict:
-    """Least time on the card: the larger of operations and bytes."""
+    """Least time on the card: the larger of operations and bytes, with
+    the operations at the fp32 rate (``bound_ms``) and as 3xTF32 products
+    on the tensor cores, three TF32 products each (``bound_tc_ms``)."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": 1e3 * max(3 * flops / PEAK_TF32_FLOPS, t_bytes)}
 
 
 def small_input_check() -> float:
@@ -754,6 +783,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.disco import ops as disco_ops
     from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import lm as lm_mod
     from repro_torch.launch import serve as serve_mod
     from repro_torch.runtime import set_precision
     set_precision()
@@ -778,10 +808,25 @@ def main() -> int:
     guard = PlainGuard()
     rec = Recorder()
     stamps: list[float] = []
+    # the last lead (steady: every kernel built, the allocator warm) runs
+    # under torch.profiler, started and stopped at the lead lines; device
+    # activity only, so the host's issue is not slowed by op recording
+    leads = []
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof_started = []   # host clock once the profiler is up
 
     def report(line: str) -> None:
         stamps.append(time.time())
         log(line if line.startswith("[") else f"[serve] {line}")
+        if line.startswith("lead"):
+            leads.append(stamps[-1])
+            if len(leads) == LEAD_STEPS - 1:
+                prof.start()
+                prof_started.append(time.time())
+            elif len(leads) == LEAD_STEPS:
+                torch.cuda.synchronize()
+                prof.stop()
 
     torch.cuda.reset_peak_memory_stats()
     disco_ops.reset_launches()
@@ -814,6 +859,17 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    # the profiler's own start-up is left out of the profiled lead's wall
+    # time; the unprofiled lead before it is the yardstick of its busy share
+    profile = lm_mod.report_profile(prof, leads[-1] - prof_started[0], log,
+                                    top=12)
+    steady_s = leads[-2] - leads[-3]
+    log(f"[profile] the forecast's lead {LEAD_STEPS} above (2 members, "
+        f"fcn3_full), under torch.profiler; lead {LEAD_STEPS - 1} took "
+        f"{steady_s:.3f} s unprofiled: device busy "
+        f"{profile['busy_s'] / steady_s:.3f} of it"
+        if profile["busy_s"] else "[profile] no device time recorded")
+    del prof
     if any(guard.counts.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors in the "
                              f"forecast: {guard.counts}")
@@ -925,13 +981,27 @@ def main() -> int:
         # the inverse SHT passes pct as a transposed (L, H, M) view
         what = "forward" if ent["table"].is_contiguous() else "inverse"
         rows["legendre_contract"].append(
-            check_legendre(ent["table"], ent["shape"], ent["dtype"], what))
+            check_legendre(ent["table"], ent["extents"], ent["shape"],
+                           ent["dtype"], what))
+    widest = {}     # the largest batch of each band geometry
     for ent in rec.disco.values():
+        key = (ent["psi"].data_ptr(), ent["stride"])
+        if ent["shape"][0] > widest.get(key, (0,))[0]:
+            widest[key] = ent["shape"]
+    for ent in sorted(rec.disco.values(),
+                      key=lambda e: (e["psi"].shape[1], e["stride"],
+                                     -e["shape"][0])):
         _, h_in, w_in = ent["shape"]
         what = (f"{h_in}x{w_in}->{ent['psi'].shape[1]}x"
                 f"{w_in // ent['stride']}")
-        rows["disco_band_contract"].append(check_disco(ent, what))
+        full = ent["shape"] == widest[(ent["psi"].data_ptr(),
+                                       ent["stride"])]
+        rows["disco_band_contract"].append(check_disco(ent, what, full))
         torch.cuda.empty_cache()
+    if sum(r["launches"] for r in rows["disco_band_contract"]) != launches[
+            "disco_band_contract"]:
+        raise AssertionError("the band contraction's launches per shape do "
+                             "not add up to its count on the main path")
     largest = {}
     for ent in train_rec.transpose.values():
         key = ent["psi"].data_ptr()
@@ -978,9 +1048,11 @@ def main() -> int:
             "launches": (by_path["serve"] or by_path["train"]
                          or by_path["lm_prefill"]),
             "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]
+                               if r["max_abs_err"] is not None),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "bound_tc_ms": top["bound_tc_ms"],
             "library_ms": top["library_ms"], "at": top["shape"],
             "shapes": rows[name]}
         bwd = [r for r in rows[name] if r["what"] == "backward"]
@@ -992,9 +1064,11 @@ def main() -> int:
                 "launches": summary["launches"]["crps_fused_bwd"],
                 "ms": b["ms"],
                 "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None,
-                "at": b["shape"]}
+                "bound_by": b["bound_by"], "bound_tc_ms": b["bound_tc_ms"],
+                "library_ms": None, "at": b["shape"]}
         kernels.append(ent)
+    log(f"[profile] forecast lead: busy_s={profile['busy_s']} "
+        f"wall_s={profile['wall_s']:.3f}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -104,7 +104,7 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, cond: torch.Tensor, buffers: dict,
                 kernels: KernelConfig | None = None) -> torch.Tensor:
         """x: (..., C_latent, H, W); cond: (..., C_cond, H, W); buffers:
-        latent DISCO buffers (local) or {"wpct", "pct"} (global)."""
+        latent DISCO buffers (local) or ``SHT.buffers`` (global)."""
         cond = cond.expand(x.shape[:-3] + cond.shape[-3:])
         h = torch.cat([x, cond], dim=-3)
         if self.spec.kind == "local":

@@ -117,12 +117,17 @@ class DiscoPlan:
         """``psi_band`` (K, H, S, D) with wrap rows zeroed, ``psi_wrap``
         (K, H_wrap, S, W) full-circle psi of the wrap rows, ``wrap_rows``
         and ``lat_idx``, plus the band's per-input-row lists ``row_ptr`` /
-        ``row_ent`` that the transpose kernel reads (``band_row_lists``).
+        ``row_ent`` that the transpose kernel reads (``band_row_lists``)
+        and its live taps ``tap_ptr`` / ``tap_ent`` / ``tap_psi`` /
+        ``row_order`` that the forward kernel reads (``band_live_taps``).
         The full (K, H, S, W) psi never reaches the device."""
         band, wrap_rows, psi_wrap = self.banded_split()
         row_ptr, row_ent = band_row_lists(self.lat_idx, band,
                                           self.grid_in.nlat)
+        taps = self.live_taps()
         return {
+            **{name: torch.from_numpy(a).to(device)
+               for name, a in taps.items()},
             "psi_band": torch.from_numpy(band).to(device),
             "psi_wrap": torch.from_numpy(psi_wrap).to(device),
             "wrap_rows": torch.from_numpy(wrap_rows.astype(np.int64)).to(device),
@@ -130,6 +135,14 @@ class DiscoPlan:
             "row_ptr": torch.from_numpy(row_ptr).to(device),
             "row_ent": torch.from_numpy(row_ent).to(device),
         }
+
+    def live_taps(self) -> dict[str, np.ndarray]:
+        """``band_live_taps`` of the band, memoized on the (frozen) plan."""
+        cached = getattr(self, "_taps_cache", None)
+        if cached is None:
+            cached = band_live_taps(self.banded_split()[0])
+            object.__setattr__(self, "_taps_cache", cached)
+        return cached
 
     def banded_split(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``split_psi_band(self.psi)``, memoized on the (frozen) plan."""
@@ -277,6 +290,59 @@ def band_row_lists(lat_idx: np.ndarray, band: np.ndarray, h_in: int
     counts = np.bincount(rows, minlength=h_in)
     row_ptr = np.concatenate([[0], np.cumsum(counts)])
     return row_ptr.astype(np.int32), ent[order].astype(np.int32)
+
+
+#: the forward kernel's step along the taps (the tensor-core product's
+#: depth) and its basis count (the product's width): each slice's taps
+#: are zero-padded to a multiple of TAP_STEP, the basis to TAP_BASIS
+TAP_STEP, TAP_BASIS = 8, 8
+
+
+def band_live_taps(band: np.ndarray) -> dict[str, np.ndarray]:
+    """The band's live taps, as the forward kernel reads them.
+
+    In each (h, s) slice of ``band`` (K, H, S, D) the nonzeros lie in
+    ``[d_lo, d_lo + span)``, read from the data (the geodesic disk meets
+    a ring in one interval, but nothing here assumes it: zeros inside
+    the span are kept and multiplied).  All-zero slices are dropped.
+    Returns int32 / float32 arrays:
+
+    * ``tap_ptr`` (H + 1,): the slices of output row h are entries
+      ``tap_ptr[h]:tap_ptr[h + 1]`` of ``tap_ent``, in increasing s;
+    * ``tap_ent`` (E, 4): ``(s, d_lo, span, offset)`` per slice, offset
+      being its first row in ``tap_psi``;
+    * ``tap_psi`` (T, TAP_BASIS): ``band[:, h, s, d_lo:d_lo + span].T``
+      per slice, rows zero-padded to a multiple of ``TAP_STEP`` and
+      basis columns to ``TAP_BASIS``;
+    * ``row_order`` (H,): output rows by padded taps, heaviest first
+      (the kernel's block order: the near-pole rows carry up to 25x the
+      median work).
+    """
+    k, h_out, s, d = band.shape
+    if k > TAP_BASIS:
+        raise ValueError(f"band_live_taps: {k} basis functions > "
+                         f"{TAP_BASIS}")
+    nz = (band != 0).any(axis=0).reshape(h_out * s, d)
+    ent = np.flatnonzero(nz.any(axis=1))               # h * S + s
+    d_lo = nz[ent].argmax(axis=1)
+    span = d - nz[ent, ::-1].argmax(axis=1) - d_lo
+    padded = -(-span // TAP_STEP) * TAP_STEP
+    offset = np.concatenate([[0], np.cumsum(padded)])
+    eh, es = np.divmod(ent, s)
+    tap_psi = np.zeros((int(offset[-1]), TAP_BASIS), np.float32)
+    for i in range(len(ent)):
+        o, n = offset[i], span[i]
+        tap_psi[o:o + n, :k] = band[:, eh[i], es[i], d_lo[i]:d_lo[i] + n].T
+    tap_ptr = np.concatenate([[0], np.cumsum(np.bincount(eh,
+                                                         minlength=h_out))])
+    work = np.bincount(eh, weights=padded, minlength=h_out)
+    return {
+        "tap_ptr": tap_ptr.astype(np.int32),
+        "tap_ent": np.stack([es, d_lo, span, offset[:-1]],
+                            axis=1).astype(np.int32),
+        "tap_psi": tap_psi,
+        "row_order": np.argsort(-work, kind="stable").astype(np.int32),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,27 @@ def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int) -> torch.Tensor:
     return fourier.irfft(spec, nlon) * nlon
 
 
+def order_extents(table: np.ndarray) -> np.ndarray:
+    """Where each order of a (K, N, M) table holds its nonzeros.
+
+    Returns (2, 2, M) int32: ``[0, :, m]`` is the half-open range
+    ``[k_lo, k_hi)`` of the rows k and ``[1, :, m]`` the range
+    ``[n_lo, n_hi)`` of the columns n with a nonzero ``table[k, n, m]``;
+    an order with no nonzero gets ``(0, 0)`` for both.  Read from the
+    data, not from the m > l triangle, so any table is covered.  The
+    extents of ``table.transpose(1, 0, 2)`` are these flipped on axis 0.
+    """
+    nz = np.asarray(table) != 0
+    ext = np.zeros((2, 2, nz.shape[2]), np.int32)
+    for row, live in enumerate((nz.any(axis=1), nz.any(axis=0))):
+        has = live.any(axis=0)                         # (M,)
+        lo = live.argmax(axis=0)
+        hi = live.shape[0] - live[::-1].argmax(axis=0)
+        ext[row, 0] = np.where(has, lo, 0)
+        ext[row, 1] = np.where(has, hi, 0)
+    return ext
+
+
 @dataclasses.dataclass(frozen=True)
 class SHT:
     """Precomputed SHT for one grid; thin wrapper around the functions."""
@@ -73,11 +94,15 @@ class SHT:
 
     def buffers(self, device: torch.device | str = "cpu"
                 ) -> dict[str, torch.Tensor]:
-        """Legendre tables as float32 tensors (cast from float64 here)."""
-        wpct, pbar = self.tables()
+        """Legendre tables as float32 tensors (cast from float64 here),
+        each with its per-order extents (``order_extents`` of the cast
+        table, (H, L, M) orientation) for the kernel path."""
+        wpct, pbar = (t.astype(np.float32) for t in self.tables())
         return {
-            "wpct": torch.from_numpy(wpct.astype(np.float32)).to(device),
-            "pct": torch.from_numpy(pbar.astype(np.float32)).to(device),
+            "wpct": torch.from_numpy(wpct).to(device),
+            "pct": torch.from_numpy(pbar).to(device),
+            "wpct_ext": torch.from_numpy(order_extents(wpct)).to(device),
+            "pct_ext": torch.from_numpy(order_extents(pbar)).to(device),
         }
 
     def forward(self, x: torch.Tensor, buffers: dict) -> torch.Tensor:

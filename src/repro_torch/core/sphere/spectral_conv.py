@@ -40,12 +40,16 @@ class SpectralFilter(nn.Module):
     def forward(self, x: torch.Tensor, sht_buffers: dict, nlon: int,
                 kernels: KernelConfig | None = None) -> torch.Tensor:
         """x: (..., C, H, W) -> (..., C_out, H, W) through the spectral
-        domain; ``sht_buffers`` holds the (H, L, M) ``wpct``/``pct``."""
-        if (kernels or KernelConfig()).sht == "kernel":
-            fwd, inv = dispatch.sht_forward, dispatch.sht_inverse
+        domain; ``sht_buffers`` holds the (H, L, M) ``wpct``/``pct`` and,
+        for the kernel path, their extents ``wpct_ext``/``pct_ext``."""
+        kernel = (kernels or KernelConfig()).sht == "kernel"
+        wpct, pct = sht_buffers["wpct"], sht_buffers["pct"]
+        if kernel:
+            c = dispatch.sht_forward(x, wpct, sht_buffers["wpct_ext"])
         else:
-            fwd, inv = shtlib.sht_forward, shtlib.sht_inverse
-        c = fwd(x, sht_buffers["wpct"])  # (..., C, L, M)
+            c = shtlib.sht_forward(x, wpct)                # (..., C, L, M)
         w = torch.complex(self.w_re.float(), self.w_im.float())
         y = torch.einsum("oil,...ilm->...olm", w, c)
-        return inv(y, sht_buffers["pct"], nlon)
+        if kernel:
+            return dispatch.sht_inverse(y, pct, nlon, sht_buffers["pct_ext"])
+        return shtlib.sht_inverse(y, pct, nlon)

@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` is compiled on first use with
          -Xcompiler -fPIC -o build/repro_torch/lib<name>-<sha>.so <name>.cu
 
 and loaded with ``ctypes``.  The library name carries a hash of the
-source, so an edited source is rebuilt and a stale library never loads.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+is rebuilt and a stale library never loads.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them.  A failed build raises; nothing falls back to a plain version.
 """
@@ -45,9 +46,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

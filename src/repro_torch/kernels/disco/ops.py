@@ -10,6 +10,7 @@ on CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,8 +23,29 @@ launches = 0
 transpose_launches = 0
 #: shared memory one block may use on the H100
 _MAX_SMEM = 227 * 1024
-#: the kernel's tile: longitudes per block, planes per block, padded K
-_TW, _TBP, _KP = 128, 8, 8
+#: the transpose kernel's tile: longitudes per block, planes per block
+_TW, _TBP = 128, 8
+#: the forward kernel's tile (``csrc/disco_band.cu``): output longitudes
+#: per block (8 warps x the mma's 16 rows), planes per block, pipeline
+#: stages, and taps per staged piece of a slice
+_FW, _FBP, _FSTAGES, _FCH = 128, 16, 3, 128
+
+
+class LiveTaps(NamedTuple):
+    """The band's live taps (``core.sphere.disco.band_live_taps``) on the
+    device: ``ptr`` (H_out + 1,) and ``ent`` (E, 4) int32, ``psi`` (T, 8)
+    float32, ``order`` (H_out,) int32."""
+
+    ptr: torch.Tensor
+    ent: torch.Tensor
+    psi: torch.Tensor
+    order: torch.Tensor
+
+    @classmethod
+    def of(cls, buffers: dict) -> "LiveTaps":
+        """The live taps of ``DiscoPlan.banded_buffers``."""
+        return cls(buffers["tap_ptr"], buffers["tap_ent"],
+                   buffers["tap_psi"], buffers["row_order"])
 
 
 def reset_launches() -> None:
@@ -35,15 +57,18 @@ def reset_launches() -> None:
 def _lib():
     lib = build.load_library("disco_band")
     fn = lib.disco_band_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(d: int, stride: int) -> int:
-    """Dynamic shared memory one block of the kernel uses."""
-    return 4 * (d * _KP + _TBP * ((_TW - 1) * stride + d))
+def smem_bytes(stride: int) -> int:
+    """Dynamic shared memory one block of the forward kernel uses: per
+    stage, a piece of at most _FCH taps of one slice, its packed psi and
+    each plane's window (``stage_floats`` in ``csrc/disco_band.cu``)."""
+    window = -(-((_FW - 1) * stride + _FCH + 3) // 4) * 4
+    return 4 * _FSTAGES * (_FCH * 8 + _FBP * window)
 
 
 def _check_tensors(what: str, ref: torch.Tensor, named) -> None:
@@ -57,45 +82,64 @@ def _check_tensors(what: str, ref: torch.Tensor, named) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _check(x, psi_band, lat_idx, stride) -> None:
+def _check(x, psi_band, lat_idx, taps, stride) -> None:
     if x.dim() != 3 or psi_band.dim() != 4 or lat_idx.dim() != 2:
         raise ValueError(
             f"disco_band_contract wants x (B,H_in,W_in), psi_band "
             f"(K,H_out,S,D), lat_idx (H_out,S); got {tuple(x.shape)}, "
             f"{tuple(psi_band.shape)}, {tuple(lat_idx.shape)}")
-    k, h_out, s, d = psi_band.shape
+    k, h_out, s, _ = psi_band.shape
     if tuple(lat_idx.shape) != (h_out, s):
         raise ValueError(f"lat_idx {tuple(lat_idx.shape)} does not match "
                          f"psi_band {tuple(psi_band.shape)}")
     if not 1 <= k <= 8:
         raise ValueError(f"disco_band_contract supports 1..8 basis "
                          f"functions, got {k}")
+    if (tuple(taps.ptr.shape) != (h_out + 1,)
+            or tuple(taps.order.shape) != (h_out,)
+            or taps.ent.dim() != 2 or taps.ent.shape[1] != 4
+            or taps.psi.dim() != 2 or taps.psi.shape[1] != 8
+            or taps.psi.shape[0] % 8):
+        raise ValueError(
+            f"disco_band_contract: live taps ptr {tuple(taps.ptr.shape)}, "
+            f"ent {tuple(taps.ent.shape)}, psi {tuple(taps.psi.shape)}, "
+            f"order {tuple(taps.order.shape)} do not fit psi_band "
+            f"{tuple(psi_band.shape)} (see band_live_taps)")
     if stride < 1 or x.shape[-1] % stride:
         raise ValueError(f"stride {stride} must divide W_in={x.shape[-1]}")
-    if smem_bytes(d, stride) > _MAX_SMEM:
-        raise ValueError(f"band width D={d} at stride {stride} needs more "
-                         "shared memory than a block has")
+    if smem_bytes(stride) > _MAX_SMEM:
+        raise ValueError(f"stride {stride} needs more shared memory than a "
+                         "block has")
     _check_tensors("disco_band_contract", x,
                    (("x", x, torch.float32),
                     ("psi_band", psi_band, torch.float32),
-                    ("lat_idx", lat_idx, torch.int32)))
-    if (x.shape[0] + _TBP - 1) // _TBP > 65535 or h_out > 65535:
+                    ("lat_idx", lat_idx, torch.int32),
+                    ("taps.ptr", taps.ptr, torch.int32),
+                    ("taps.ent", taps.ent, torch.int32),
+                    ("taps.psi", taps.psi, torch.float32),
+                    ("taps.order", taps.order, torch.int32)))
+    blocks = (h_out * -(-x.shape[-1] // stride // _FW)
+              * -(-x.shape[0] // _FBP))
+    if blocks >= 2 ** 31:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
 
 
 def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
-                        lat_idx: torch.Tensor, stride: int = 1
-                        ) -> torch.Tensor:
+                        lat_idx: torch.Tensor, taps: LiveTaps,
+                        stride: int = 1) -> torch.Tensor:
     """Roll + latitude gather + banded contraction in one kernel.
 
     x: (B, H_in, W_in) float32; psi_band: (K, H_out, S, D) float32;
-    lat_idx: (H_out, S) int32 -> (B, K, H_out, W_in // stride) float32.
-    See ``ref.disco_gather_band_contract_ref`` for the exact function.
+    lat_idx: (H_out, S) int32; ``taps``: psi_band's live taps
+    (``band_live_taps``), which the kernel contracts instead of the
+    dense band -> (B, K, H_out, W_in // stride) float32.  See
+    ``ref.disco_gather_band_contract_ref`` for the exact function; the
+    plain version reads psi_band and ignores ``taps``.
     """
     global launches
     if all(t.device.type == "cpu" for t in (x, psi_band, lat_idx)):
         return disco_gather_band_contract_ref(x, psi_band, lat_idx, stride)
-    _check(x, psi_band, lat_idx, stride)
+    _check(x, psi_band, lat_idx, taps, stride)
     b, h_in, w_in = x.shape
     k, h_out, s, d = psi_band.shape
     out = torch.empty((b, k, h_out, w_in // stride), dtype=torch.float32,
@@ -104,7 +148,8 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
         return out
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), psi_band.data_ptr(), lat_idx.data_ptr(),
+    err = fn(x.data_ptr(), lat_idx.data_ptr(), taps.ptr.data_ptr(),
+             taps.ent.data_ptr(), taps.psi.data_ptr(), taps.order.data_ptr(),
              out.data_ptr(), b, h_in, w_in, k, h_out, s, d, stride, stream)
     build.check_launch(err, "disco_band_contract")
     launches += 1

@@ -6,8 +6,8 @@ a kernel too, through the same wrappers: the Legendre contraction's
 gradient in x is a Legendre contraction with the table transposed, and
 the band contraction's is its transpose (``disco_band_transpose``).  Both
 are linear in x, so neither saves x.  The tables, ``psi_band`` and the
-index buffers are constants: neither backward returns a gradient for
-them.  The wrappers themselves decide CPU (plain version) versus CUDA
+index buffers (the tables' order extents, the band's live taps and row
+lists) are constants: neither backward returns a gradient for them.  The wrappers themselves decide CPU (plain version) versus CUDA
 (kernel launch) by where the tensors lie.  The SSD kernel has no
 backward yet (ROADMAP A13): ``ssd_chunked`` serves the prefill only.
 """
@@ -30,25 +30,32 @@ from repro_torch.models import ssm as ssmlib
 
 class _Legendre(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, table):
-        ctx.save_for_backward(table)
-        return legendre_ops.legendre_contract(x, table)
+    def forward(ctx, x, table, extents):
+        ctx.save_for_backward(table, extents)
+        return legendre_ops.legendre_contract(x, table, extents)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None
-        (table,) = ctx.saved_tensors
-        return legendre_ops.legendre_contract(g.contiguous(),
-                                              table.transpose(0, 1)), None
+            return None, None, None
+        table, extents = ctx.saved_tensors
+        return legendre_ops.legendre_contract(
+            g.contiguous(), table.transpose(0, 1),
+            transposed_extents(extents)), None, None
+
+
+def transposed_extents(extents: torch.Tensor) -> torch.Tensor:
+    """The extents of a table's (k, n) transpose: k and n swapped."""
+    return extents.flip(0)
 
 
 class _BandContract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, psi_band, lat_idx, row_ptr, row_ent, stride):
+    def forward(ctx, x, psi_band, lat_idx, row_ptr, row_ent, taps, stride):
         ctx.save_for_backward(psi_band, lat_idx, row_ptr, row_ent)
         ctx.stride, ctx.h_in = stride, x.shape[1]
-        return disco_ops.disco_band_contract(x, psi_band, lat_idx, stride)
+        return disco_ops.disco_band_contract(x, psi_band, lat_idx, taps,
+                                             stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -56,7 +63,7 @@ class _BandContract(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gx = disco_ops.disco_band_transpose(
                 g.contiguous(), *ctx.saved_tensors, ctx.h_in, ctx.stride)
-        return gx, None, None, None, None, None
+        return gx, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -69,22 +76,26 @@ def _batched(c: torch.Tensor) -> torch.Tensor:
     return c if c.stride(-1) == 1 else c.contiguous()
 
 
-def sht_forward(x: torch.Tensor, wpct: torch.Tensor) -> torch.Tensor:
+def sht_forward(x: torch.Tensor, wpct: torch.Tensor, wpct_ext: torch.Tensor
+                ) -> torch.Tensor:
     """Forward SHT, (..., H, W) -> (..., L, M) complex64.  Real and
-    imaginary parts share one kernel launch, read in place."""
+    imaginary parts share one kernel launch, read in place; ``wpct_ext``
+    is ``sht.order_extents(wpct)``."""
     h, l, m = wpct.shape
     w = x.shape[-1]
     xf = fourier.rfft(x.float())[..., :m] * (2.0 * math.pi / w)
-    out = _Legendre.apply(_batched(xf), wpct)
+    out = _Legendre.apply(_batched(xf), wpct, wpct_ext)
     return out.reshape(xf.shape[:-2] + (l, m))
 
 
-def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int
-                ) -> torch.Tensor:
-    """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real."""
+def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
+                pct_ext: torch.Tensor) -> torch.Tensor:
+    """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real;
+    ``pct_ext`` is ``sht.order_extents(pct)``."""
     h, l, m = pct.shape
     # contract over degree: table (L, H, M), a transposed view of pct
-    out = _Legendre.apply(_batched(c), pct.permute(1, 0, 2))
+    out = _Legendre.apply(_batched(c), pct.permute(1, 0, 2),
+                          transposed_extents(pct_ext))
     spec = shtlib.pad_orders(out.reshape(c.shape[:-2] + (h, m)), nlon)
     return fourier.irfft(spec, nlon) * nlon
 
@@ -100,8 +111,10 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     x: (..., H_in, W_in) -> (..., K, H_out, W_out), matching
     ``core.sphere.disco.disco_conv`` on the full psi.  The kernel does
     the roll by ``off0 = -(D // 2)``, the latitude gather and the band
-    contraction in one pass; the near-pole wrap rows (zero in the band)
-    are recomputed by the exact FFT correlation and scattered back in.
+    contraction in one pass over the band's live taps
+    (``core.sphere.disco.band_live_taps``); the near-pole wrap rows (zero
+    in the band) are recomputed by the exact FFT correlation and
+    scattered back in.
     """
     psi_band, lat_idx = buffers["psi_band"], buffers["lat_idx"]
     k, h_out, s, d = psi_band.shape
@@ -109,7 +122,8 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     h_in, w_in = x.shape[-2:]
     xb = x.reshape((-1, h_in, w_in)).float().contiguous()
     out = _BandContract.apply(xb, psi_band, lat_idx, buffers["row_ptr"],
-                              buffers["row_ent"], stride)
+                              buffers["row_ent"],
+                              disco_ops.LiveTaps.of(buffers), stride)
     wrap_rows = buffers["wrap_rows"]
     if wrap_rows.numel():
         rows = lat_idx.index_select(0, wrap_rows)          # (Hw, S)

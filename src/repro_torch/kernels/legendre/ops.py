@@ -4,7 +4,9 @@ On a CPU tensor it computes the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.  The kernel reads and writes the
 m-minor layout of the SHT as it is, so the wrapper copies nothing: a
 complex ``x`` is read as interleaved floats, and a table may be a strided
-view (the inverse SHT passes ``pct`` transposed).
+view (the inverse SHT passes ``pct`` transposed).  The kernel contracts
+each order only inside the extents it is given
+(``core.sphere.sht.order_extents`` of the table, passed explicitly).
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from repro_torch.kernels.legendre.ref import legendre_contract_ref
 
 #: kernel launches since the last ``reset_launches`` (a plain integer).
 launches = 0
-#: the kernel's tile: adjacent j (floats along m), rows b, columns n
-_TJ, _TB, _TN = 8, 32, 64
+#: the kernel's tile (``csrc/legendre.cu``): adjacent j (floats along m)
+#: and rows b per block, which bound its grid; its dynamic shared memory
+#: is fixed (96 KB real, 64 KB complex: two stages of 16-deep slabs)
+_TJ, _TB = 8, 32
 
 
 def reset_launches() -> None:
@@ -31,13 +35,14 @@ def reset_launches() -> None:
 def _lib():
     lib = build.load_library("legendre")
     fn = lib.legendre_contract_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x: torch.Tensor, table: torch.Tensor) -> None:
+def _check(x: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
+           ) -> None:
     if x.dim() != 3 or table.dim() != 3:
         raise ValueError(f"legendre_contract wants x (B,K,M) and table "
                          f"(K,N,M), got {tuple(x.shape)} and "
@@ -47,13 +52,19 @@ def _check(x: torch.Tensor, table: torch.Tensor) -> None:
     if (k, m) != (k2, m2):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)} vs table "
                          f"{tuple(table.shape)}")
+    if tuple(extents.shape) != (2, 2, m):
+        raise ValueError(f"legendre_contract: extents must be (2, 2, {m}) "
+                         f"(sht.order_extents), got {tuple(extents.shape)}")
     if x.dtype not in (torch.float32, torch.complex64):
         raise TypeError(f"legendre_contract: x must be float32 or "
                         f"complex64, got {x.dtype}")
     if table.dtype != torch.float32:
         raise TypeError(f"legendre_contract: table must be float32, got "
                         f"{table.dtype}")
-    for name, t in (("x", x), ("table", table)):
+    if extents.dtype != torch.int32 or not extents.is_contiguous():
+        raise TypeError(f"legendre_contract: extents must be contiguous "
+                        f"int32, got {extents.dtype}")
+    for name, t in (("x", x), ("table", table), ("extents", extents)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"legendre_contract: {name} must be on "
                              f"{x.device}, got {t.device}")
@@ -67,17 +78,22 @@ def _check(x: torch.Tensor, table: torch.Tensor) -> None:
                          "the kernel's grid")
 
 
-def legendre_contract(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def legendre_contract(x: torch.Tensor, table: torch.Tensor,
+                      extents: torch.Tensor) -> torch.Tensor:
     """out[b, n, m] = sum_k x[b, k, m] * table[k, n, m].
 
-    x: (B, K, M) float32 or complex64; table: (K, N, M) float32 -> (B, N,
-    M) of x's dtype, contiguous.  A complex x contracts its real and
-    imaginary parts with the same table in one launch.
+    x: (B, K, M) float32 or complex64; table: (K, N, M) float32; extents:
+    (2, 2, M) int32, the table's ``sht.order_extents`` (rows k, columns
+    n) -> (B, N, M) of x's dtype, contiguous.  The kernel contracts each
+    block of orders inside the union of their extents and writes zeros
+    outside it; the plain version reads the whole table.  A complex x
+    contracts its real and imaginary parts with the same table in one
+    launch.
     """
     global launches
     if x.device.type == "cpu" and table.device.type == "cpu":
         return legendre_contract_ref(x, table)
-    _check(x, table)
+    _check(x, table, extents)
     b, k, m = x.shape
     n = table.shape[1]
     out = torch.empty((b, n, m), dtype=x.dtype, device=x.device)
@@ -88,9 +104,9 @@ def legendre_contract(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     outf = torch.view_as_real(out) if cshift else out
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(xf.data_ptr(), table.data_ptr(), outf.data_ptr(), b, k, n,
-             m << cshift, cshift, xf.stride(0), xf.stride(1),
-             table.stride(0), table.stride(1), stream)
+    err = fn(xf.data_ptr(), table.data_ptr(), extents.data_ptr(),
+             outf.data_ptr(), b, k, n, m << cshift, cshift, xf.stride(0),
+             xf.stride(1), table.stride(0), table.stride(1), stream)
     build.check_launch(err, "legendre_contract")
     launches += 1
     return out

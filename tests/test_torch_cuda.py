@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.sphere import disco as tdisco
 from repro_torch.core.sphere import grids as tgrids
+from repro_torch.core.sphere import sht as tsht
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.crps import ops as crps_ops
 from repro_torch.kernels.crps.ref import crps_fused_bwd_ref, crps_fused_ref
@@ -29,9 +30,45 @@ PAIRS = [((64, 128, "equiangular"), (32, 64, "gauss")),   # encoder, stride 2
 PAIR_IDS = ["enc", "latent", "dec"]
 
 
+#: kernel vs plain: max |kernel - plain| <= REL_TOL * max |plain|, as in
+#: chip_smoke.py; one plain TF32 product (~2^-11 relative) misses it
+REL_TOL = 1e-4
+
+
 def _plan(pair):
     gi, go = pair
     return tdisco.make_disco_plan(tgrids.make_grid(*gi), tgrids.make_grid(*go))
+
+
+def _extents(table):
+    """The table's order extents, built by the numpy builder."""
+    return torch.from_numpy(
+        tsht.order_extents(table.cpu().numpy())).to(table.device)
+
+
+def _taps(psi):
+    """psi's live taps, built by the numpy builder."""
+    return disco_ops.LiveTaps.of({
+        k: torch.from_numpy(v).to(psi.device)
+        for k, v in tdisco.band_live_taps(psi.cpu().numpy()).items()})
+
+
+def _spread(shape, gen, device):
+    """Values of both signs with magnitudes spread over 1e-3 .. 1e3."""
+    mag = 10.0 ** (6 * torch.rand(shape, generator=gen, device=device) - 3)
+    sign = torch.randint(0, 2, shape, generator=gen, device=device) * 2 - 1
+    return mag * sign
+
+
+def _tf32(t):
+    """t rounded to TF32 (10-bit mantissa), as one plain TF32 product
+    would read it."""
+    u = t.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max()) / float(ref.abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -60,12 +97,72 @@ def test_cuda_legendre_kernel(cuda, b, k, n, m, dtype, transposed):
     if transposed:
         t = t.permute(1, 0, 2)
     before = legendre_ops.launches
-    got = legendre_ops.legendre_contract(x, t)
+    got = legendre_ops.legendre_contract(x, t, _extents(t))
     torch.cuda.synchronize()
     assert legendre_ops.launches == before + 1
     assert got.dtype == dtype
     torch.testing.assert_close(got, legendre_contract_ref(x, t),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64],
+                         ids=["real", "complex"])
+def test_cuda_legendre_kernel_sht_tables(cuda, dtype, transposed):
+    # the SHT's own triangular tables (zero for l < m): forward wpct, and
+    # pct as the inverse's transposed view with its flipped extents
+    buf = tsht.SHT.create(tgrids.make_grid(48, 96, "gauss")).buffers(cuda)
+    if transposed:
+        t, ext = buf["pct"].permute(1, 0, 2), buf["pct_ext"].flip(0)
+    else:
+        t, ext = buf["wpct"], buf["wpct_ext"]
+    assert torch.equal(ext, _extents(t))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((77, t.shape[0], t.shape[2]), generator=gen, device=cuda,
+                    dtype=dtype)
+    got = legendre_ops.legendre_contract(x, t, ext)
+    ref = legendre_contract_ref(x, t)
+    assert _rel_err(got, ref) <= REL_TOL
+    assert torch.equal(got, legendre_ops.legendre_contract(x, t, ext))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64],
+                         ids=["real", "complex"])
+def test_cuda_legendre_kernel_ragged_spread(cuda, dtype, aligned):
+    # a table that is not triangular: per order a random block of rows
+    # and columns, scattered zeros inside it, one all-zero order; values
+    # spread over 1e-3..1e3, where one plain TF32 product misses the bar
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    k, n, m = 72, 90, 12
+    t = _spread((k, n, m), gen, cuda)
+    for mm in range(m):
+        k0, k1 = sorted(torch.randint(0, k, (2,), generator=gen,
+                                      device=cuda).tolist())
+        n0, n1 = sorted(torch.randint(0, n, (2,), generator=gen,
+                                      device=cuda).tolist())
+        t[:k0, :, mm] = t[k1:, :, mm] = 0
+        t[:, :n0, mm] = t[:, n1:, mm] = 0
+    t[:, :, 5] = 0
+    t[torch.rand(t.shape, generator=gen, device=cuda) < 0.2] = 0
+    if dtype == torch.complex64:
+        x = torch.complex(_spread((61, k, m + 1), gen, cuda),
+                          _spread((61, k, m + 1), gen, cuda))
+    else:
+        x = _spread((61, k, m + 1), gen, cuda)
+    x = x[..., 1:] if not aligned else x[..., :m]   # unaligned: offset 1
+    ext = _extents(t)
+    got = legendre_ops.legendre_contract(x, t, ext)
+    ref = legendre_contract_ref(x, t)
+    assert _rel_err(got, ref) <= REL_TOL
+    xr = torch.view_as_real(x) if x.is_complex() else x
+    one = legendre_contract_ref(
+        torch.view_as_complex(_tf32(xr)) if x.is_complex() else _tf32(xr),
+        _tf32(t))
+    assert _rel_err(one, ref) > REL_TOL          # the bar tells TF32 apart
+    assert torch.equal(got, legendre_ops.legendre_contract(x, t, ext))
 
 
 @pytest.mark.cuda
@@ -78,7 +175,7 @@ def test_cuda_disco_band_kernel(cuda, pair):
     x = torch.randn((11, gi[0], gi[1]), generator=gen, device=cuda)
     before = disco_ops.launches
     got = disco_ops.disco_band_contract(x, tb["psi_band"], tb["lat_idx"],
-                                        tp.stride)
+                                        disco_ops.LiveTaps.of(tb), tp.stride)
     torch.cuda.synchronize()
     assert disco_ops.launches == before + 1
     ref = disco_gather_band_contract_ref(x, tb["psi_band"], tb["lat_idx"],
@@ -87,23 +184,66 @@ def test_cuda_disco_band_kernel(cuda, pair):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w_out", [60, 62], ids=["w60", "w62"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_disco_band_kernel_random_psi(cuda, stride, w_out):
+    # psi that is not banded the usual way: scattered interior zeros,
+    # dead slices and a dead row, any lat_idx; x spread over 1e-3..1e3,
+    # where one plain TF32 product misses the bar
+    gen = torch.Generator(device=cuda).manual_seed(9 + stride)
+    k, h_out, s, d, h_in = 7, 13, 5, 23, 17
+    psi = _spread((k, h_out, s, d), gen, cuda)
+    psi[torch.rand(psi.shape, generator=gen, device=cuda) < 0.3] = 0
+    psi[:, 2, 1] = 0
+    psi[:, 4] = 0
+    psi[..., :3] = 0
+    lat_idx = torch.randint(0, h_in, (h_out, s), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    x = _spread((19, h_in, w_out * stride), gen, cuda)
+    taps = _taps(psi)
+    got = disco_ops.disco_band_contract(x, psi, lat_idx, taps, stride)
+    ref = disco_gather_band_contract_ref(x, psi, lat_idx, stride)
+    assert _rel_err(got, ref) <= REL_TOL
+    one = disco_gather_band_contract_ref(_tf32(x), _tf32(psi), lat_idx,
+                                         stride)
+    assert _rel_err(one, ref) > REL_TOL
+    assert torch.equal(got, disco_ops.disco_band_contract(x, psi, lat_idx,
+                                                          taps, stride))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((2, 4, 3), device=cuda, dtype=torch.float64)
+    ext = torch.zeros((2, 2, 3), device=cuda, dtype=torch.int32)
     with pytest.raises(TypeError):
         legendre_ops.legendre_contract(x, torch.zeros((4, 5, 3), device=cuda,
-                                                      dtype=torch.float64))
+                                                      dtype=torch.float64),
+                                       ext)
     with pytest.raises(ValueError):
         legendre_ops.legendre_contract(x.float(), torch.zeros((3, 5, 3),
-                                                              device=cuda))
+                                                              device=cuda),
+                                       ext)
     with pytest.raises(ValueError):   # m must have unit stride
         legendre_ops.legendre_contract(
-            x.float(), torch.zeros((3, 5, 4), device=cuda).permute(2, 1, 0))
+            x.float(), torch.zeros((3, 5, 4), device=cuda).permute(2, 1, 0),
+            ext)
+    with pytest.raises(ValueError):   # extents of another order count
+        legendre_ops.legendre_contract(
+            x.float(), torch.zeros((4, 5, 3), device=cuda), ext[..., :2])
+    with pytest.raises(TypeError):    # extents are int32
+        legendre_ops.legendre_contract(
+            x.float(), torch.zeros((4, 5, 3), device=cuda), ext.long())
     tp = _plan(PAIRS[1])
     tb = tp.banded_buffers(cuda)
+    taps = disco_ops.LiveTaps.of(tb)
     with pytest.raises(ValueError):
         disco_ops.disco_band_contract(
             torch.zeros((2, 16, 32), device=cuda), tb["psi_band"].cpu(),
-            tb["lat_idx"], 1)
+            tb["lat_idx"], taps, 1)
+    with pytest.raises(ValueError):   # live taps of another psi
+        disco_ops.disco_band_contract(
+            torch.zeros((2, 16, 32), device=cuda), tb["psi_band"],
+            tb["lat_idx"], taps._replace(ptr=taps.ptr[:-1]), 1)
 
 
 @pytest.mark.cuda
@@ -171,7 +311,7 @@ def test_cuda_backward_runs_kernels(cuda):
     before = disco_ops.transpose_launches
     out = dispatch._BandContract.apply(x, tb["psi_band"], tb["lat_idx"],
                                        tb["row_ptr"], tb["row_ent"],
-                                       tp.stride)
+                                       disco_ops.LiveTaps.of(tb), tp.stride)
     (gx,) = torch.autograd.grad(out.square().sum(), x)
     xr = x.detach().clone().requires_grad_()
     ref = disco_gather_band_contract_ref(xr, tb["psi_band"], tb["lat_idx"],
@@ -185,7 +325,8 @@ def test_cuda_backward_runs_kernels(cuda):
     t = torch.randn((16, 12, 9), generator=gen, device=cuda)
     before = legendre_ops.launches
     (gl,) = torch.autograd.grad(
-        dispatch._Legendre.apply(xc, t).abs().square().sum(), xc)
+        dispatch._Legendre.apply(xc, t, _extents(t)).abs().square().sum(),
+        xc)
     assert legendre_ops.launches == before + 2
     xr = xc.detach().clone().requires_grad_()
     (glr,) = torch.autograd.grad(

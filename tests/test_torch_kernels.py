@@ -58,8 +58,9 @@ class TestLegendre:
         r = _rng(b)
         x = r.standard_normal((b, k, m)).astype(np.float32)
         t = r.standard_normal((k, n, m)).astype(np.float32)
-        got = legendre_ops.legendre_contract(torch.from_numpy(x),
-                                             torch.from_numpy(t)).numpy()
+        got = legendre_ops.legendre_contract(
+            torch.from_numpy(x), torch.from_numpy(t),
+            torch.from_numpy(tsht.order_extents(t))).numpy()
         np.testing.assert_allclose(
             got, np.asarray(j_leg_ref(jnp.asarray(x), jnp.asarray(t))),
             rtol=1e-5, atol=1e-5)
@@ -77,7 +78,8 @@ class TestLegendre:
         t = r.standard_normal((20, 16, 9)).astype(np.float32)
         tt = torch.from_numpy(t).permute(1, 0, 2)          # (16, 20, 9)
         got = legendre_ops.legendre_contract(
-            torch.complex(torch.from_numpy(xr), torch.from_numpy(xi)), tt)
+            torch.complex(torch.from_numpy(xr), torch.from_numpy(xi)), tt,
+            torch.from_numpy(tsht.order_extents(tt.numpy())))
         assert got.dtype == torch.complex64 and got.shape == (4, 20, 9)
         jt = jnp.asarray(t).transpose(1, 0, 2)
         for part, xp in ((got.real, xr), (got.imag, xi)):
@@ -92,11 +94,13 @@ class TestLegendre:
         tb = tsht.SHT.create(tgrids.make_grid(*g)).buffers()
         x = _rng(0).standard_normal((3, 32, 64)).astype(np.float32)
         cj = jdispatch.sht_forward(jnp.asarray(x), jb["wpct"], PALLAS)
-        ct = tdispatch.sht_forward(torch.from_numpy(x), tb["wpct"])
+        ct = tdispatch.sht_forward(torch.from_numpy(x), tb["wpct"],
+                                   tb["wpct_ext"])
         np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-5)
         c = np.asarray(cj)
         np.testing.assert_allclose(
-            tdispatch.sht_inverse(torch.from_numpy(c), tb["pct"], 64).numpy(),
+            tdispatch.sht_inverse(torch.from_numpy(c), tb["pct"], 64,
+                                  tb["pct_ext"]).numpy(),
             np.asarray(jdispatch.sht_inverse(jnp.asarray(c), jb["pct"], 64,
                                              PALLAS)), atol=1e-4)
 
@@ -108,7 +112,8 @@ class TestLegendre:
         t = torch.from_numpy(r.standard_normal((6, 5, 4)).astype(np.float32))
         x.requires_grad_(True)
         t.requires_grad_(True)
-        tdispatch._Legendre.apply(x, t).square().sum().backward()
+        ext = torch.from_numpy(tsht.order_extents(t.detach().numpy()))
+        tdispatch._Legendre.apply(x, t, ext).square().sum().backward()
         xr = x.detach().clone().requires_grad_()
         legendre_contract_ref(xr, t.detach()).square().sum().backward()
         torch.testing.assert_close(x.grad, xr.grad)
@@ -119,8 +124,10 @@ class TestLegendre:
         xr, xi = r.standard_normal((2, 2, 6, 4)).astype(np.float32)
         x = torch.complex(torch.from_numpy(xr), torch.from_numpy(xi))
         t = torch.from_numpy(r.standard_normal((6, 5, 4)).astype(np.float32))
+        ext = torch.from_numpy(tsht.order_extents(t.numpy()))
         grads = []
-        for fn in (tdispatch._Legendre.apply, legendre_contract_ref):
+        for fn in (lambda a, b: tdispatch._Legendre.apply(a, b, ext),
+                   legendre_contract_ref):
             xl = x.clone().requires_grad_()
             fn(xl, t).abs().square().sum().backward()
             grads.append(xl.grad)
@@ -143,7 +150,7 @@ class TestLegendre:
         (want,) = vjp(jnp.asarray(ct - 0.5j * ct, jnp.complex64))
         xt = torch.from_numpy(x).requires_grad_()
         got = torch.autograd.grad(
-            tdispatch.sht_forward(xt, tb["wpct"]), xt,
+            tdispatch.sht_forward(xt, tb["wpct"], tb["wpct_ext"]), xt,
             torch.from_numpy(ct + 0.5j * ct).to(torch.complex64))[0]
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-4, atol=1e-5)
@@ -153,8 +160,9 @@ class TestLegendre:
                          jnp.asarray(c))
         (want,) = vjp(jnp.asarray(x))
         cc = torch.from_numpy(c).requires_grad_()
-        got = torch.autograd.grad(tdispatch.sht_inverse(cc, tb["pct"], 32),
-                                  cc, torch.from_numpy(x))[0]
+        got = torch.autograd.grad(
+            tdispatch.sht_inverse(cc, tb["pct"], 32, tb["pct_ext"]), cc,
+            torch.from_numpy(x))[0]
         np.testing.assert_allclose(got.numpy(), np.conj(np.asarray(want)),
                                    rtol=1e-4, atol=1e-4)
 
@@ -189,7 +197,8 @@ class TestDiscoBand:
         ref = j_band_ref(xg, jnp.asarray(band), stride=jp.stride)
         tb = tp.banded_buffers()
         got = disco_ops.disco_band_contract(
-            torch.from_numpy(x), tb["psi_band"], tb["lat_idx"], tp.stride)
+            torch.from_numpy(x), tb["psi_band"], tb["lat_idx"],
+            disco_ops.LiveTaps.of(tb), tp.stride)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5)
 
@@ -216,8 +225,9 @@ class TestDiscoBand:
         x = torch.from_numpy(_rng(6).standard_normal(
             (2, 16, 32)).astype(np.float32)).requires_grad_()
         psi = tb["psi_band"].clone().requires_grad_()
-        tdispatch._BandContract.apply(x, psi, tb["lat_idx"], tb["row_ptr"],
-                                      tb["row_ent"], 1).square().sum().backward()
+        tdispatch._BandContract.apply(
+            x, psi, tb["lat_idx"], tb["row_ptr"], tb["row_ent"],
+            disco_ops.LiveTaps.of(tb), 1).square().sum().backward()
         xr = x.detach().clone().requires_grad_()
         disco_gather_band_contract_ref(xr, psi.detach(), tb["lat_idx"],
                                        1).square().sum().backward()
@@ -282,6 +292,98 @@ class TestDiscoBand:
             ents = row_ent[row_ptr[r]:row_ptr[r + 1]]
             assert list(ents) == sorted(ents)
             assert all(tp.lat_idx[e // s, e % s] == r for e in ents)
+
+
+def _band_with_holes(seed):
+    """A band-shaped psi (K, H, S, D) with scattered interior zeros, dead
+    slices, a dead row and a slice whose only nonzeros are its end taps."""
+    r = _rng(seed)
+    band = r.standard_normal((7, 9, 5, 23)).astype(np.float32)
+    band[r.random(band.shape) < 0.3] = 0
+    band[:, 2, 1] = 0
+    band[:, 4] = 0
+    band[..., :3] = 0
+    band[:, 6, 3] = 0
+    band[:, 6, 3, [4, 20]] = 1.5
+    return band
+
+
+def _taps_dense(taps, shape):
+    """The dense band the live taps describe."""
+    k, h_out, s, d = shape
+    out = np.zeros(shape, np.float32)
+    for h in range(h_out):
+        for ss, lo, span, off in taps["tap_ent"][
+                taps["tap_ptr"][h]:taps["tap_ptr"][h + 1]]:
+            out[:, h, ss, lo:lo + span] = taps["tap_psi"][off:off + span,
+                                                          :k].T
+    return out
+
+
+class TestLiveTaps:
+    @pytest.mark.parametrize("which", PAIR_IDS + ["holes"])
+    def test_cover_every_nonzero_and_drop_dead_slices(self, which):
+        if which == "holes":
+            band = _band_with_holes(10)
+        else:
+            band = _plans(PAIRS[PAIR_IDS.index(which)])[1].banded_split()[0]
+        taps = tdisco.band_live_taps(band)
+        k, h_out, s, d = band.shape
+        assert np.array_equal(_taps_dense(taps, band.shape), band)
+        live = np.flatnonzero((band != 0).any(axis=(0, 3)).reshape(-1))
+        ent = taps["tap_ent"]
+        hs = [h * s + e[0] for h in range(h_out)
+              for e in ent[taps["tap_ptr"][h]:taps["tap_ptr"][h + 1]]]
+        assert hs == list(live)                   # dead slices dropped
+        for h, (ss, lo, span, off) in zip(np.array(hs) // s, ent):
+            nz = np.flatnonzero((band[:, h, ss] != 0).any(axis=0))
+            assert (lo, lo + span) == (nz[0], nz[-1] + 1)   # tight span
+            assert off % tdisco.TAP_STEP == 0
+            assert not taps["tap_psi"][off + span:off + -(-span // 8) * 8].any()
+        assert taps["tap_psi"].shape[1] == tdisco.TAP_BASIS
+        assert not taps["tap_psi"][:, k:].any()
+        work = np.diff(taps["tap_ptr"])
+        assert sorted(taps["row_order"]) == list(range(h_out))
+        padded = np.zeros(h_out)
+        for h, e in zip(np.array(hs) // s, ent):
+            padded[h] += -(-e[2] // 8) * 8
+        assert np.all(np.diff(padded[taps["row_order"]]) <= 0)
+        assert work.sum() == len(ent)
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    def test_contraction_over_live_taps_matches_plain(self, stride):
+        # the function the forward kernel computes from the live taps (its
+        # window and wrap arithmetic, in numpy) against the plain version
+        band = _band_with_holes(11 + stride)
+        r = _rng(stride)
+        lat_idx = r.integers(0, 12, band.shape[1:3]).astype(np.int32)
+        x = r.standard_normal((3, 12, 30 * stride)).astype(np.float32)
+        taps = tdisco.band_live_taps(band)
+        k, h_out, s, d = band.shape
+        w_in = x.shape[-1]
+        w = np.arange(w_in // stride)
+        got = np.zeros((3, k, h_out, w.size))
+        for h in range(h_out):
+            for ss, lo, span, off in taps["tap_ent"][
+                    taps["tap_ptr"][h]:taps["tap_ptr"][h + 1]]:
+                for t in range(-(-span // 8) * 8):
+                    col = (w * stride + lo + t - d // 2) % w_in
+                    xv = x[:, lat_idx[h, ss]][:, col]          # (B, W_out)
+                    got[:, :, h] += (taps["tap_psi"][off + t, :k, None, None]
+                                     * xv[None]).transpose(1, 0, 2)
+        ref = disco_gather_band_contract_ref(
+            torch.from_numpy(x), torch.from_numpy(band),
+            torch.from_numpy(lat_idx), stride)
+        np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
+
+    def test_plan_buffers_carry_the_taps(self):
+        _, tp = _plans(PAIRS[0])
+        bufs = tp.banded_buffers()
+        taps = tdisco.band_live_taps(bufs["psi_band"].numpy())
+        for name, a in taps.items():
+            assert bufs[name].dtype == torch.from_numpy(a).dtype
+            assert np.array_equal(bufs[name].numpy(), a), name
+        assert disco_ops.LiveTaps.of(bufs).psi is bufs["tap_psi"]
 
 
 class TestChunkedApply:

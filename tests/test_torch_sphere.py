@@ -67,6 +67,66 @@ class TestGeometryExact:
         for name in ("wpct", "pct"):
             assert np.array_equal(np.asarray(jb[name]), tb[name].numpy())
 
+    @pytest.mark.parametrize("spec", [(33, 64, "equiangular"),
+                                      (16, 32, "gauss")])
+    def test_legendre_extents_bound_every_nonzero(self, spec):
+        # the extents the Legendre kernel contracts inside: every nonzero
+        # of wpct / pct (and of their transposes, flipped) lies in its
+        # order's rows and columns, and the bounds are tight
+        tb = tsht.SHT.create(tgrids.make_grid(*spec)).buffers()
+        r = _rng(1)
+        rand = r.standard_normal((20, 17, 6)).astype(np.float32)
+        for m in range(6):
+            k0, k1, n0, n1 = r.integers(0, 20), r.integers(0, 20), \
+                r.integers(0, 17), r.integers(0, 17)
+            rand[:min(k0, k1), :, m] = rand[max(k0, k1):, :, m] = 0
+            rand[:, :min(n0, n1), m] = rand[:, max(n0, n1):, m] = 0
+        rand[:, :, 4] = 0
+        rand[r.random(rand.shape) < 0.3] = 0
+        cases = [(tb["wpct"].numpy(), tb["wpct_ext"].numpy()),
+                 (tb["pct"].numpy(), tb["pct_ext"].numpy()),
+                 (rand, tsht.order_extents(rand))]
+        for table, ext in cases:
+            assert ext.dtype == np.int32 and ext.shape == (2, 2,
+                                                           table.shape[2])
+            assert np.array_equal(ext, tsht.order_extents(table))
+            for t, e in ((table, ext),
+                         (table.transpose(1, 0, 2), ext[::-1])):
+                assert np.array_equal(e, tsht.order_extents(t))
+                for m in range(t.shape[2]):
+                    nz_k, nz_n = np.nonzero(t[:, :, m])
+                    (k_lo, k_hi), (n_lo, n_hi) = e[:, :, m]
+                    if nz_k.size == 0:
+                        assert (k_lo, k_hi, n_lo, n_hi) == (0, 0, 0, 0)
+                        continue
+                    assert (k_lo, k_hi) == (nz_k.min(), nz_k.max() + 1)
+                    assert (n_lo, n_hi) == (nz_n.min(), nz_n.max() + 1)
+        # the SHT tables are zero for l < m: forward columns, inverse rows
+        m = np.arange(tb["wpct"].shape[2])
+        assert np.array_equal(tb["wpct_ext"].numpy()[1, 0], m)
+        assert np.array_equal(tb["pct_ext"].numpy()[1, 0], m)
+
+    @pytest.mark.parametrize("pair", SMOKE_PAIRS + [SMALL_LATENT],
+                             ids=["smoke-enc", "smoke-latent", "smoke-dec",
+                                  "small-latent"])
+    def test_disco_live_taps_from_the_reference_band(self, pair):
+        # the forward kernel's live taps, built from the JAX package's band
+        # split, hold exactly its nonzeros and equal the port's own
+        gi, go = pair
+        jp = jdisco.make_disco_plan(jgrids.make_grid(*gi),
+                                    jgrids.make_grid(*go))
+        tp = tdisco.make_disco_plan(tgrids.make_grid(*gi),
+                                    tgrids.make_grid(*go))
+        band = np.asarray(jp._banded_split()[0])
+        taps = tdisco.band_live_taps(band)
+        k = band.shape[0]
+        n_live = int((band != 0).any(axis=(0, 3)).sum())
+        assert len(taps["tap_ent"]) == n_live
+        assert int((taps["tap_psi"][:, :k] != 0).sum()) == int(
+            (band != 0).sum())
+        for name, a in tp.live_taps().items():
+            assert np.array_equal(a, taps[name]), name
+
     @pytest.mark.parametrize("pair", SMOKE_PAIRS + [SMALL_LATENT],
                              ids=["smoke-enc", "smoke-latent", "smoke-dec",
                                   "small-latent"])
