@@ -41,11 +41,12 @@ non-zero exit code and no result line:
    Legendre kernel at each table the forecast used (its largest batch),
    the band contraction timed at every distinct (psi, stride, batch) the
    forecast launched it with and held to its plain version at the
-   largest batch of each geometry, the transpose and CRPS kernels at each
-   distinct shape training launched them with, the SSD kernel on the
-   operands of the prefill's first layer; timings (CUDA events, median),
-   the ``library_ms`` yardstick (the band kernels' only at the largest
-   shape of each geometry: it is far slower than the kernel, see PERF.md)
+   largest batch of each geometry, the transpose (with its launches per
+   shape, which must add up to the training phase's count) and CRPS
+   kernels at each distinct shape training launched them with, the SSD
+   kernel on the operands of the prefill's first layer; timings (CUDA
+   events, median), the ``library_ms`` yardstick at every band shape
+   (``conv_transpose1d`` takes seconds a call: one call after one warm-up)
    and the least time the card could take, in fp32 (``bound_ms``) and
    on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
 8. the ``kernels`` JSON line, then the result line.
@@ -141,8 +142,8 @@ class Recorder:
     of every call (the wrappers still count the launches): the Legendre
     kernel at its largest batch per table, the band contraction, its
     transpose and the CRPS kernels at every distinct shape (the band
-    contraction with its launches per shape), the SSD kernel at its first
-    call."""
+    contraction and its transpose with their launches per shape), the SSD
+    kernel at its first call."""
 
     def __init__(self):
         from repro_torch.kernels.crps import ops as crps_ops
@@ -171,16 +172,15 @@ class Recorder:
             return orig["disco_band_contract"](x, psi_band, lat_idx, taps,
                                                stride)
 
-        def transpose(g, psi_band, lat_idx, row_ptr, row_ent, h_in,
-                      stride=1):
+        def transpose(g, psi_band, lat_idx, taps, rows, h_in, stride=1):
             key = (psi_band.data_ptr(), stride, tuple(g.shape))
-            self.transpose.setdefault(key, {
-                "psi": psi_band, "lat_idx": lat_idx, "row_ptr": row_ptr,
-                "row_ent": row_ent, "h_in": h_in, "stride": stride,
-                "shape": tuple(g.shape)})
-            return orig["disco_band_transpose"](g, psi_band, lat_idx,
-                                                row_ptr, row_ent, h_in,
-                                                stride)
+            ent = self.transpose.setdefault(key, {
+                "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
+                "rows": rows, "h_in": h_in, "stride": stride,
+                "shape": tuple(g.shape), "launches": 0})
+            ent["launches"] += 1
+            return orig["disco_band_transpose"](g, psi_band, lat_idx, taps,
+                                                rows, h_in, stride)
 
         def legendre(x, table, extents):
             key = (table.data_ptr(), table.stride())
@@ -340,7 +340,21 @@ def check_disco(ent, name, full: bool) -> dict:
         return ops.disco_band_contract(x, psi, lat_idx, taps, stride)
 
     ms = cuda_ms(kernel, reps=5)
-    abs_err = rel_err = plain_ms = lib_ms = lib_err = None
+    abs_err = rel_err = plain_ms = lib_err = None
+    # yardstick: one grouped conv1d over the rolled, gathered, wrap-padded
+    # rows computes the same band correlation (cuDNN, TF32 off)
+    xr = torch.roll(x, d // 2, dims=-1)
+    xg = xr.index_select(-2, lat_idx.reshape(-1).long()).reshape(
+        b, h_out, s, w_in)
+    del xr
+    xp = torch.cat([xg, xg[..., :d - 1]], dim=-1).reshape(b, h_out * s, -1)
+    del xg
+    wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
+
+    def lib():
+        return F.conv1d(xp, wt, stride=stride, groups=h_out)
+
+    lib_ms = cuda_ms(lib, reps=3)
     if full:
         got = kernel()
         torch.cuda.synchronize()
@@ -352,26 +366,11 @@ def check_disco(ent, name, full: bool) -> dict:
         plain_ms = cuda_ms(
             lambda: disco_gather_band_contract_ref(x, psi, lat_idx, stride),
             reps=2, warmup=0)
-        # yardstick: one grouped conv1d over the rolled, gathered,
-        # wrap-padded rows computes the same band correlation (cuDNN,
-        # TF32 off)
-        xr = torch.roll(x, d // 2, dims=-1)
-        xg = xr.index_select(-2, lat_idx.reshape(-1).long()).reshape(
-            b, h_out, s, w_in)
-        del xr
-        xp = torch.cat([xg, xg[..., :d - 1]], dim=-1).reshape(
-            b, h_out * s, -1)
-        del xg
-        wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
-
-        def lib():
-            return F.conv1d(xp, wt, stride=stride, groups=h_out)
-
         lib_out = lib().reshape(b, h_out, k, w_out).permute(0, 2, 1, 3)
         lib_err = errors(lib_out, ref)[1]
         del lib_out, ref
-        lib_ms = cuda_ms(lib, reps=3)
-        del xp
+    del xp
+    if full:
         if not (rel_err <= REL_TOL and deterministic):
             raise AssertionError(f"disco {name}: kernel disagrees with its "
                                  f"plain version (rel {rel_err:.3e}) or is "
@@ -389,18 +388,17 @@ def check_disco(ent, name, full: bool) -> dict:
     log(f"[kernel] disco {name} {row['shape']}: launches={ent['launches']} "
         f"ms={ms:.3f} bound_ms={row['bound_ms']:.3f} "
         f"bound_tc_ms={row['bound_tc_ms']:.3f} "
-        f"tflops={flops / ms / 1e9:.2f}"
+        f"tflops={flops / ms / 1e9:.2f} conv1d_ms={lib_ms:.3f}"
         + (f" abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
-           f"plain_ms={plain_ms:.3f} conv1d_ms={lib_ms:.3f} "
-           f"(rel_err {lib_err:.1e})" if full else ""))
+           f"plain_ms={plain_ms:.3f} (conv1d rel_err {lib_err:.1e})"
+           if full else ""))
     return row
 
 
-def check_transpose(ent, name, yardstick: bool) -> dict:
-    """Band transpose kernel vs its plain version at one training shape;
-    with ``yardstick``, also the ``conv_transpose1d`` time (the caller
-    asks for it only at the largest shape of each geometry: it is far
-    slower than the kernel, see PERF.md)."""
+def check_transpose(ent, name) -> dict:
+    """Band transpose kernel vs its plain version at one training shape,
+    its launches there, and the ``conv_transpose1d`` yardstick's time
+    (one call after one warm-up: it takes seconds, see PERF.md)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
@@ -408,6 +406,7 @@ def check_transpose(ent, name, yardstick: bool) -> dict:
     psi, lat_idx, stride, shape, h_in = (ent["psi"], ent["lat_idx"],
                                          ent["stride"], ent["shape"],
                                          ent["h_in"])
+    taps, lists = ent["taps"], ent["rows"]
     b, k, h_out, w_out = shape
     _, _, s, d = psi.shape
     w_in = w_out * stride
@@ -415,8 +414,8 @@ def check_transpose(ent, name, yardstick: bool) -> dict:
         device="cuda").manual_seed(13), device="cuda")
 
     def kernel():
-        return ops.disco_band_transpose(g, psi, lat_idx, ent["row_ptr"],
-                                        ent["row_ent"], h_in, stride)
+        return ops.disco_band_transpose(g, psi, lat_idx, taps, lists, h_in,
+                                        stride)
 
     def plain():
         return disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
@@ -426,56 +425,63 @@ def check_transpose(ent, name, yardstick: bool) -> dict:
     ref = plain()
     torch.cuda.synchronize()
     abs_err, rel_err = errors(got, ref)
+    deterministic = torch.equal(got, kernel())
     del got
     ms = cuda_ms(kernel, reps=5)
     plain_ms = cuda_ms(plain, reps=1, warmup=0)
     lib_ms = lib_err = None
-    if yardstick:
-        # the grouped conv1d of check_disco, transposed: one
-        # conv_transpose1d onto the wrap-padded gathered rows (cuDNN, TF32
-        # off); folding the pad back and adding rows is not timed
-        wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
-        gl = g.permute(0, 2, 1, 3).reshape(b, h_out * k, w_out)
+    # the grouped conv1d of check_disco, transposed: one conv_transpose1d
+    # onto the wrap-padded gathered rows (cuDNN, TF32 off); folding the
+    # pad back and adding rows is not timed
+    wt = psi.permute(1, 0, 2, 3).reshape(h_out * k, s, d).contiguous()
+    gl = g.permute(0, 2, 1, 3).reshape(b, h_out * k, w_out)
 
-        def lib():
-            return F.conv_transpose1d(gl, wt, stride=stride, groups=h_out)
+    def lib():
+        return F.conv_transpose1d(gl, wt, stride=stride, groups=h_out)
 
-        try:
-            gxp = lib()
-            fold = gxp[..., :w_in].clone()
-            fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
-            del gxp
-            gxr = torch.zeros((b, h_in, w_in), device="cuda").index_add_(
-                1, lat_idx.reshape(-1).long(),
-                fold.reshape(b, h_out * s, w_in))
-            del fold
-            lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
-            del gxr
-            lib_ms = cuda_ms(lib, reps=1, warmup=0)
-        except RuntimeError as exc:  # the yardstick only; never in the port
-            log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
-        del gl
-    del ref
+    try:
+        gxp = lib()   # the warm-up
+        fold = gxp[..., :w_in].clone()
+        fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
+        del gxp
+        gxr = torch.zeros((b, h_in, w_in), device="cuda").index_add_(
+            1, lat_idx.reshape(-1).long(), fold.reshape(b, h_out * s, w_in))
+        del fold
+        lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
+        del gxr
+        lib_ms = cuda_ms(lib, reps=1, warmup=0)
+    except RuntimeError as exc:  # the yardstick only; never in the port
+        log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
+    del gl, ref
     torch.cuda.empty_cache()
     nnz = int((psi != 0).sum())
     flops_dense = 2.0 * k * h_out * s * d * w_out * b
-    flops = 2.0 * nnz * w_out * b
-    nbytes = 4.0 * (b * k * h_out * w_out + psi.numel()
-                    + ent["row_ptr"].numel() + ent["row_ent"].numel()
+    flops = 2.0 * nnz * w_out * b   # the taps this filter really has
+    # g, the live taps and their lists in, gx out
+    nbytes = 4.0 * (b * k * h_out * w_out + taps.ent.numel()
+                    + taps.psi.numel() + sum(t.numel() for t in lists)
                     + b * h_in * w_in)
     row = dict(shape=f"g{shape} psi{tuple(psi.shape)} stride{stride}",
-               what=name, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, library_rel_err=lib_err,
-               flops=flops, flops_dense=flops_dense, bytes=nbytes,
-               **bound(flops, nbytes))
-    log(f"[kernel] transpose {name} {row['shape']}: abs_err={abs_err:.3e} "
+               what=name, launches=ent["launches"], max_abs_err=abs_err,
+               max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_rel_err=lib_err, flops=flops,
+               flops_dense=flops_dense, bytes=nbytes,
+               tflops=flops / ms / 1e9, dense_band_tflops=flops_dense / ms
+               / 1e9, **bound(flops, nbytes))
+    row["ms_over_bound"] = ms / row["bound_ms"]
+    log(f"[kernel] transpose {name} {row['shape']}: "
+        f"launches={ent['launches']} abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"conv_transpose1d_ms={lib_ms} (rel_err {lib_err}) "
         f"bound_ms={row['bound_ms']:.3f} "
-        f"dense_band_tflops={flops_dense / ms / 1e9:.2f}")
-    if not rel_err <= REL_TOL:
+        f"ms/bound_ms={row['ms_over_bound']:.2f} "
+        f"bound_tc_ms={row['bound_tc_ms']:.3f} "
+        f"tflops={row['tflops']:.2f} "
+        f"dense_band_tflops={row['dense_band_tflops']:.2f}")
+    if not (rel_err <= REL_TOL and deterministic):
         raise AssertionError(f"transpose {name}: kernel disagrees with its "
-                             f"plain version (rel {rel_err:.3e})")
+                             f"plain version (rel {rel_err:.3e}) or is not "
+                             f"deterministic ({deterministic})")
     return row
 
 
@@ -1002,17 +1008,15 @@ def main() -> int:
             "disco_band_contract"]:
         raise AssertionError("the band contraction's launches per shape do "
                              "not add up to its count on the main path")
-    largest = {}
-    for ent in train_rec.transpose.values():
-        key = ent["psi"].data_ptr()
-        if ent["shape"][0] > largest.get(key, (0,))[0]:
-            largest[key] = ent["shape"]
     for ent in train_rec.transpose.values():
         what = (f"{ent['psi'].shape[1]}x{ent['shape'][-1]}->{ent['h_in']}x"
                 f"{ent['shape'][-1] * ent['stride']}")
-        rows["disco_band_transpose"].append(check_transpose(
-            ent, what, ent["shape"] == largest[ent["psi"].data_ptr()]))
+        rows["disco_band_transpose"].append(check_transpose(ent, what))
         torch.cuda.empty_cache()
+    if sum(r["launches"] for r in rows["disco_band_transpose"]) != summary[
+            "launches"]["disco_band_transpose"]:
+        raise AssertionError("the transpose's launches per shape do not add "
+                             "up to its count on the training path")
     for ent in train_rec.crps.values():
         rows["crps_fused"].extend(check_crps(ent))
         torch.cuda.empty_cache()
@@ -1051,6 +1055,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                if r["max_abs_err"] is not None),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
+            **{key: top[key] for key in ("tflops", "dense_band_tflops",
+                                         "ms_over_bound") if key in top},
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "bound_tc_ms": top["bound_tc_ms"],
             "library_ms": top["library_ms"], "at": top["shape"],

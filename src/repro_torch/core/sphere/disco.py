@@ -116,24 +116,21 @@ class DiscoPlan:
                        ) -> dict[str, torch.Tensor]:
         """``psi_band`` (K, H, S, D) with wrap rows zeroed, ``psi_wrap``
         (K, H_wrap, S, W) full-circle psi of the wrap rows, ``wrap_rows``
-        and ``lat_idx``, plus the band's per-input-row lists ``row_ptr`` /
-        ``row_ent`` that the transpose kernel reads (``band_row_lists``)
-        and its live taps ``tap_ptr`` / ``tap_ent`` / ``tap_psi`` /
-        ``row_order`` that the forward kernel reads (``band_live_taps``).
-        The full (K, H, S, W) psi never reaches the device."""
+        and ``lat_idx``, plus the band's live taps ``tap_ptr`` /
+        ``tap_ent`` / ``tap_psi`` / ``row_order`` that the forward kernel
+        reads (``band_live_taps``) and the same slices grouped by input
+        row, ``in_ptr`` / ``in_ent`` / ``in_order``, that the transpose
+        kernel reads (``band_row_taps``).  The full (K, H, S, W) psi
+        never reaches the device."""
         band, wrap_rows, psi_wrap = self.banded_split()
-        row_ptr, row_ent = band_row_lists(self.lat_idx, band,
-                                          self.grid_in.nlat)
-        taps = self.live_taps()
         return {
             **{name: torch.from_numpy(a).to(device)
-               for name, a in taps.items()},
+               for name, a in {**self.live_taps(),
+                               **self.row_taps()}.items()},
             "psi_band": torch.from_numpy(band).to(device),
             "psi_wrap": torch.from_numpy(psi_wrap).to(device),
             "wrap_rows": torch.from_numpy(wrap_rows.astype(np.int64)).to(device),
             "lat_idx": torch.from_numpy(self.lat_idx).to(device),
-            "row_ptr": torch.from_numpy(row_ptr).to(device),
-            "row_ent": torch.from_numpy(row_ent).to(device),
         }
 
     def live_taps(self) -> dict[str, np.ndarray]:
@@ -142,6 +139,15 @@ class DiscoPlan:
         if cached is None:
             cached = band_live_taps(self.banded_split()[0])
             object.__setattr__(self, "_taps_cache", cached)
+        return cached
+
+    def row_taps(self) -> dict[str, np.ndarray]:
+        """``band_row_taps`` of the live taps, memoized on the plan."""
+        cached = getattr(self, "_row_taps_cache", None)
+        if cached is None:
+            cached = band_row_taps(self.lat_idx, self.live_taps(),
+                                   self.grid_in.nlat)
+            object.__setattr__(self, "_row_taps_cache", cached)
         return cached
 
     def banded_split(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -272,26 +278,6 @@ def split_psi_band(psi: np.ndarray, d_max: int | None = None
     return band.astype(np.float32), wrap_rows, psi_wrap.astype(np.float32)
 
 
-def band_row_lists(lat_idx: np.ndarray, band: np.ndarray, h_in: int
-                   ) -> tuple[np.ndarray, np.ndarray]:
-    """The inverse of ``lat_idx`` as CSR lists, for the band's transpose.
-
-    Returns ``row_ptr`` (h_in + 1,) and ``row_ent`` int32: the entries of
-    input row r are ``row_ent[row_ptr[r]:row_ptr[r + 1]]``, each
-    ``h * S + s`` with ``lat_idx[h, s] == r``, in increasing order.  Pairs
-    whose ``band[:, h, s, :]`` is all zero (clamped rows outside the
-    filter's support, wrap rows) are left out: they add nothing.
-    """
-    h_out, s = lat_idx.shape
-    live = np.abs(band).max(axis=(0, 3)).reshape(-1) > 0      # (H_out*S,)
-    ent = np.flatnonzero(live)
-    rows = lat_idx.reshape(-1)[ent]
-    order = np.argsort(rows, kind="stable")
-    counts = np.bincount(rows, minlength=h_in)
-    row_ptr = np.concatenate([[0], np.cumsum(counts)])
-    return row_ptr.astype(np.int32), ent[order].astype(np.int32)
-
-
 #: the forward kernel's step along the taps (the tensor-core product's
 #: depth) and its basis count (the product's width): each slice's taps
 #: are zero-padded to a multiple of TAP_STEP, the basis to TAP_BASIS
@@ -342,6 +328,38 @@ def band_live_taps(band: np.ndarray) -> dict[str, np.ndarray]:
                             axis=1).astype(np.int32),
         "tap_psi": tap_psi,
         "row_order": np.argsort(-work, kind="stable").astype(np.int32),
+    }
+
+
+def band_row_taps(lat_idx: np.ndarray, taps: dict[str, np.ndarray],
+                  h_in: int) -> dict[str, np.ndarray]:
+    """The live slices of ``band_live_taps`` grouped by input row, as the
+    transpose kernel reads them.
+
+    Slice ``e`` (entry e of ``tap_ent``, output row h, band tap s) feeds
+    input row ``lat_idx[h, s]``.  Returns int32 arrays:
+
+    * ``in_ptr`` (h_in + 1,): the slices of input row r are entries
+      ``in_ptr[r]:in_ptr[r + 1]`` of ``in_ent``, in increasing e;
+    * ``in_ent`` (E, 2): ``(h, e)`` per slice, so the kernel reads the
+      slice's ``(s, d_lo, span, offset)`` and its packed psi from the
+      same ``tap_ent`` / ``tap_psi`` as the forward (no second copy);
+    * ``in_order`` (h_in,): input rows by padded taps, heaviest first
+      (every tap costs K products in every row alike), all rows included
+      so that the kernel writes every gradient row.
+    """
+    tap_ptr, tap_ent = taps["tap_ptr"], taps["tap_ent"]
+    h = np.repeat(np.arange(len(tap_ptr) - 1), np.diff(tap_ptr))
+    rows = lat_idx[h, tap_ent[:, 0]].astype(np.int64)
+    order = np.argsort(rows, kind="stable")
+    in_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                        minlength=h_in))])
+    padded = -(-tap_ent[:, 2] // TAP_STEP) * TAP_STEP
+    work = np.bincount(rows, weights=padded, minlength=h_in)
+    return {
+        "in_ptr": in_ptr.astype(np.int32),
+        "in_ent": np.stack([h[order], order], axis=1).astype(np.int32),
+        "in_order": np.argsort(-work, kind="stable").astype(np.int32),
     }
 
 

@@ -23,8 +23,11 @@ launches = 0
 transpose_launches = 0
 #: shared memory one block may use on the H100
 _MAX_SMEM = 227 * 1024
-#: the transpose kernel's tile: longitudes per block, planes per block
-_TW, _TBP = 128, 8
+#: the transpose kernel's tile (``csrc/disco_band_bwd.cu``): input
+#: longitudes per block, planes per block, pipeline stages, taps per
+#: staged piece of a slice, and the strides it is compiled for
+_TV, _TBP, _TSTAGES, _TCH = 256, 16, 3, 64
+_TSTRIDES = (1, 2)
 #: the forward kernel's tile (``csrc/disco_band.cu``): output longitudes
 #: per block (8 warps x the mma's 16 rows), planes per block, pipeline
 #: stages, and taps per staged piece of a slice
@@ -46,6 +49,21 @@ class LiveTaps(NamedTuple):
         """The live taps of ``DiscoPlan.banded_buffers``."""
         return cls(buffers["tap_ptr"], buffers["tap_ent"],
                    buffers["tap_psi"], buffers["row_order"])
+
+
+class RowTaps(NamedTuple):
+    """The live taps grouped by input row
+    (``core.sphere.disco.band_row_taps``) on the device: ``ptr``
+    (H_in + 1,), ``ent`` (E, 2) and ``order`` (H_in,) int32."""
+
+    ptr: torch.Tensor
+    ent: torch.Tensor
+    order: torch.Tensor
+
+    @classmethod
+    def of(cls, buffers: dict) -> "RowTaps":
+        """The per-input-row lists of ``DiscoPlan.banded_buffers``."""
+        return cls(buffers["in_ptr"], buffers["in_ent"], buffers["in_order"])
 
 
 def reset_launches() -> None:
@@ -159,63 +177,95 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
 def _bwd_lib():
     lib = build.load_library("disco_band_bwd")
     fn = lib.disco_band_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def transpose_smem_bytes(d: int, stride: int) -> int:
-    """Dynamic shared memory one block of the transpose kernel uses
-    (``smem_bytes`` in ``csrc/disco_band_bwd.cu``)."""
-    return 4 * (d + _TBP * ((_TW + d - 1) // stride + 2))
+def transpose_smem_bytes(stride: int) -> int:
+    """Dynamic shared memory one block of the transpose kernel uses: per
+    stage, one basis function's taps of a piece with their zero margins
+    and each plane's g window (``stage_floats`` in
+    ``csrc/disco_band_bwd.cu``)."""
+    deltas = (_TCH + 9 * stride - 2) // (8 * stride)
+    window = ((_TV // stride + 8 * deltas + 6) // 4 | 1) * 4
+    return 4 * _TSTAGES * (_TCH + 32 * stride + _TBP * window)
 
 
-def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
-                         lat_idx: torch.Tensor, row_ptr: torch.Tensor,
-                         row_ent: torch.Tensor, h_in: int, stride: int = 1
-                         ) -> torch.Tensor:
-    """Gradient of ``disco_band_contract`` in x, in one kernel.
-
-    g: (B, K, H_out, W_out) float32 -> (B, h_in, W_out * stride) float32.
-    ``row_ptr`` (h_in + 1,) / ``row_ent`` int32 list, for each input row
-    r, the entries ``h * S + s`` with ``lat_idx[h, s] == r`` and a nonzero
-    psi slice (``core.sphere.disco.band_row_lists``); the kernel reads
-    them, the plain version ``ref.disco_band_transpose_ref`` reads
-    ``lat_idx``.  Deterministic: every output is written once.
-    """
-    global transpose_launches
-    if all(t.device.type == "cpu" for t in (g, psi_band, lat_idx)):
-        return disco_band_transpose_ref(g, psi_band, lat_idx, h_in, stride)
+def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
     if g.dim() != 4 or psi_band.dim() != 4:
         raise ValueError(f"disco_band_transpose wants g (B,K,H_out,W_out) "
                          f"and psi_band (K,H_out,S,D), got {tuple(g.shape)}, "
                          f"{tuple(psi_band.shape)}")
     b, k, h_out, w_out = g.shape
-    _, _, s, d = psi_band.shape
-    if psi_band.shape[:2] != (k, h_out) or tuple(row_ptr.shape) != (h_in + 1,):
-        raise ValueError(f"disco_band_transpose: g {tuple(g.shape)}, psi_band "
-                         f"{tuple(psi_band.shape)} and row_ptr "
-                         f"{tuple(row_ptr.shape)} (h_in={h_in}) disagree")
-    if transpose_smem_bytes(d, stride) > _MAX_SMEM:
-        raise ValueError(f"band width D={d} at stride {stride} needs more "
-                         "shared memory than a block has")
+    if psi_band.shape[:2] != (k, h_out):
+        raise ValueError(f"disco_band_transpose: g {tuple(g.shape)} does not "
+                         f"match psi_band {tuple(psi_band.shape)}")
+    if not 1 <= k <= 8:
+        raise ValueError(f"disco_band_transpose supports 1..8 basis "
+                         f"functions, got {k}")
+    if (tuple(taps.ptr.shape) != (h_out + 1,)
+            or taps.ent.dim() != 2 or taps.ent.shape[1] != 4
+            or taps.psi.dim() != 2 or taps.psi.shape[1] != 8
+            or taps.psi.shape[0] % 8
+            or tuple(rows.ptr.shape) != (h_in + 1,)
+            or tuple(rows.order.shape) != (h_in,)
+            or tuple(rows.ent.shape) != (taps.ent.shape[0], 2)):
+        raise ValueError(
+            f"disco_band_transpose: live taps ptr {tuple(taps.ptr.shape)}, "
+            f"ent {tuple(taps.ent.shape)}, psi {tuple(taps.psi.shape)} and "
+            f"row lists ptr {tuple(rows.ptr.shape)}, ent "
+            f"{tuple(rows.ent.shape)}, order {tuple(rows.order.shape)} do "
+            f"not fit psi_band {tuple(psi_band.shape)} and h_in={h_in} (see "
+            f"band_live_taps, band_row_taps)")
+    if stride not in _TSTRIDES:
+        raise ValueError(f"the transpose kernel takes strides {_TSTRIDES}, "
+                         f"got {stride}")
+    if transpose_smem_bytes(stride) > _MAX_SMEM:
+        raise ValueError(f"stride {stride} needs more shared memory than a "
+                         "block has")
     _check_tensors("disco_band_transpose", g,
                    (("g", g, torch.float32),
                     ("psi_band", psi_band, torch.float32),
-                    ("row_ptr", row_ptr, torch.int32),
-                    ("row_ent", row_ent, torch.int32)))
-    if h_in > 65535 or (b + _TBP - 1) // _TBP > 65535:
+                    ("taps.ent", taps.ent, torch.int32),
+                    ("taps.psi", taps.psi, torch.float32),
+                    ("rows.ptr", rows.ptr, torch.int32),
+                    ("rows.ent", rows.ent, torch.int32),
+                    ("rows.order", rows.order, torch.int32)))
+    blocks = (-(-b // _TBP) * h_in * -(-w_out * stride // _TV))
+    if blocks >= 2 ** 31:
         raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's grid")
-    w_in = w_out * stride
-    gx = torch.empty((b, h_in, w_in), dtype=torch.float32, device=g.device)
+
+
+def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
+                         lat_idx: torch.Tensor, taps: LiveTaps,
+                         rows: RowTaps, h_in: int, stride: int = 1
+                         ) -> torch.Tensor:
+    """Gradient of ``disco_band_contract`` in x, in one kernel.
+
+    g: (B, K, H_out, W_out) float32 -> (B, h_in, W_out * stride) float32.
+    ``taps``: psi_band's live taps (``band_live_taps``), ``rows``: the
+    same slices grouped by input row (``band_row_taps``); the kernel
+    reads those two and the shapes of psi_band, the plain version
+    ``ref.disco_band_transpose_ref`` reads psi_band and ``lat_idx``.
+    Deterministic: every output is written once.
+    """
+    global transpose_launches
+    if all(t.device.type == "cpu" for t in (g, psi_band, lat_idx)):
+        return disco_band_transpose_ref(g, psi_band, lat_idx, h_in, stride)
+    _check_transpose(g, psi_band, taps, rows, h_in, stride)
+    b, k, h_out, w_out = g.shape
+    d = psi_band.shape[-1]
+    gx = torch.empty((b, h_in, w_out * stride), dtype=torch.float32,
+                     device=g.device)
     if gx.numel() == 0:
         return gx
     fn = _bwd_lib()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(g.data_ptr(), psi_band.data_ptr(), row_ptr.data_ptr(),
-             row_ent.data_ptr(), gx.data_ptr(), b, k, h_out, w_out, h_in,
-             w_in, s, d, stride, stream)
+    err = fn(g.data_ptr(), rows.ptr.data_ptr(), rows.ent.data_ptr(),
+             rows.order.data_ptr(), taps.ent.data_ptr(), taps.psi.data_ptr(),
+             gx.data_ptr(), b, k, h_out, w_out, h_in, d, stride, stream)
     build.check_launch(err, "disco_band_transpose")
     transpose_launches += 1
     return gx

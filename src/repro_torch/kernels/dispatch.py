@@ -6,8 +6,9 @@ a kernel too, through the same wrappers: the Legendre contraction's
 gradient in x is a Legendre contraction with the table transposed, and
 the band contraction's is its transpose (``disco_band_transpose``).  Both
 are linear in x, so neither saves x.  The tables, ``psi_band`` and the
-index buffers (the tables' order extents, the band's live taps and row
-lists) are constants: neither backward returns a gradient for them.  The wrappers themselves decide CPU (plain version) versus CUDA
+index buffers (the tables' order extents, the band's live taps and
+their lists by input row) are constants: neither backward returns a
+gradient for them.  The wrappers themselves decide CPU (plain version) versus CUDA
 (kernel launch) by where the tensors lie.  The SSD kernel has no
 backward yet (ROADMAP A13): ``ssd_chunked`` serves the prefill only.
 """
@@ -51,8 +52,8 @@ def transposed_extents(extents: torch.Tensor) -> torch.Tensor:
 
 class _BandContract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, psi_band, lat_idx, row_ptr, row_ent, taps, stride):
-        ctx.save_for_backward(psi_band, lat_idx, row_ptr, row_ent)
+    def forward(ctx, x, psi_band, lat_idx, taps, rows, stride):
+        ctx.save_for_backward(psi_band, lat_idx, *taps, *rows)
         ctx.stride, ctx.h_in = stride, x.shape[1]
         return disco_ops.disco_band_contract(x, psi_band, lat_idx, taps,
                                              stride)
@@ -61,9 +62,13 @@ class _BandContract(torch.autograd.Function):
     def backward(ctx, g):
         gx = None
         if ctx.needs_input_grad[0]:
+            psi_band, lat_idx, *lists = ctx.saved_tensors
+            n = len(disco_ops.LiveTaps._fields)
             gx = disco_ops.disco_band_transpose(
-                g.contiguous(), *ctx.saved_tensors, ctx.h_in, ctx.stride)
-        return gx, None, None, None, None, None, None
+                g.contiguous(), psi_band, lat_idx,
+                disco_ops.LiveTaps(*lists[:n]), disco_ops.RowTaps(*lists[n:]),
+                ctx.h_in, ctx.stride)
+        return gx, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -112,18 +117,19 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     ``core.sphere.disco.disco_conv`` on the full psi.  The kernel does
     the roll by ``off0 = -(D // 2)``, the latitude gather and the band
     contraction in one pass over the band's live taps
-    (``core.sphere.disco.band_live_taps``); the near-pole wrap rows (zero
-    in the band) are recomputed by the exact FFT correlation and
-    scattered back in.
+    (``core.sphere.disco.band_live_taps``), its transpose over the same
+    taps grouped by input row (``band_row_taps``); the near-pole wrap
+    rows (zero in the band) are recomputed by the exact FFT correlation
+    and scattered back in.
     """
     psi_band, lat_idx = buffers["psi_band"], buffers["lat_idx"]
     k, h_out, s, d = psi_band.shape
     batch = x.shape[:-2]
     h_in, w_in = x.shape[-2:]
     xb = x.reshape((-1, h_in, w_in)).float().contiguous()
-    out = _BandContract.apply(xb, psi_band, lat_idx, buffers["row_ptr"],
-                              buffers["row_ent"],
-                              disco_ops.LiveTaps.of(buffers), stride)
+    out = _BandContract.apply(xb, psi_band, lat_idx,
+                              disco_ops.LiveTaps.of(buffers),
+                              disco_ops.RowTaps.of(buffers), stride)
     wrap_rows = buffers["wrap_rows"]
     if wrap_rows.numel():
         rows = lat_idx.index_select(0, wrap_rows)          # (Hw, S)

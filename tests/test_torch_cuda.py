@@ -256,8 +256,8 @@ def test_cuda_disco_band_transpose_kernel(cuda, pair):
     gen = torch.Generator(device=cuda).manual_seed(2)
     g = torch.randn((11, k, h_out, w_in // tp.stride), generator=gen,
                     device=cuda)
-    args = (tb["psi_band"], tb["lat_idx"], tb["row_ptr"], tb["row_ent"],
-            h_in, tp.stride)
+    args = (tb["psi_band"], tb["lat_idx"], disco_ops.LiveTaps.of(tb),
+            disco_ops.RowTaps.of(tb), h_in, tp.stride)
     before = disco_ops.transpose_launches
     got = disco_ops.disco_band_transpose(g, *args)
     again = disco_ops.disco_band_transpose(g, *args)
@@ -267,6 +267,65 @@ def test_cuda_disco_band_transpose_kernel(cuda, pair):
     ref = disco_band_transpose_ref(g, tb["psi_band"], tb["lat_idx"], h_in,
                                    tp.stride)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_out", [30, 31, 61], ids=["w30", "w31", "w61"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_disco_band_transpose_kernel_random_psi(cuda, stride, w_out):
+    # psi with scattered interior zeros, dead slices and a dead row, one
+    # slice wider than a staged piece, any lat_idx, odd widths (4-byte
+    # copies) and a window wider than the circle; g spread over
+    # 1e-3..1e3, where one plain TF32 product misses the bar
+    gen = torch.Generator(device=cuda).manual_seed(19 + stride + w_out)
+    k, h_out, s, d, h_in = 7, 13, 5, 151, 17
+    psi = _spread((k, h_out, s, d), gen, cuda)
+    psi[torch.rand(psi.shape, generator=gen, device=cuda) < 0.3] = 0
+    psi[..., :60] = 0
+    psi[..., 90:] = 0
+    psi[:, 3, 2, 5:148] = _spread((k, 143), gen, cuda)   # 143 taps
+    psi[:, 2, 1] = 0
+    psi[:, 4] = 0
+    lat_idx = torch.randint(0, h_in, (h_out, s), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    g = _spread((19, k, h_out, w_out), gen, cuda)
+    taps = _taps(psi)
+    rows = disco_ops.RowTaps(*(
+        torch.from_numpy(a).to(cuda) for a in tdisco.band_row_taps(
+            lat_idx.cpu().numpy(), tdisco.band_live_taps(psi.cpu().numpy()),
+            h_in).values()))
+    before = disco_ops.transpose_launches
+    got = disco_ops.disco_band_transpose(g, psi, lat_idx, taps, rows, h_in,
+                                         stride)
+    again = disco_ops.disco_band_transpose(g, psi, lat_idx, taps, rows,
+                                           h_in, stride)
+    torch.cuda.synchronize()
+    assert disco_ops.transpose_launches == before + 2
+    assert torch.equal(got, again)          # no atomics: deterministic
+    ref = disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
+    assert _rel_err(got, ref) <= REL_TOL
+    one = disco_band_transpose_ref(_tf32(g), _tf32(psi), lat_idx, h_in,
+                                   stride)
+    assert _rel_err(one, ref) > REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_transpose_refuses_bad_inputs(cuda):
+    tp = _plan(PAIRS[1])
+    tb = tp.banded_buffers(cuda)
+    taps, rows = disco_ops.LiveTaps.of(tb), disco_ops.RowTaps.of(tb)
+    g = torch.zeros((2, 7, 16, 32), device=cuda)
+    args = (tb["psi_band"], tb["lat_idx"], taps, rows, 16)
+    with pytest.raises(ValueError):   # no kernel for stride 4
+        disco_ops.disco_band_transpose(torch.zeros((2, 7, 16, 8),
+                                                   device=cuda), *args, 4)
+    with pytest.raises(ValueError):   # lists of another input grid
+        disco_ops.disco_band_transpose(g, *args[:-1], 15, 1)
+    with pytest.raises(TypeError):
+        disco_ops.disco_band_transpose(g.double(), *args, 1)
+    with pytest.raises(ValueError):   # lists on the host
+        disco_ops.disco_band_transpose(
+            g, *args[:3], rows._replace(ent=rows.ent.cpu()), 16, 1)
 
 
 @pytest.mark.cuda
@@ -310,8 +369,8 @@ def test_cuda_backward_runs_kernels(cuda):
                     requires_grad=True)
     before = disco_ops.transpose_launches
     out = dispatch._BandContract.apply(x, tb["psi_band"], tb["lat_idx"],
-                                       tb["row_ptr"], tb["row_ent"],
-                                       disco_ops.LiveTaps.of(tb), tp.stride)
+                                       disco_ops.LiveTaps.of(tb),
+                                       disco_ops.RowTaps.of(tb), tp.stride)
     (gx,) = torch.autograd.grad(out.square().sum(), x)
     xr = x.detach().clone().requires_grad_()
     ref = disco_gather_band_contract_ref(xr, tb["psi_band"], tb["lat_idx"],

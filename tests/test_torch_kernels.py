@@ -226,8 +226,8 @@ class TestDiscoBand:
             (2, 16, 32)).astype(np.float32)).requires_grad_()
         psi = tb["psi_band"].clone().requires_grad_()
         tdispatch._BandContract.apply(
-            x, psi, tb["lat_idx"], tb["row_ptr"], tb["row_ent"],
-            disco_ops.LiveTaps.of(tb), 1).square().sum().backward()
+            x, psi, tb["lat_idx"], disco_ops.LiveTaps.of(tb),
+            disco_ops.RowTaps.of(tb), 1).square().sum().backward()
         xr = x.detach().clone().requires_grad_()
         disco_gather_band_contract_ref(xr, psi.detach(), tb["lat_idx"],
                                        1).square().sum().backward()
@@ -258,7 +258,8 @@ class TestDiscoBand:
         tb = tp.banded_buffers()
         got = disco_ops.disco_band_transpose(
             torch.from_numpy(g), tb["psi_band"], tb["lat_idx"],
-            tb["row_ptr"], tb["row_ent"], gi[0], tp.stride)
+            disco_ops.LiveTaps.of(tb), disco_ops.RowTaps.of(tb), gi[0],
+            tp.stride)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(
@@ -278,20 +279,110 @@ class TestDiscoBand:
 
     @pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
     def test_row_lists_invert_lat_idx(self, pair):
-        # the transpose kernel's CSR lists: every live (h, s) tap of the
-        # band once, under the input row lat_idx[h, s], in order
+        # the transpose kernel's lists (band_row_taps): every live slice of
+        # band_live_taps once, under its input row lat_idx[h, s], in
+        # order; every input row in the order, heaviest first
         _, tp = _plans(pair)
-        band, _, _ = tp.banded_split()
-        row_ptr, row_ent = tdisco.band_row_lists(tp.lat_idx, band,
-                                                 pair[0][0])
-        s = tp.lat_idx.shape[1]
-        live = np.flatnonzero(np.abs(band).max(axis=(0, 3)).reshape(-1))
-        assert row_ptr[0] == 0 and row_ptr[-1] == len(row_ent)
-        assert sorted(row_ent) == list(live)
-        for r in range(pair[0][0]):
-            ents = row_ent[row_ptr[r]:row_ptr[r + 1]]
-            assert list(ents) == sorted(ents)
-            assert all(tp.lat_idx[e // s, e % s] == r for e in ents)
+        h_in = pair[0][0]
+        taps = tdisco.band_live_taps(tp.banded_split()[0])
+        rows = tdisco.band_row_taps(tp.lat_idx, taps, h_in)
+        ptr, ent, ent_tap = rows["in_ptr"], rows["in_ent"], taps["tap_ent"]
+        assert ptr[0] == 0 and ptr[-1] == len(ent) == len(ent_tap)
+        assert sorted(ent[:, 1]) == list(range(len(ent_tap)))
+        for h, e in ent:
+            assert taps["tap_ptr"][h] <= e < taps["tap_ptr"][h + 1]
+        work = np.zeros(h_in)
+        for r in range(h_in):
+            mine = ent[ptr[r]:ptr[r + 1]]
+            assert list(mine[:, 1]) == sorted(mine[:, 1])
+            assert all(tp.lat_idx[h, ent_tap[e, 0]] == r for h, e in mine)
+            work[r] = sum(-(-ent_tap[e, 2] // 8) * 8 for e in mine[:, 1])
+        assert sorted(rows["in_order"]) == list(range(h_in))
+        assert np.all(np.diff(work[rows["in_order"]]) <= 0)
+        assert all(a.dtype == np.int32 for a in rows.values())
+
+    @pytest.mark.parametrize("which", ["holes-1", "holes-2"] + PAIR_IDS)
+    def test_transpose_over_row_taps_matches_plain(self, which):
+        # the function the transpose kernel computes from the lists, in
+        # numpy: its tiles, pieces, u windows (wrapped), zero margins,
+        # Toeplitz fragments by (delta, parity) and output mapping,
+        # against the plain version
+        if which.startswith("holes"):
+            stride = int(which[-1])
+            band = _band_with_holes(13 + stride)
+            r = _rng(20 + stride)
+            lat_idx = r.integers(0, 12, band.shape[1:3]).astype(np.int32)
+            h_in, w_out = 12, 31
+        else:
+            _, tp = _plans(PAIRS[PAIR_IDS.index(which)])
+            band, lat_idx, stride = tp.banded_split()[0], tp.lat_idx, tp.stride
+            h_in, w_out = tp.grid_in.nlat, tp.grid_out.nlon
+            r = _rng(24)
+        k, h_out, _, d = band.shape
+        g = r.standard_normal((3, k, h_out, w_out)).astype(np.float32)
+        got = _emulate_transpose(g, band, lat_idx, h_in, stride)
+        ref = disco_band_transpose_ref(torch.from_numpy(g),
+                                       torch.from_numpy(band),
+                                       torch.from_numpy(lat_idx), h_in,
+                                       stride)
+        np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _emulate_transpose(g, band, lat_idx, h_in, stride):
+    """csrc/disco_band_bwd.cu's arithmetic in numpy, for every block of
+    its grid: input row r from the lists, a tile of TV longitudes split
+    into warps of VW, slices cut into pieces of at most CH taps; per
+    (piece, k) the staged taps with zero margins and the g window from
+    u0 = floor((v0 - c - taps) / S), wrapped; n-tile j of parity par and
+    u-block i = j + delta meet in the 8 x 8 operand
+    B_delta[q, n] = P[base + par - 8 S delta + S (n - q)]."""
+    tv, ch, vw, s_ = disco_ops._TV, disco_ops._TCH, 32, stride
+    b, k, h_out, w_out = g.shape
+    d = band.shape[-1]
+    w_in = w_out * stride
+    taps = tdisco.band_live_taps(band)
+    rows = tdisco.band_row_taps(lat_idx, taps, h_in)
+    margin, nt, nw = 16 * s_, vw // (8 * s_), tv // vw
+    out = np.full((b, h_in, w_in), np.nan)
+    q8 = np.arange(8)
+    for r in rows["in_order"]:
+        for v0 in range(0, w_in, tv):
+            acc = np.zeros((b, nw, s_, nt, 8))
+            for h, e in rows["in_ent"][rows["in_ptr"][r]:rows["in_ptr"][r + 1]]:
+                _, d_lo, span, off = taps["tap_ent"][e]
+                for pc in range(-(-(-(-span // 8) * 8) // ch)):
+                    n_taps = min(ch, -(-span // 8) * 8 - pc * ch)
+                    nd = (n_taps + 9 * s_ - 2) // (8 * s_)
+                    c = d_lo + pc * ch - d // 2
+                    u0 = (v0 - c - n_taps) // s_
+                    base = v0 - c - s_ * u0
+                    assert n_taps <= base < n_taps + s_
+                    ncols = tv // s_ + 8 * nd
+                    for kk in range(k):
+                        ps = np.zeros(ch + 2 * margin)
+                        ps[margin:margin + n_taps] = taps["tap_psi"][
+                            off + pc * ch:off + pc * ch + n_taps, kk]
+                        win = g[:, kk, h, (u0 + np.arange(ncols)) % w_out]
+                        for delta in range(nd + 1):
+                            # u-blocks i = j + delta of every warp
+                            cols = (np.arange(nw)[:, None, None] * (vw // s_)
+                                    + 8 * (np.arange(nt)[None, :, None]
+                                           + delta) + q8)    # (nw, nt, 8)
+                            a = win[:, cols]                 # (b, nw, nt, 8)
+                            for par in range(s_):
+                                tau = (base + par - 8 * s_ * delta
+                                       + s_ * (q8[None, :] - q8[:, None]))
+                                at = margin + tau            # [q, n]
+                                assert 0 <= at.min() <= at.max() < ps.size
+                                bmat = ps[at]
+                                acc[:, :, par] += a @ bmat
+            v = (v0 + np.arange(nw)[:, None, None, None] * vw
+                 + np.arange(s_)[None, :, None, None]
+                 + s_ * (8 * np.arange(nt)[None, None, :, None]
+                         + q8))                              # (nw, S, nt, 8)
+            keep = v < w_in
+            out[:, r, v[keep]] = acc[:, keep]
+    return out
 
 
 def _band_with_holes(seed):
@@ -384,6 +475,10 @@ class TestLiveTaps:
             assert bufs[name].dtype == torch.from_numpy(a).dtype
             assert np.array_equal(bufs[name].numpy(), a), name
         assert disco_ops.LiveTaps.of(bufs).psi is bufs["tap_psi"]
+        rows = tdisco.band_row_taps(tp.lat_idx, taps, tp.grid_in.nlat)
+        for name, a in rows.items():
+            assert np.array_equal(bufs[name].numpy(), a), name
+        assert disco_ops.RowTaps.of(bufs).order is bufs["in_order"]
 
 
 class TestChunkedApply:
