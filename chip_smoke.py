@@ -30,8 +30,9 @@ non-zero exit code and no result line:
 6. the LM path: ``repro_torch.launch.lm`` at the full width of
    ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
    random weights): one prefill at ``prefill_32k`` with its batch cut
-   32 -> 2 (the SSD launch count set to 0 just before and read just
-   after: exactly 24, one per layer; logits finite), a second prefill
+   32 -> 2 (both SSD launch counts set to 0 just before and read just
+   after: exactly 24 of each kernel, one per layer; logits finite), a
+   second prefill
    for the steady time, 32 decode steps at ``decode_32k``'s batch of
    128 from an empty cache, and the prefill's logits for 256 tokens of
    2 sequences against 256 recurrent decode steps (``LM_CONSIST_TOL``);
@@ -43,8 +44,11 @@ non-zero exit code and no result line:
    forecast launched it with and held to its plain version at the
    largest batch of each geometry, the transpose (with its launches per
    shape, which must add up to the training phase's count) and CRPS
-   kernels at each distinct shape training launched them with, the SSD
-   kernel on the operands of the prefill's first layer; timings (CUDA
+   kernels at each distinct shape training launched them with, the
+   transpose once more at stride 3 on a small synthetic band (no fcn3
+   geometry has that stride: its generic path), the SSD kernel on the
+   operands of the prefill's first layer and the inter-chunk recurrence
+   kernel on that layer's states; timings (CUDA
    events, median), the ``library_ms`` yardstick at every band shape
    (``conv_transpose1d`` takes seconds a call: one call after one warm-up)
    and the least time the card could take, in fp32 (``bound_ms``) and
@@ -530,11 +534,12 @@ def check_crps(ent) -> list[dict]:
     return rows
 
 
-def check_ssd(ins, batch: int) -> dict:
+def check_ssd(ins, batch: int) -> tuple[dict, tuple]:
     """SSD intra-chunk kernel vs its plain version on the operands of the
     prefill's first layer (``batch`` sequences); also times the chunked
-    scan around it and its inter-chunk loop.  No single torch call
-    computes the masked, decayed intra-chunk product: no yardstick."""
+    scan around it.  No single torch call computes the masked, decayed
+    intra-chunk product: no yardstick.  Returns the row and the layer's
+    (states, chunk decays) for ``check_ssd_state``."""
     import torch
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
@@ -549,20 +554,20 @@ def check_ssd(ins, batch: int) -> dict:
     abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
     finite = all(bool(torch.isfinite(t).all()) for t in got)
     states = got[1].reshape(batch, bc // batch, h, p, n)
+    deterministic = all(torch.equal(a, r) for a, r in zip(
+        got, ops.ssd_intra_chunk(x, da_cs, b, c)))
     del got, ref
     ms = cuda_ms(lambda: ops.ssd_intra_chunk(x, da_cs, b, c), reps=10)
     plain_ms = cuda_ms(lambda: ssd_intra_chunk_ref(x, da_cs, b, c), reps=3)
-    # the scan around the kernel: its chunk loop, and the whole of it
-    decay = torch.exp(da_cs[:, -1, :]).reshape(batch, bc // batch, h)
-    init = torch.zeros_like(states[:, 0])
-    loop_ms = cuda_ms(lambda: ops.chunk_recurrence(states, decay, init),
-                      reps=5)
+    decay = torch.exp(da_cs[:, -1, :]).reshape(batch, bc // batch,
+                                                h).contiguous()
+    # the whole chunked scan around the kernel
     da = torch.diff(da_cs, dim=1, prepend=torch.zeros_like(da_cs[:, :1]))
     seq = (batch, bc // batch * l)
     chunked_ms = cuda_ms(lambda: ops.ssd_chunked_kernel(
         x.reshape(seq + (h, p)), da.reshape(seq + (h,)),
         b.reshape(seq + (g, n)), c.reshape(seq + (g, n)), l), reps=5)
-    del states, decay, init, da
+    del da
     taps = l * (l + 1) // 2
     # the work the data needs: C B^T once per group on the s <= l taps,
     # att @ X on those taps and the state product, per head
@@ -574,18 +579,97 @@ def check_ssd(ins, batch: int) -> dict:
                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                plain_ms=plain_ms, library_ms=None, flops=flops,
                flops_dense=flops_dense, bytes=nbytes,
-               chunk_loop_ms=loop_ms, chunked_scan_ms=chunked_ms,
+               tflops=flops / ms / 1e9, chunked_scan_ms=chunked_ms,
                **bound(flops, nbytes))
+    row["ms_over_bound"] = ms / row["bound_ms"]
     log(f"[kernel] ssd {row['shape']}: abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
         f"library_ms=none (no single torch call computes the masked, "
         f"decayed intra-chunk product) bound_ms={row['bound_ms']:.3f} "
-        f"({row['bound_by']}) dense_tflops={flops_dense / ms / 1e9:.2f} "
-        f"chunk_loop_ms={loop_ms:.3f} chunked_scan_ms={chunked_ms:.3f}")
-    if not (finite and rel_err <= REL_TOL):
+        f"({row['bound_by']}) ms/bound_ms={row['ms_over_bound']:.2f} "
+        f"bound_tc_ms={row['bound_tc_ms']:.3f} "
+        f"ms/bound_tc_ms={ms / row['bound_tc_ms']:.2f} "
+        f"tflops={row['tflops']:.2f} "
+        f"dense_tflops={flops_dense / ms / 1e9:.2f} "
+        f"chunked_scan_ms={chunked_ms:.3f}")
+    if not (finite and rel_err <= REL_TOL and deterministic):
         raise AssertionError(f"ssd: kernel disagrees with its plain version "
-                             f"(rel {rel_err:.3e}, finite={finite})")
+                             f"(rel {rel_err:.3e}, finite={finite}) or is "
+                             f"not deterministic ({deterministic})")
+    return row, (states, decay)
+
+
+def check_ssd_state(states, decay, launches: int) -> dict:
+    """The inter-chunk recurrence kernel vs its plain loop on one prefill
+    layer's chunk states (a random incoming state).  It is bound by
+    bytes; no single torch call computes the recurrence: no yardstick."""
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import chunk_recurrence_ref
+    init = torch.randn(states[:, 0].shape, generator=torch.Generator(
+        device="cuda").manual_seed(15), device="cuda")
+    got = ops.chunk_recurrence(states, decay, init)
+    torch.cuda.synchronize()
+    ref = chunk_recurrence_ref(states, decay, init)
+    torch.cuda.synchronize()
+    errs = [errors(a, r) for a, r in zip(got, ref)]
+    abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    deterministic = all(torch.equal(a, r) for a, r in zip(
+        got, ops.chunk_recurrence(states, decay, init)))
+    del got, ref
+    ms = cuda_ms(lambda: ops.chunk_recurrence(states, decay, init), reps=10)
+    plain_ms = cuda_ms(lambda: chunk_recurrence_ref(states, decay, init),
+                       reps=5)
+    # states and the incoming state in, prev and the final state out
+    nbytes = 4.0 * (2 * states.numel() + decay.numel() + 2 * init.numel())
+    flops = 2.0 * states.numel()
+    row = dict(shape=f"states{tuple(states.shape)}", what="prefill",
+               launches=launches, max_abs_err=abs_err, max_rel_err=rel_err,
+               ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
+               bytes=nbytes, **bound(flops, nbytes))
+    row["ms_over_bound"] = ms / row["bound_ms"]
+    log(f"[kernel] ssd_state {row['shape']}: launches={launches} "
+        f"abs_err={abs_err:.3e} rel_err={rel_err:.3e} ms={ms:.3f} "
+        f"plain_ms={plain_ms:.3f} (the loop of two launches a chunk) "
+        f"library_ms=none (no single torch call computes the recurrence) "
+        f"bound_ms={row['bound_ms']:.3f} ({row['bound_by']}) "
+        f"ms/bound_ms={row['ms_over_bound']:.2f} "
+        f"GB/s={nbytes / ms / 1e6:.0f}")
+    if not (rel_err <= 1e-6 and deterministic):
+        raise AssertionError(f"ssd_state: kernel disagrees with its plain "
+                             f"loop (rel {rel_err:.3e}) or is not "
+                             f"deterministic ({deterministic})")
     return row
+
+
+def any_stride_transpose(stride: int) -> dict:
+    """A small synthetic band (holes, dead slices, a slice wider than a
+    staged piece, any lat_idx) for the transpose at a stride no fcn3
+    geometry has: its generic path, held to its plain version by
+    ``check_transpose``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sphere import disco
+    from repro_torch.kernels.disco import ops
+    rng = np.random.default_rng(16)
+    k, h_out, s, d, h_in, w_out = 7, 13, 5, 151, 17, 300
+    psi = rng.standard_normal((k, h_out, s, d)).astype(np.float32)
+    psi[rng.random(psi.shape) < 0.3] = 0
+    psi[..., :60] = 0
+    psi[..., 90:] = 0
+    psi[:, 3, 2, 5:148] = rng.standard_normal((k, 143))
+    psi[:, 4] = 0
+    lat_idx = rng.integers(0, h_in, (h_out, s)).astype(np.int32)
+    taps = disco.band_live_taps(psi)
+    rows = disco.band_row_taps(lat_idx, taps, h_in)
+
+    def dev(a):
+        return torch.from_numpy(a).to("cuda")
+    return {"psi": dev(psi), "lat_idx": dev(lat_idx),
+            "taps": ops.LiveTaps.of({n: dev(a) for n, a in taps.items()}),
+            "rows": ops.RowTaps.of({n: dev(a) for n, a in rows.items()}),
+            "h_in": h_in, "stride": stride, "shape": (19, k, h_out, w_out),
+            "launches": 0}
 
 
 def lm_small_input_check() -> float:
@@ -632,6 +716,7 @@ def lm_phase(report) -> dict:
     first = lm_mod.run_prefill(model, LM_PREFILL_BATCH, pre.seq_len, seed=1,
                                report=report)
     out["launches"] = ssd_ops.launches
+    out["state_launches"] = ssd_ops.state_launches
     logits = first.pop("logits")
     out["logits_shape"] = tuple(logits.shape)
     out["logits_finite"] = bool(torch.isfinite(logits).all())
@@ -948,7 +1033,9 @@ def main() -> int:
         f"seconds={pf['seconds']:.3f} (steady {ps['seconds']:.3f}) "
         f"tokens_per_s={pf['tokens_per_s']:.0f} (steady "
         f"{ps['tokens_per_s']:.0f}) peak_mem_gb={pf['peak_mem_gb']} "
-        f"ssd_launches={lm['launches']} logits={lm['logits_shape']} "
+        f"ssd_launches={lm['launches']} "
+        f"ssd_state_launches={lm['state_launches']} "
+        f"logits={lm['logits_shape']} "
         f"finite={lm['logits_finite']} max_abs_logit={lm['logits_max']:.3f}")
     log(f"[lm] decode batch=128 steps={LM_DECODE_STEPS}: "
         f"ms_per_step={dc['ms_per_step']:.3f} (steady "
@@ -960,9 +1047,10 @@ def main() -> int:
         f"{lm['consist_scale']:.3f} rel={consist_rel:.3e} (bar "
         f"{LM_CONSIST_TOL:g}) ssd_launches={lm['consist_launches']} "
         f"plain_calls_on_cuda={lm_plain_calls}")
-    if lm["launches"] != lm["n_layers"]:
-        raise AssertionError(f"SSD kernel launched {lm['launches']} times in "
-                             f"one prefill, want one per layer")
+    if not lm["launches"] == lm["state_launches"] == lm["n_layers"]:
+        raise AssertionError(f"SSD kernels launched {lm['launches']} and "
+                             f"{lm['state_launches']} times in one prefill, "
+                             f"want one each per layer")
     if lm["logits_shape"] != (LM_PREFILL_BATCH, 32768, 50432) or not (
             lm["logits_finite"] and lm["decode_finite"]):
         raise AssertionError(f"LM logits wrong shape or not finite: {lm}")
@@ -978,10 +1066,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 7: kernels against their plain versions ---------------------
+    ssd_row, (states, decay) = check_ssd(lm_rec.ssd, LM_PREFILL_BATCH)
+    lm_rec.ssd = None
     rows = {"legendre_contract": [], "disco_band_contract": [],
             "disco_band_transpose": [], "crps_fused": [],
-            "ssd_intra_chunk": [check_ssd(lm_rec.ssd, LM_PREFILL_BATCH)]}
-    lm_rec.ssd = None
+            "ssd_intra_chunk": [ssd_row],
+            "ssd_chunk_recurrence": [
+                check_ssd_state(states, decay, lm["state_launches"])]}
+    del states, decay
     torch.cuda.empty_cache()
     for ent in rec.legendre.values():
         # the inverse SHT passes pct as a transposed (L, H, M) view
@@ -1017,6 +1109,9 @@ def main() -> int:
             "launches"]["disco_band_transpose"]:
         raise AssertionError("the transpose's launches per shape do not add "
                              "up to its count on the training path")
+    rows["disco_band_transpose"].append(
+        check_transpose(any_stride_transpose(3), "stride3-synthetic"))
+    torch.cuda.empty_cache()
     for ent in train_rec.crps.values():
         rows["crps_fused"].extend(check_crps(ent))
         torch.cuda.empty_cache()
@@ -1034,6 +1129,10 @@ def main() -> int:
                        "src/repro/kernels/crps/crps.py:67"),
         "ssd_intra_chunk": ("cuda", "src/repro_torch/csrc/ssd.cu",
                             "src/repro/kernels/ssd/ssd.py:106"),
+        # no TPU kernel: the jax.lax.scan over chunks of
+        # ssd_chunked_pallas, which XLA compiles to one loop on the device
+        "ssd_chunk_recurrence": ("cuda", "src/repro_torch/csrc/ssd_state.cu",
+                                 "src/repro/kernels/ssd/ops.py:53"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -1041,14 +1140,16 @@ def main() -> int:
         top = max(fwd, key=lambda r: r["flops"])
         by_path = {"serve": launches.get(name, 0),
                    "train": summary["launches"].get(name, 0),
-                   "lm_prefill": lm["launches"] if name == "ssd_intra_chunk"
-                   else 0}
+                   "lm_prefill": {"ssd_intra_chunk": lm["launches"],
+                                  "ssd_chunk_recurrence":
+                                  lm["state_launches"]}.get(name, 0)}
         ent = {
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "tpu_kernel": replaces,
+            "replaces": replaces,
+            "tpu_kernel": None if name == "ssd_chunk_recurrence" else replaces,
             # each kernel's main path: the forward kernels' is the
             # forecast, the transpose and CRPS kernels' is training, the
-            # SSD kernel's is the LM prefill
+            # SSD kernels' is the LM prefill
             "launches": (by_path["serve"] or by_path["train"]
                          or by_path["lm_prefill"]),
             "launches_by_path": by_path,

@@ -49,6 +49,19 @@
 //   reaches.  T is read by index from the staged taps, with zero margins
 //   around the piece, and never materialised.  Depth efficiency is
 //   taps / (8 * (taps / 8 + 1)) at stride 1: 50 % at 8 taps, 89 % at 64.
+// * Any stride.  Strides 1 and 2 (the fcn3 geometries) are compiled in
+//   as above.  Above 2 a warp's 32 longitudes no longer split into whole
+//   n-tiles of each residue class, so the generic path (S = 0, the
+//   stride read from Params) gives each block one residue class cls of v
+//   mod stride and TV longitudes of it, v = cls + stride * n: per class
+//   the transpose is a stride-1 Toeplitz product over u with the taps
+//   read stride apart, B_delta[q, n] = P[base - 8 S delta + S (n - q)].
+//   u0 = floor((v0 - c - taps) / S) still pins base to [taps, taps + S -
+//   1], so the reads reach taps base - 8 S nd - 7 S >= -16 S + 2 (nd <=
+//   (taps + 9 S - 2) / (8 S)) up to base + 7 S <= taps + 8 S - 1: the
+//   margins of 16 S zero taps cover them, and nd <= DM_ANY = 3 for every
+//   stride above 2.  Speed is not its aim: no fcn3 configuration trains
+//   at a stride above 2.
 // * Asynchronous staging.  Slices are cut into pieces of at most CH = 64
 //   taps; the unit of the pipeline is one (piece, k): that basis
 //   function's taps of the piece with their zero margins (k-major, so the
@@ -102,7 +115,8 @@ struct Params {
     const float* tap_psi;  // (T, 8)
     float* gx;
     int B, K, H_out, W_out, H_in, W_in, D;
-    int n_vt, n_pt;        // longitude tiles and plane tiles
+    int S;                 // the stride
+    int n_vt, n_pt;        // longitude tiles (x classes at S > 2), plane tiles
     int vec;               // 16-byte loads (W_out % 4 == 0, g aligned)
 };
 
@@ -128,6 +142,21 @@ __host__ __device__ constexpr int window_floats(int s) {
 __host__ __device__ constexpr int stage_floats(int s) {
     return psi_floats(s) + TBP * window_floats(s);
 }
+// The generic path (S = 0): deltas(CH, s) is 3 at s = 3 and 4 and falls
+// below as s grows; a block's window holds TV longitudes of one class.
+constexpr int DM_ANY = 3;
+static_assert(deltas(CH, 3) <= DM_ANY && deltas(CH, 4) <= DM_ANY,
+              "the generic path holds DM_ANY + 1 deltas");
+constexpr int WIN_ANY = ((TV + 8 * DM_ANY + 3 + 3) / 4 | 1) * 4;
+__host__ __device__ constexpr int stage_floats_any(int s) {
+    return psi_floats(s) + TBP * WIN_ANY;
+}
+
+// The stride: compiled in, or read from p on the generic path.
+template <int S>
+__device__ __forceinline__ int stride_of(const Params& p) {
+    return S ? S : p.S;
+}
 
 // One piece of a slice: output row h, its padded taps, their first row in
 // tap_psi, the deltas it needs (nd + 1 of them), the block's g window
@@ -142,6 +171,7 @@ struct Piece {
 template <int S>
 __device__ __forceinline__ Piece piece_of(const Params& p, int e, int pc,
                                           int v0) {
+    const int s = stride_of<S>(p);
     const int2 he = p.in_ent[e];
     const int4 ent = p.tap_ent[he.y];
     Piece q;
@@ -149,12 +179,12 @@ __device__ __forceinline__ Piece piece_of(const Params& p, int e, int pc,
     q.taps = min(CH, round_up(ent.z, 8) - pc * CH);
     q.last = (pc + 1) * CH >= round_up(ent.z, 8);
     q.psi = ent.w + pc * CH;
-    q.nd = deltas(q.taps, S);
+    q.nd = deltas(q.taps, s);
     // tap 0 of the piece takes output w to input longitude w * S + c
     const int c = ent.y + pc * CH - p.D / 2;
     const int num = v0 - c - q.taps;
-    const int u0 = num >= 0 ? num / S : -((-num + S - 1) / S);
-    q.base = v0 - c - S * u0;
+    const int u0 = num >= 0 ? num / s : -((-num + s - 1) / s);
+    q.base = v0 - c - s * u0;
     int u = u0 % p.W_out;
     if (u < 0) u += p.W_out;
     q.shift = p.vec ? (u & 3) : 0;
@@ -195,9 +225,10 @@ struct Cursor {
 template <int S>
 __device__ __forceinline__ void stage(const Params& p, float* buf,
                                       const Piece& q, int k, int b0) {
+    const int s = stride_of<S>(p);
     const float* psrc = p.tap_psi + (size_t)q.psi * 8 + k;
-    for (int i = threadIdx.x; i < psi_floats(S); i += THREADS) {
-        const int tau = i - margin(S);
+    for (int i = threadIdx.x; i < psi_floats(s); i += THREADS) {
+        const int tau = i - margin(s);
         const bool ok = tau >= 0 && tau < q.taps;
         tf32x3::cp_async4(buf + i, psrc + (ok ? (size_t)tau * 8 : 0), ok);
     }
@@ -210,8 +241,9 @@ __device__ __forceinline__ void stage(const Params& p, float* buf,
     const bool ok = b < p.B;
     const float* row =
         p.g + (((size_t)(ok ? b : 0) * p.K + k) * p.H_out + q.h) * p.W_out;
-    float* gs = buf + psi_floats(S) + bb * window_floats(S);
-    const int ncols = q.shift + TV / S + 8 * q.nd;
+    float* gs = buf + psi_floats(s) + bb * (S ? window_floats(S) : WIN_ANY);
+    // the window: TV / S longitudes' columns, or TV of one class
+    const int ncols = q.shift + (S ? TV / S : TV) + 8 * q.nd;
     const int width = p.vec ? 4 : 1;          // floats per copy
     const int n = p.vec ? (ncols + 3) >> 2 : ncols;
     int col = q.col0 + width * k0;
@@ -231,23 +263,30 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 disco_band_bwd_kernel(const Params p) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    constexpr int NT = VW / (8 * S);       // n-tiles of one parity a warp
-    constexpr int DM = deltas(CH, S);
-    constexpr int WIN = window_floats(S);
-    constexpr int SF = stage_floats(S);
+    // n-tiles of one parity a warp, parities a block (one class at S = 0)
+    constexpr int NT = S ? VW / (8 * S) : VW / 8;
+    constexpr int NPAR = S ? S : 1;
+    constexpr int DM = S ? deltas(CH, S) : DM_ANY;
+    constexpr int WIN = S ? window_floats(S) : WIN_ANY;
+    const int s = stride_of<S>(p);
+    const int SF = S ? stage_floats(S) : stage_floats_any(s);
 
     const int per_pt = p.H_in * p.n_vt;
     const int b0 = (blockIdx.x / per_pt) * TBP;
     const int rem = blockIdx.x % per_pt;
     const int r = p.in_order[rem / p.n_vt];
-    const int v0 = (rem % p.n_vt) * TV;
+    const int tile = rem % p.n_vt;
+    // the block's first longitude; consecutive outputs lie 1 apart, or
+    // stride apart on the generic path (class tile % s, TV of them)
+    const int v0 = S ? tile * TV : tile % s + s * (tile / s) * TV;
+    const int vstep = S ? 1 : s;
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gq = lane >> 2, t = lane & 3;
 
-    float acc[S][NT][4];
+    float acc[NPAR][NT][4];
 #pragma unroll
-    for (int par = 0; par < S; ++par)
+    for (int par = 0; par < NPAR; ++par)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -277,23 +316,23 @@ disco_band_bwd_kernel(const Params p) {
 
         const Piece q = comp.q;
         comp.advance(p, e_end, v0);
-        const float* ps = smem + (i % STAGES) * SF + margin(S);
+        const float* ps = smem + (i % STAGES) * SF + margin(s);
         // B fragments of every delta this piece needs: b0 is (u-row t,
         // column gq), b1 (t + 4, gq)
-        uint32_t bh[S][DM + 1][2], bl[S][DM + 1][2];
+        uint32_t bh[NPAR][DM + 1][2], bl[NPAR][DM + 1][2];
 #pragma unroll
         for (int d = 0; d <= DM; ++d) {
             if (d > q.nd) break;
 #pragma unroll
-            for (int par = 0; par < S; ++par) {
-                const int tau = q.base + par - 8 * S * d + S * (gq - t);
+            for (int par = 0; par < NPAR; ++par) {
+                const int tau = q.base + par - 8 * s * d + s * (gq - t);
                 tf32x3::split(ps[tau], bh[par][d][0], bl[par][d][0]);
-                tf32x3::split(ps[tau - 4 * S], bh[par][d][1], bl[par][d][1]);
+                tf32x3::split(ps[tau - 4 * s], bh[par][d][1], bl[par][d][1]);
             }
         }
         // this lane's A column t of plane gq in the warp's window
-        const float* ga = ps - margin(S) + psi_floats(S) + gq * WIN +
-                          q.shift + warp * (VW / S) + t;
+        const float* ga = ps - margin(s) + psi_floats(s) + gq * WIN +
+                          q.shift + warp * (S ? VW / S : VW) + t;
 #pragma unroll
         for (int i = 0; i < NT + DM; ++i) {
             if (i >= NT + q.nd) break;
@@ -309,7 +348,7 @@ disco_band_bwd_kernel(const Params p) {
                 if (j < 0 || j >= NT) continue;
                 if (d > q.nd) break;
 #pragma unroll
-                for (int par = 0; par < S; ++par)
+                for (int par = 0; par < NPAR; ++par)
                     tf32x3::mma3(acc[par][j], ah, al, bh[par][d][0],
                                  bh[par][d][1], bl[par][d][0], bl[par][d][1]);
             }
@@ -318,19 +357,19 @@ disco_band_bwd_kernel(const Params p) {
 
     // c0 (plane gq, n = 2t), c1 (gq, 2t + 1), c2 (gq + 8, 2t), c3 (gq + 8,
     // 2t + 1); n-tile j of parity par holds v = V + par + S * (8 j + n)
-    const int vw = v0 + warp * VW;
+    const int vw = v0 + vstep * warp * VW;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int b = b0 + gq + 8 * half;
         if (b >= p.B) break;
         float* o = p.gx + ((size_t)b * p.H_in + r) * p.W_in;
 #pragma unroll
-        for (int par = 0; par < S; ++par)
+        for (int par = 0; par < NPAR; ++par)
 #pragma unroll
             for (int j = 0; j < NT; ++j)
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    const int v = vw + par + S * (8 * j + 2 * t + i);
+                    const int v = vw + par + s * (8 * j + 2 * t + i);
                     if (v < p.W_in) o[v] = acc[par][j][2 * half + i];
                 }
     }
@@ -338,7 +377,8 @@ disco_band_bwd_kernel(const Params p) {
 
 template <int S>
 int launch(const Params& p, cudaStream_t stream) {
-    const int smem = (int)(sizeof(float) * STAGES * stage_floats(S));
+    const int smem = (int)(sizeof(float) * STAGES *
+                           (S ? stage_floats(S) : stage_floats_any(p.S)));
     cudaError_t e = cudaFuncSetAttribute(
         disco_band_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
@@ -354,15 +394,16 @@ int launch(const Params& p, cudaStream_t stream) {
 // their lists by input row in_ptr (H_in + 1), in_ent (E, 2), in_order
 // (H_in); gx (B, H_in, W_out * stride); all contiguous.  D is the band's
 // width (off0 = -(D / 2)).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a basis count outside 1..8 or a stride other
-// than 1 or 2).
+// (cudaErrorInvalidValue for a basis count outside 1..8 or a stride below
+// 1; the attribute call fails for a stride whose stage exceeds the shared
+// memory of a block).
 extern "C" int disco_band_bwd_launch(const float* g, const int* in_ptr,
                                      const int* in_ent, const int* in_order,
                                      const int* tap_ent,
                                      const float* tap_psi, float* gx, int B,
                                      int K, int H_out, int W_out, int H_in,
                                      int D, int stride, void* stream) {
-    if (K < 1 || K > 8) return (int)cudaErrorInvalidValue;
+    if (K < 1 || K > 8 || stride < 1) return (int)cudaErrorInvalidValue;
     Params p;
     p.g = g;
     p.in_ptr = in_ptr;
@@ -378,11 +419,13 @@ extern "C" int disco_band_bwd_launch(const float* g, const int* in_ptr,
     p.H_in = H_in;
     p.W_in = W_out * stride;
     p.D = D;
-    p.n_vt = (p.W_in + TV - 1) / TV;
+    p.S = stride;
+    p.n_vt = stride <= 2 ? (p.W_in + TV - 1) / TV
+                         : stride * ((W_out + TV - 1) / TV);
     p.n_pt = (B + TBP - 1) / TBP;
     p.vec = (W_out % 4 == 0) && ((uintptr_t)g % 16 == 0);
     cudaStream_t st = (cudaStream_t)stream;
     return stride == 1 ? launch<1>(p, st)
          : stride == 2 ? launch<2>(p, st)
-                       : (int)cudaErrorInvalidValue;
+                       : launch<0>(p, st);
 }

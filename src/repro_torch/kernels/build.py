@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` (``build/`` is git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("legendre", "disco_band", "disco_band_bwd", "crps", "ssd")
+SOURCES = ("legendre", "disco_band", "disco_band_bwd", "crps", "ssd",
+           "ssd_state")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

@@ -25,9 +25,11 @@ transpose_launches = 0
 _MAX_SMEM = 227 * 1024
 #: the transpose kernel's tile (``csrc/disco_band_bwd.cu``): input
 #: longitudes per block, planes per block, pipeline stages, taps per
-#: staged piece of a slice, and the strides it is compiled for
+#: staged piece of a slice; strides 1 and 2 are compiled in, any larger
+#: stride takes the generic path, whose blocks hold one residue class of
+#: the input longitudes and at most _TDM_ANY + 1 Toeplitz offsets
 _TV, _TBP, _TSTAGES, _TCH = 256, 16, 3, 64
-_TSTRIDES = (1, 2)
+_TDM_ANY = 3
 #: the forward kernel's tile (``csrc/disco_band.cu``): output longitudes
 #: per block (8 warps x the mma's 16 rows), planes per block, pipeline
 #: stages, and taps per staged piece of a slice
@@ -186,10 +188,13 @@ def _bwd_lib():
 def transpose_smem_bytes(stride: int) -> int:
     """Dynamic shared memory one block of the transpose kernel uses: per
     stage, one basis function's taps of a piece with their zero margins
-    and each plane's g window (``stage_floats`` in
-    ``csrc/disco_band_bwd.cu``)."""
-    deltas = (_TCH + 9 * stride - 2) // (8 * stride)
-    window = ((_TV // stride + 8 * deltas + 6) // 4 | 1) * 4
+    and each plane's g window (``stage_floats`` and ``stage_floats_any``
+    in ``csrc/disco_band_bwd.cu``)."""
+    if stride <= 2:
+        deltas = (_TCH + 9 * stride - 2) // (8 * stride)
+        window = ((_TV // stride + 8 * deltas + 6) // 4 | 1) * 4
+    else:
+        window = ((_TV + 8 * _TDM_ANY + 6) // 4 | 1) * 4
     return 4 * _TSTAGES * (_TCH + 32 * stride + _TBP * window)
 
 
@@ -219,9 +224,9 @@ def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
             f"{tuple(rows.ent.shape)}, order {tuple(rows.order.shape)} do "
             f"not fit psi_band {tuple(psi_band.shape)} and h_in={h_in} (see "
             f"band_live_taps, band_row_taps)")
-    if stride not in _TSTRIDES:
-        raise ValueError(f"the transpose kernel takes strides {_TSTRIDES}, "
-                         f"got {stride}")
+    if stride < 1:
+        raise ValueError(f"the transpose kernel takes a stride >= 1, got "
+                         f"{stride}")
     if transpose_smem_bytes(stride) > _MAX_SMEM:
         raise ValueError(f"stride {stride} needs more shared memory than a "
                          "block has")
@@ -233,8 +238,11 @@ def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
                     ("rows.ptr", rows.ptr, torch.int32),
                     ("rows.ent", rows.ent, torch.int32),
                     ("rows.order", rows.order, torch.int32)))
-    blocks = (-(-b // _TBP) * h_in * -(-w_out * stride // _TV))
-    if blocks >= 2 ** 31:
+    # plane tiles x input rows x longitude tiles (above stride 2, TV
+    # longitudes of one residue class)
+    tiles = (-(-w_out * stride // _TV) if stride <= 2
+             else stride * -(-w_out // _TV))
+    if -(-b // _TBP) * h_in * tiles >= 2 ** 31:
         raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's grid")
 
 

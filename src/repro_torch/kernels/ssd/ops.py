@@ -1,14 +1,16 @@
-"""Wrapper of the hand-written SSD intra-chunk CUDA kernel
-(``csrc/ssd.cu``) and the chunked scan around it.
+"""Wrappers of the hand-written SSD CUDA kernels, the intra-chunk step
+(``csrc/ssd.cu``) and the inter-chunk recurrence (``csrc/ssd_state.cu``),
+and the chunked scan around them.
 
-``ssd_intra_chunk`` computes its plain version (``ref.py``) on CPU
-tensors and launches the kernel on CUDA tensors, or raises.  It has no
-backward: LM training waits for an SSD backward kernel (ROADMAP A13), so
-a CUDA input that requires grad is refused rather than differentiated
-through a plain version.  ``ssd_chunked_kernel`` is the counterpart of
-the JAX package's ``ssd_chunked_pallas``: the within-chunk cumsum, the
-recurrence over chunks and the incoming-state term stay plain torch, as
-the JAX package left them to XLA.
+``ssd_intra_chunk`` and ``chunk_recurrence`` compute their plain versions
+(``ref.py``) on CPU tensors and launch their kernels on CUDA tensors, or
+raise.  Neither has a backward: LM training waits for an SSD backward
+kernel (ROADMAP A13), so a CUDA input that requires grad is refused
+rather than differentiated through a plain version.
+``ssd_chunked_kernel`` is the counterpart of the JAX package's
+``ssd_chunked_pallas``: the within-chunk cumsum and the incoming-state
+term stay plain torch, as the JAX package left them to XLA, and the
+recurrence over chunks (JAX's ``lax.scan``) is one kernel launch.
 """
 
 from __future__ import annotations
@@ -18,19 +20,22 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
+                                         ssd_intra_chunk_ref)
 
-#: kernel launches since the last ``reset_launches`` (a plain integer).
+#: intra-chunk and recurrence kernel launches since the last
+#: ``reset_launches`` (plain integers).
 launches = 0
+state_launches = 0
 #: the largest chunk, head dim and state dim the kernel takes; must equal
 #: ``L_MAX``, ``P_MAX`` and ``N_MAX`` in ``csrc/ssd.cu``
 L_MAX, P_MAX, N_MAX = 128, 64, 128
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    global launches
-    launches = 0
+    """Set both launch counts to 0."""
+    global launches, state_launches
+    launches = state_launches = 0
 
 
 def _lib():
@@ -64,21 +69,27 @@ def _check(x, da_cs, b_mat, c_mat) -> None:
                             f"{t.dtype}")
 
 
-def _check_cuda(x, da_cs, b_mat, c_mat) -> None:
-    """What the kernel itself needs: one card, contiguity, no grad, sizes."""
-    named = (("x", x), ("da_cs", da_cs), ("b_mat", b_mat), ("c_mat", c_mat))
+def _check_device(what: str, named) -> None:
+    """One card, contiguity, no grad: what both kernels need."""
+    ref = named[0][1]
     for name, t in named:
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"ssd_intra_chunk: {name} must be on "
-                             f"{x.device}, got {t.device}")
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be on {ref.device}, got "
+                             f"{t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"ssd_intra_chunk: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"ssd_intra_chunk: {name} requires grad, and the SSD kernel "
-                "has no backward yet (LM training with an SSD backward "
-                "kernel is ROADMAP A13); run the forward under "
-                "torch.no_grad() or use KernelConfig(ssd='reference')")
+                f"{what}: {name} requires grad, and the SSD kernels have no "
+                "backward yet (LM training with an SSD backward kernel is "
+                "ROADMAP A13); run the forward under torch.no_grad() or use "
+                "KernelConfig(ssd='reference')")
+
+
+def _check_cuda(x, da_cs, b_mat, c_mat) -> None:
+    """What the kernel itself needs: one card, contiguity, no grad, sizes."""
+    _check_device("ssd_intra_chunk", (("x", x), ("da_cs", da_cs),
+                                      ("b_mat", b_mat), ("c_mat", c_mat)))
     _, l, h, p = x.shape
     n = b_mat.shape[3]
     if not (l <= L_MAX and p <= P_MAX and n <= N_MAX):
@@ -88,6 +99,14 @@ def _check_cuda(x, da_cs, b_mat, c_mat) -> None:
     if x.shape[0] * h >= 2 ** 31:
         raise ValueError(f"ssd_intra_chunk: BC * H = {x.shape[0] * h} "
                          "exceeds the kernel's grid")
+
+
+def _state_lib():
+    fn = build.load_library("ssd_state").ssd_state_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
@@ -123,19 +142,45 @@ def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
 
 def chunk_recurrence(states: torch.Tensor, chunk_decay: torch.Tensor,
                      init: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The inter-chunk scan, a plain loop over the chunks.
+    """The inter-chunk scan: one kernel launch on CUDA tensors, the plain
+    loop (``ref.chunk_recurrence_ref``) on CPU tensors.
 
     states: (B, nc, H, P, N) each chunk's own end state; chunk_decay:
-    (B, nc, H) exp of each chunk's dA sum; init: (B, H, P, N).  Returns
-    (the state entering each chunk (B, nc, H, P, N), the final state).
+    (B, nc, H) exp of each chunk's dA sum; init: (B, H, P, N); float32.
+    Returns (the state entering each chunk (B, nc, H, P, N), the final
+    state (B, H, P, N)).
     """
-    decay = chunk_decay[..., None, None]
+    global state_launches
+    if states.dim() != 5:
+        raise ValueError(f"chunk_recurrence wants states (B,nc,H,P,N), got "
+                         f"{tuple(states.shape)}")
+    bsz, nc, h, p, n = states.shape
+    if (tuple(chunk_decay.shape) != (bsz, nc, h)
+            or tuple(init.shape) != (bsz, h, p, n)):
+        raise ValueError(f"chunk_recurrence: shape mismatch states "
+                         f"{tuple(states.shape)}, chunk_decay "
+                         f"{tuple(chunk_decay.shape)}, init "
+                         f"{tuple(init.shape)}")
+    named = (("states", states), ("chunk_decay", chunk_decay),
+             ("init", init))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"chunk_recurrence: {name} must be float32, got "
+                            f"{t.dtype}")
+    if all(t.device.type == "cpu" for _, t in named):
+        return chunk_recurrence_ref(states, chunk_decay, init)
+    _check_device("chunk_recurrence", named)
     prev = torch.empty_like(states)
-    carry = init
-    for i in range(states.shape[1]):
-        prev[:, i] = carry
-        carry = torch.addcmul(states[:, i], carry, decay[:, i])
-    return prev, carry
+    final = torch.empty_like(init)
+    if nc == 0 or init.numel() == 0:
+        return prev, final.copy_(init)
+    fn = _state_lib()
+    stream = torch.cuda.current_stream(states.device).cuda_stream
+    err = fn(states.data_ptr(), chunk_decay.data_ptr(), init.data_ptr(),
+             prev.data_ptr(), final.data_ptr(), bsz, nc, h, p, n, stream)
+    build.check_launch(err, "chunk_recurrence")
+    state_launches += 1
+    return prev, final
 
 
 def ssd_chunked_kernel(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
@@ -169,9 +214,9 @@ def ssd_chunked_kernel(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
     da_cs = da_cs.reshape(bsz, nc, chunk, h)
 
     init = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-            if initial_state is None else initial_state.float())
-    prev, final = chunk_recurrence(states, torch.exp(da_cs[:, :, -1, :]),
-                                   init)
+            if initial_state is None else initial_state.float().contiguous())
+    prev, final = chunk_recurrence(
+        states, torch.exp(da_cs[:, :, -1, :]).contiguous(), init)
 
     # y_off[l, h, p] = exp(cs[l, h]) * sum_n C[l, g(h), n] prev[h, p, n]:
     # one batched product per group, the H/G heads of a group side by side

@@ -1,4 +1,5 @@
-"""Plain torch version of the SSD intra-chunk kernel (``csrc/ssd.cu``)."""
+"""Plain torch versions of the SSD intra-chunk kernel (``csrc/ssd.cu``) and
+of the inter-chunk recurrence (``csrc/ssd_state.cu``)."""
 
 import torch
 
@@ -31,3 +32,22 @@ def ssd_intra_chunk_ref(x: torch.Tensor, da_cs: torch.Tensor,
     decay_states = torch.exp(da_cs[:, -1:, :] - da_cs)        # (BC,L,H)
     states = torch.einsum("blhn,blh,blhp->bhpn", bex, decay_states, x)
     return y, states
+
+
+def chunk_recurrence_ref(states: torch.Tensor, chunk_decay: torch.Tensor,
+                         init: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inter-chunk scan, a plain loop over the chunks (two launches a
+    chunk on a card).
+
+    states: (B, nc, H, P, N) each chunk's own end state; chunk_decay:
+    (B, nc, H) exp of each chunk's dA sum; init: (B, H, P, N).  Returns
+    (the state entering each chunk (B, nc, H, P, N), the final state).
+    """
+    decay = chunk_decay[..., None, None]
+    prev = torch.empty_like(states)
+    carry = init
+    for i in range(states.shape[1]):
+        prev[:, i] = carry
+        carry = torch.addcmul(states[:, i], carry, decay[:, i])
+    return prev, carry

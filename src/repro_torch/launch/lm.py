@@ -94,18 +94,21 @@ def run_prefill(model: LM, batch: int, seq_len: int, seed: int = 1,
     tokens = random_tokens(model, (batch, seq_len), seed)
     _sync(dev)
     _reset_peak(dev)
-    before = ssd_ops.launches
+    before = ssd_ops.launches, ssd_ops.state_launches
     t0 = time.perf_counter()
     logits = prefill(model, tokens)
     _sync(dev)
     sec = time.perf_counter() - t0
     out = {"seconds": sec, "tokens_per_s": batch * seq_len / sec,
-           "peak_mem_gb": _peak(dev), "ssd_launches": ssd_ops.launches - before,
+           "peak_mem_gb": _peak(dev),
+           "ssd_launches": ssd_ops.launches - before[0],
+           "ssd_state_launches": ssd_ops.state_launches - before[1],
            "logits": logits}
     report(f"[prefill] arch={model.cfg.name} batch={batch} seq_len={seq_len} "
            f"seconds={sec:.3f} tokens_per_s={out['tokens_per_s']:.1f} "
            f"peak_mem_gb={out['peak_mem_gb']} "
            f"ssd_launches={out['ssd_launches']} "
+           f"ssd_state_launches={out['ssd_state_launches']} "
            f"logits={tuple(logits.shape)}")
     return out
 

@@ -185,7 +185,7 @@ def test_cuda_disco_band_kernel(cuda, pair):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_out", [60, 62], ids=["w60", "w62"])
-@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2, 3, 4])
 def test_cuda_disco_band_kernel_random_psi(cuda, stride, w_out):
     # psi that is not banded the usual way: scattered interior zeros,
     # dead slices and a dead row, any lat_idx; x spread over 1e-3..1e3,
@@ -271,12 +271,13 @@ def test_cuda_disco_band_transpose_kernel(cuda, pair):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_out", [30, 31, 61], ids=["w30", "w31", "w61"])
-@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2, 3, 4])
 def test_cuda_disco_band_transpose_kernel_random_psi(cuda, stride, w_out):
     # psi with scattered interior zeros, dead slices and a dead row, one
     # slice wider than a staged piece, any lat_idx, odd widths (4-byte
     # copies) and a window wider than the circle; g spread over
-    # 1e-3..1e3, where one plain TF32 product misses the bar
+    # 1e-3..1e3, where one plain TF32 product misses the bar.  Strides 3
+    # and 4 take the kernel's generic path (one residue class a block)
     gen = torch.Generator(device=cuda).manual_seed(19 + stride + w_out)
     k, h_out, s, d, h_in = 7, 13, 5, 151, 17
     psi = _spread((k, h_out, s, d), gen, cuda)
@@ -316,9 +317,9 @@ def test_cuda_transpose_refuses_bad_inputs(cuda):
     taps, rows = disco_ops.LiveTaps.of(tb), disco_ops.RowTaps.of(tb)
     g = torch.zeros((2, 7, 16, 32), device=cuda)
     args = (tb["psi_band"], tb["lat_idx"], taps, rows, 16)
-    with pytest.raises(ValueError):   # no kernel for stride 4
-        disco_ops.disco_band_transpose(torch.zeros((2, 7, 16, 8),
-                                                   device=cuda), *args, 4)
+    with pytest.raises(ValueError):   # no stride below 1
+        disco_ops.disco_band_transpose(torch.zeros((2, 7, 16, 32),
+                                                   device=cuda), *args, 0)
     with pytest.raises(ValueError):   # lists of another input grid
         disco_ops.disco_band_transpose(g, *args[:-1], 15, 1)
     with pytest.raises(TypeError):
@@ -451,6 +452,54 @@ def test_cuda_ssd_kernel_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 52, 16, 2, 32),
+                                   (2, 100, 6, 7, 3, 13)],
+                         ids=["tiles", "odd"])
+def test_cuda_ssd_kernel_head_tiles_and_odd_shapes(cuda, shape):
+    # more heads a group than a block takes (26 = 24 + 2: two head tiles,
+    # the second ragged), and P and N that are not multiples of 4 (4-byte
+    # copies, ragged fragments)
+    ins = _ssd_inputs(shape, cuda, da_scale=0.5, seed=len(shape))
+    y, st = ssd_ops.ssd_intra_chunk(*ins)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_intra_chunk_ref(*ins)
+    assert _rel_err(y, y_ref) <= REL_TOL
+    assert _rel_err(st, st_ref) <= REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 24, 64, 128), (3, 5, 2, 3, 5),
+                                   (1, 1, 4, 8, 16)],
+                         ids=["prefill", "odd", "one-chunk"])
+def test_cuda_chunk_recurrence_kernel(cuda, shape):
+    # the kernel takes one fused multiply-add a step where the plain
+    # loop's addcmul may round twice: a few ulps a step, damped by the
+    # decays (< 1), so 1e-6 of max |plain| rather than bitwise
+    from repro_torch.kernels.ssd.ref import chunk_recurrence_ref
+    bsz, nc, h, p, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(nc)
+    states = torch.randn(shape, generator=gen, device=cuda)
+    decay = torch.rand((bsz, nc, h), generator=gen, device=cuda) * 0.9 + 0.1
+    init = torch.randn((bsz, h, p, n), generator=gen, device=cuda)
+    before = ssd_ops.state_launches
+    prev, final = ssd_ops.chunk_recurrence(states, decay, init)
+    again = ssd_ops.chunk_recurrence(states, decay, init)
+    torch.cuda.synchronize()
+    assert ssd_ops.state_launches == before + 2
+    assert torch.equal(prev, again[0]) and torch.equal(final, again[1])
+    prev_ref, final_ref = chunk_recurrence_ref(states, decay, init)
+    assert torch.equal(prev[:, 0], init)
+    assert _rel_err(prev, prev_ref) <= 1e-6
+    assert _rel_err(final, final_ref) <= 1e-6
+    with pytest.raises(NotImplementedError, match="A13"):
+        ssd_ops.chunk_recurrence(states.requires_grad_(), decay, init)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.chunk_recurrence(states.detach(), decay,
+                                 init.transpose(-1, -2).contiguous()
+                                 .transpose(-1, -2))
+
+
+@pytest.mark.cuda
 def test_cuda_ssd_refuses_grad_and_bad_inputs(cuda):
     x, da_cs, b, c = _ssd_inputs((2, 16, 4, 8, 1, 16), cuda)
     with pytest.raises(NotImplementedError, match="A13"):
@@ -478,9 +527,10 @@ def test_cuda_ssd_chunked_and_lm_kernel_vs_reference(cuda):
                     (2, 256, 2, 16)))
     da = -da.abs() * 0.5
     init = torch.randn((2, 8, 32, 16), generator=gen, device=cuda)
-    before = ssd_ops.launches
+    before = ssd_ops.launches, ssd_ops.state_launches
     y, f = ssd_ops.ssd_chunked_kernel(x, da, b, c, 64, init)
-    assert ssd_ops.launches == before + 1
+    assert (ssd_ops.launches, ssd_ops.state_launches) == (before[0] + 1,
+                                                          before[1] + 1)
     y_ref, f_ref = ssmlib.ssd_chunked(x, da, b, c, 64, init)
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-4)
@@ -493,8 +543,9 @@ def test_cuda_ssd_chunked_and_lm_kernel_vs_reference(cuda):
         model = LM(cfg, device=cuda,
                    kernels=KernelConfig(ssd=mode))
         model.init(torch.Generator(device=cuda).manual_seed(4))
-        before = ssd_ops.launches
+        before = ssd_ops.launches, ssd_ops.state_launches
         logits.append(model(tokens))
-        assert ssd_ops.launches - before == (cfg.n_layers if mode == "kernel"
-                                             else 0)
+        want = cfg.n_layers if mode == "kernel" else 0
+        assert (ssd_ops.launches - before[0],
+                ssd_ops.state_launches - before[1]) == (want, want)
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-5)

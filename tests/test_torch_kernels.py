@@ -277,6 +277,40 @@ class TestDiscoBand:
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("stride", [3])
+    def test_transpose_plain_matches_jax_vjp_any_stride(self, stride):
+        # a stride no fcn3 geometry has: the plain transpose against
+        # jax.vjp of the JAX package's roll + gather + band oracle, on a
+        # band with holes and any lat_idx (the CUDA kernel takes this
+        # stride through its generic path)
+        band = _band_with_holes(30 + stride)
+        k, h_out, s, d = band.shape
+        r = _rng(31 + stride)
+        h_in, w_out = 12, 40
+        lat_idx = r.integers(0, h_in, (h_out, s)).astype(np.int32)
+        x = r.standard_normal((2, h_in, w_out * stride)).astype(np.float32)
+
+        def j_band(a):
+            xg = jdisco._gather_band(jnp.roll(a, d // 2, axis=-1), lat_idx,
+                                     None, h_out)
+            return j_band_ref(xg, jnp.asarray(band), stride=stride)
+
+        out, vjp = jax.vjp(j_band, jnp.asarray(x))
+        assert out.shape == (2, k, h_out, w_out)
+        g = r.standard_normal(out.shape).astype(np.float32)
+        (want,) = vjp(jnp.asarray(g))
+        got = disco_band_transpose_ref(torch.from_numpy(g),
+                                       torch.from_numpy(band),
+                                       torch.from_numpy(lat_idx), h_in,
+                                       stride)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            disco_gather_band_contract_ref(
+                torch.from_numpy(x), torch.from_numpy(band),
+                torch.from_numpy(lat_idx), stride).numpy(),
+            np.asarray(out), rtol=1e-5, atol=1e-5)
+
     @pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
     def test_row_lists_invert_lat_idx(self, pair):
         # the transpose kernel's lists (band_row_taps): every live slice of
@@ -301,7 +335,8 @@ class TestDiscoBand:
         assert np.all(np.diff(work[rows["in_order"]]) <= 0)
         assert all(a.dtype == np.int32 for a in rows.values())
 
-    @pytest.mark.parametrize("which", ["holes-1", "holes-2"] + PAIR_IDS)
+    @pytest.mark.parametrize("which", ["holes-1", "holes-2", "holes-3",
+                                       "holes-4"] + PAIR_IDS)
     def test_transpose_over_row_taps_matches_plain(self, which):
         # the function the transpose kernel computes from the lists, in
         # numpy: its tiles, pieces, u windows (wrapped), zero margins,
@@ -312,7 +347,9 @@ class TestDiscoBand:
             band = _band_with_holes(13 + stride)
             r = _rng(20 + stride)
             lat_idx = r.integers(0, 12, band.shape[1:3]).astype(np.int32)
-            h_in, w_out = 12, 31
+            # above stride 2 (the generic path) wide enough for every
+            # warp and two tiles of each residue class
+            h_in, w_out = 12, 31 if stride <= 2 else 300
         else:
             _, tp = _plans(PAIRS[PAIR_IDS.index(which)])
             band, lat_idx, stride = tp.banded_split()[0], tp.lat_idx, tp.stride
@@ -331,10 +368,11 @@ class TestDiscoBand:
 def _emulate_transpose(g, band, lat_idx, h_in, stride):
     """csrc/disco_band_bwd.cu's arithmetic in numpy, for every block of
     its grid: input row r from the lists, a tile of TV longitudes split
-    into warps of VW, slices cut into pieces of at most CH taps; per
-    (piece, k) the staged taps with zero margins and the g window from
-    u0 = floor((v0 - c - taps) / S), wrapped; n-tile j of parity par and
-    u-block i = j + delta meet in the 8 x 8 operand
+    into warps of VW (above stride 2: TV longitudes of one residue class
+    v = cls + S n, the generic path), slices cut into pieces of at most
+    CH taps; per (piece, k) the staged taps with zero margins and the g
+    window from u0 = floor((v0 - c - taps) / S), wrapped; n-tile j of
+    parity par and u-block i = j + delta meet in the 8 x 8 operand
     B_delta[q, n] = P[base + par - 8 S delta + S (n - q)]."""
     tv, ch, vw, s_ = disco_ops._TV, disco_ops._TCH, 32, stride
     b, k, h_out, w_out = g.shape
@@ -342,22 +380,33 @@ def _emulate_transpose(g, band, lat_idx, h_in, stride):
     w_in = w_out * stride
     taps = tdisco.band_live_taps(band)
     rows = tdisco.band_row_taps(lat_idx, taps, h_in)
-    margin, nt, nw = 16 * s_, vw // (8 * s_), tv // vw
+    generic = s_ > 2
+    margin, nw = 16 * s_, tv // vw
+    # per block: the first longitudes, the step between outputs, the
+    # parities, the n-tiles of one parity a warp and the u offset of a warp
+    if generic:
+        starts = [c + s_ * t * tv for t in range(-(-w_out // tv))
+                  for c in range(s_)]
+        vstep, npar, nt, wu = s_, 1, vw // 8, vw
+    else:
+        starts = range(0, w_in, tv)
+        vstep, npar, nt, wu = 1, s_, vw // (8 * s_), vw // s_
     out = np.full((b, h_in, w_in), np.nan)
     q8 = np.arange(8)
     for r in rows["in_order"]:
-        for v0 in range(0, w_in, tv):
-            acc = np.zeros((b, nw, s_, nt, 8))
+        for v0 in starts:
+            acc = np.zeros((b, nw, npar, nt, 8))
             for h, e in rows["in_ent"][rows["in_ptr"][r]:rows["in_ptr"][r + 1]]:
                 _, d_lo, span, off = taps["tap_ent"][e]
                 for pc in range(-(-(-(-span // 8) * 8) // ch)):
                     n_taps = min(ch, -(-span // 8) * 8 - pc * ch)
                     nd = (n_taps + 9 * s_ - 2) // (8 * s_)
+                    assert not generic or nd <= disco_ops._TDM_ANY
                     c = d_lo + pc * ch - d // 2
                     u0 = (v0 - c - n_taps) // s_
                     base = v0 - c - s_ * u0
                     assert n_taps <= base < n_taps + s_
-                    ncols = tv // s_ + 8 * nd
+                    ncols = (tv if generic else tv // s_) + 8 * nd
                     for kk in range(k):
                         ps = np.zeros(ch + 2 * margin)
                         ps[margin:margin + n_taps] = taps["tap_psi"][
@@ -365,22 +414,23 @@ def _emulate_transpose(g, band, lat_idx, h_in, stride):
                         win = g[:, kk, h, (u0 + np.arange(ncols)) % w_out]
                         for delta in range(nd + 1):
                             # u-blocks i = j + delta of every warp
-                            cols = (np.arange(nw)[:, None, None] * (vw // s_)
+                            cols = (np.arange(nw)[:, None, None] * wu
                                     + 8 * (np.arange(nt)[None, :, None]
                                            + delta) + q8)    # (nw, nt, 8)
                             a = win[:, cols]                 # (b, nw, nt, 8)
-                            for par in range(s_):
+                            for par in range(npar):
                                 tau = (base + par - 8 * s_ * delta
                                        + s_ * (q8[None, :] - q8[:, None]))
                                 at = margin + tau            # [q, n]
                                 assert 0 <= at.min() <= at.max() < ps.size
                                 bmat = ps[at]
                                 acc[:, :, par] += a @ bmat
-            v = (v0 + np.arange(nw)[:, None, None, None] * vw
-                 + np.arange(s_)[None, :, None, None]
+            v = (v0 + vstep * np.arange(nw)[:, None, None, None] * vw
+                 + np.arange(npar)[None, :, None, None]
                  + s_ * (8 * np.arange(nt)[None, None, :, None]
-                         + q8))                              # (nw, S, nt, 8)
+                         + q8))                              # (nw, P, nt, 8)
             keep = v < w_in
+            assert np.isnan(out[:, r, v[keep]]).all()        # written once
             out[:, r, v[keep]] = acc[:, keep]
     return out
 

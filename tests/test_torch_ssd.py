@@ -19,8 +19,10 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
+                                         ssd_intra_chunk_ref)
 from repro_torch.models import ssm as tssm
+from test_torch_cuda import SSD_SHAPES
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 #: (BC, L, H, P, G, N): the shapes of tests/test_kernels_ssd.py:20-26
@@ -135,6 +137,41 @@ def test_chunk_recurrence_is_the_scan():
     torch.testing.assert_close(final, carry)
 
 
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_plain_chunk_recurrence_matches_the_jax_scan(with_init):
+    # the recurrence's plain version against the jax.lax.scan inside the
+    # JAX package's ssd_chunked_pallas (its intra-chunk step in interpret
+    # mode): the state entering chunk c is that scan's final state over
+    # the first c chunks, and the final state its final state over all
+    x, da, b, c, init = _scan_inputs(seed=12, s=64)
+    chunk, nc = 16, 4
+    bsz, _, h, p = x.shape
+    g, n = b.shape[2:]
+    jinit = jnp.asarray(init) if with_init else None
+
+    def chunks(a, tail):
+        return torch.from_numpy(a).reshape((bsz * nc, chunk) + tail)
+
+    da_cs = torch.cumsum(chunks(da, (h,)), dim=1)
+    _, states = ssd_intra_chunk_ref(chunks(x, (h, p)), da_cs,
+                                    chunks(b, (g, n)), chunks(c, (g, n)))
+    tinit = (torch.from_numpy(init) if with_init
+             else torch.zeros((bsz, h, p, n)))
+    prev, final = ssd_ops.chunk_recurrence(
+        states.reshape(bsz, nc, h, p, n),
+        torch.exp(da_cs[:, -1]).reshape(bsz, nc, h), tinit)
+    torch.testing.assert_close(prev[:, 0], tinit)
+    for k in range(1, nc + 1):
+        jin = [jnp.asarray(a[:, :k * chunk]) for a in (x, da, b, c)]
+        _, want = ssd_chunked_pallas(*jin, chunk, initial_state=jinit,
+                                     interpret=True)
+        _close(prev[:, k] if k < nc else final, want)
+    np.testing.assert_array_equal(
+        final.numpy(), chunk_recurrence_ref(
+            states.reshape(bsz, nc, h, p, n),
+            torch.exp(da_cs[:, -1]).reshape(bsz, nc, h), tinit)[1].numpy())
+
+
 def test_segsum_decay_and_causal_conv_match_jax():
     rng = np.random.default_rng(6)
     da_cs = np.cumsum(-np.abs(rng.normal(size=(3, 16, 4))) * 8.0, axis=1,
@@ -175,3 +212,106 @@ def test_wrapper_refuses_bad_inputs():
         ssd_ops.ssd_intra_chunk(x, da_cs[:, :4], b, c)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_ops.ssd_chunked_kernel(x.reshape(1, 8, 3, 4), da_cs, b, c, 3)
+
+
+def _emulate_ssd(x, da_cs, b, c, heads=24, skip=None, read_above=False):
+    """csrc/ssd.cu's tile walk in numpy, block by block: (chunk, group,
+    tile of ``heads`` heads); C B^T of the group formed once, only its
+    causal 16 x 8 tiles (l-tile i, s-tile j <= 2 i + 1), stored per lane
+    in the A-fragment order of att @ X (c0, c2, c1, c3 of lane 4 g + t);
+    then per head, in order, y over each l-tile's s-blocks up to its
+    diagonal with the decay masked before exp, and the state over
+    k-blocks of 8 with X's rows scaled by exp(cs[L-1] - cs[l]).  Within a
+    k-block the depth runs over s (or l) as 0 2 4 6 | 1 3 5 7.  Returns
+    (y, states, the tiles formed, the heads in the order walked).
+    ``skip`` (i, j): y's walk leaves that causal tile out; ``read_above``:
+    y's walk also reads the s-block just above each diagonal, 2 i + 2.  A
+    test holds both to fail."""
+    bc, l, h, p = x.shape
+    g, n = b.shape[2:]
+    rep, lr = h // g, -(-l // 16) * 16
+    kbs = -(-l // 8)
+    y = np.full(x.shape, np.nan, np.float32)
+    st = np.full((bc, h, p, n), np.nan, np.float32)
+    gq, t = np.arange(32) // 4, np.arange(32) % 4
+    perm = np.concatenate([2 * np.arange(4), 2 * np.arange(4) + 1])
+    tiles, walk = set(), []
+
+    def pad(a):
+        out = np.zeros((lr,) + a.shape[1:], np.float64)
+        out[:a.shape[0]] = a
+        return out
+
+    for q in range(bc):
+        for gg in range(g):
+            cm, bm = pad(c[q, :, gg]), pad(b[q, :, gg])
+            tri = {}
+            for i in range(lr // 16):
+                for j in range(2 * i + 2):
+                    cb = cm[16 * i:16 * i + 16] @ bm[8 * j:8 * j + 8].T
+                    # lane 4 g + t holds (g, 2t), (g + 8, 2t), (g, 2t + 1),
+                    # (g + 8, 2t + 1)
+                    tri[i, j] = np.stack([cb[gq, 2 * t], cb[gq + 8, 2 * t],
+                                          cb[gq, 2 * t + 1],
+                                          cb[gq + 8, 2 * t + 1]], axis=1)
+                    tiles.add((i, j))
+            for h0 in range(gg * rep, (gg + 1) * rep, heads):
+                for hh in range(h0, min(h0 + heads, (gg + 1) * rep)):
+                    walk.append((q, hh))
+                    xs, cs = pad(x[q, :, hh]), pad(da_cs[q, :, hh])
+                    yy = np.zeros((lr, p))
+                    for i in range(lr // 16):
+                        rows = 16 * i + np.arange(16)
+                        walked = list(range(min(2 * i + 2, kbs)))
+                        for kb in walked + [2 * i + 2] * read_above:
+                            if (i, kb) == skip:
+                                continue
+                            v = tri[i, kb]          # (lane, 4)
+                            a = np.zeros((16, 8))   # depth in fragment order
+                            a[gq, t], a[gq + 8, t] = v[:, 0], v[:, 1]
+                            a[gq, t + 4], a[gq + 8, t + 4] = v[:, 2], v[:, 3]
+                            s_ = 8 * kb + perm
+                            diff = cs[rows][:, None] - cs[s_][None, :]
+                            mask = s_[None, :] <= rows[:, None]
+                            a *= np.exp(np.where(mask, diff, -np.inf))
+                            yy[rows] += a @ xs[s_]
+                    y[q, :, hh] = yy[:l]
+                    w = np.where(np.arange(lr) < l,
+                                 np.exp(cs[l - 1] - cs), 0.0)
+                    sacc = np.zeros((p, n))
+                    for kb in range(kbs):
+                        s_ = 8 * kb + perm
+                        sacc += (xs[s_] * w[s_, None]).T @ bm[s_]
+                    st[q, hh] = sacc
+    return y, st, tiles, walk
+
+
+@pytest.mark.parametrize("da_scale", [0.1, 2.0], ids=["decay0.1", "decay2"])
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=[str(s) for s in SSD_SHAPES])
+def test_kernel_tile_walk_matches_the_oracle(shape, da_scale):
+    # the tile walk of csrc/ssd.cu (tests/test_torch_cuda.py runs the
+    # kernel itself at these shapes): every causal tile of C B^T once per
+    # group, none above the diagonal, heads walked in order, the decay
+    # masked before exp (finite at chunk |dA| sums far above 88)
+    bc, l, h, p, g, n = shape
+    x, da_cs, b, c = _intra_inputs(shape, seed=sum(shape), scale=da_scale)
+    y, st, tiles, walk = _emulate_ssd(x, da_cs, b, c)
+    lt = -(-l // 16)
+    assert tiles == {(i, j) for i in range(lt) for j in range(2 * i + 2)}
+    assert walk == [(q, hh) for q in range(bc) for hh in range(h)]
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    y_ref, st_ref = ssd_intra_chunk_ref(*_t(x, da_cs, b, c))
+    _close(torch.from_numpy(y), y_ref.numpy())
+    _close(torch.from_numpy(st), st_ref.numpy())
+    if bc * h > 32:
+        return
+    # the walk holds the kernel to the oracle: leaving out a causal tile
+    # (the first, or the last l-tile's last) changes y, and a read above
+    # the diagonal finds no tile there
+    for skip in ((0, 0), (lt - 1, min(2 * lt, -(-l // 8)) - 1)):
+        y_skip, *_ = _emulate_ssd(x, da_cs, b, c, skip=skip)
+        err = np.abs(y_skip - y_ref.numpy()).max()
+        assert err > 1e-3 * np.abs(y_ref.numpy()).max()
+    with pytest.raises(KeyError):
+        _emulate_ssd(x, da_cs, b, c, read_above=True)
