@@ -15,6 +15,17 @@ non-zero exit code and no result line:
    every kernel must have launched, every score must be finite; the last
    (steady) lead runs under ``torch.profiler``: the device's busy share of
    it and its kernels by device time (``[profile]`` lines);
+2b. the engine's other paths on the same model (``[engine]`` lines), with
+   both forecast kernels' counts and the plain-version guard set to 0
+   just before and read just after: E1 two coalesced requests
+   (``forecast_batched``: other samples and seeds, one host aux callable,
+   2 members, 3 leads in chunks of 2, obs perturbations, spectra, scored)
+   against request 0 alone at the reference's dispatch bar, with seconds
+   per lead, member-leads per second, peaks and staging counters; E2 the
+   bf16 policy against fp32 from the same draws (bf16 state within 0.15,
+   fp32 finite scores) and one bf16 lead's GEMM kernels and product
+   dtypes (``[profile]``); E3 bred init (4 members, ensemble transform):
+   pairs centered on the analysis, the transform's draws orthonormal;
 3. a small-input check: one ``fcn3_smoke`` step on the card through the
    kernels against the port's reference (FFT/einsum) path;
 4. training: ``repro_torch.launch.train``'s path at ``fcn3_full`` (stage
@@ -81,15 +92,32 @@ PEAK_BYTES = 3.35e12
 #: (fp32 sums of up to S*D = 3.3k terms in another order)
 REL_TOL = 1e-4
 #: the main path: fcn3_full at its published widths, 2 members x 3 leads
-#: (the third one profiled), after this many LSUV calibration rounds (the
-#: serve CLI runs 4)
+#: (the third one profiled), after the serve CLI's 4 LSUV calibration
+#: rounds (the bf16 bar below is the reference test's, on a model
+#: calibrated with 4 rounds)
 CONFIG, MEMBERS, LEAD_STEPS = "full", 2, 3
-CALIBRATION_ROUNDS = 1
+CALIBRATION_ROUNDS = 4
+#: the engine phase at fcn3_full, on phase 2's model: E1 two coalesced
+#: requests (2 members each, 3 leads in chunks of 2, obs perturbations of
+#: amplitude 0.05, spectra) against request 0 alone; E2 the bf16 policy
+#: against fp32 (2 members, 3 leads); E3 bred init (4 members, ensemble
+#: transform) and one lead
+ENGINE_MEMBERS, ENGINE_LEADS, ENGINE_SAMPLES = 2, 3, (123, 321)
+#: batched vs serial: the reference's dispatch bar
+#: (tests/test_kernel_dispatch.py:289); the rank frequencies of nearly tied
+#: members are held to the state bar, as in tests/test_torch_fcn3.py
+STATE_RTOL, STATE_ATOL, SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5, 1e-4, 1e-6
+#: bf16 vs fp32 final state (tests/test_inference_engine.py:142-160)
+BF16_BAR = 0.15
+#: bred pairs' mean vs state0, relative to max |state0|; the ensemble
+#: transform's output Gram matrix vs the identity
+PAIR_TOL, ORTHO_TOL = 1e-6, 1e-4
 #: the training path: fcn3_full, all 10 blocks, Table 3's second stage
 #: with its own ensemble of 2; batch 32 -> 1, rollout 4 -> 1 and
 #: calibration rounds 4 -> 1 are the cuts
 TRAIN_STAGE, TRAIN_ENSEMBLE, TRAIN_BATCH, TRAIN_ROLLOUT = (
     "pretrain_stage2", 2, 1, 1)
+TRAIN_CALIBRATION_ROUNDS = 1
 TRAIN_STEPS = 2
 #: gradient bar of tests/test_kernel_dispatch.py's grad-parity test
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
@@ -147,7 +175,10 @@ class Recorder:
     kernel at its largest batch per table, the band contraction, its
     transpose and the CRPS kernels at every distinct shape (the band
     contraction and its transpose with their launches per shape), the SSD
-    kernel at its first call."""
+    kernel at its first call.  Tables and filters are told apart by shape
+    (and the table's strides), never by address: the bf16 policy hands
+    the kernels a fresh widened copy at every call, and only the first
+    operands of each key are kept."""
 
     def __init__(self):
         from repro_torch.kernels.crps import ops as crps_ops
@@ -168,7 +199,7 @@ class Recorder:
         orig = {name: fn for _, name, fn in self._saved}
 
         def disco(x, psi_band, lat_idx, taps, stride=1):
-            key = (psi_band.data_ptr(), stride, tuple(x.shape))
+            key = (tuple(psi_band.shape), stride, tuple(x.shape))
             ent = self.disco.setdefault(key, {
                 "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
                 "stride": stride, "shape": tuple(x.shape), "launches": 0})
@@ -177,7 +208,7 @@ class Recorder:
                                                stride)
 
         def transpose(g, psi_band, lat_idx, taps, rows, h_in, stride=1):
-            key = (psi_band.data_ptr(), stride, tuple(g.shape))
+            key = (tuple(psi_band.shape), stride, tuple(g.shape))
             ent = self.transpose.setdefault(key, {
                 "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
                 "rows": rows, "h_in": h_in, "stride": stride,
@@ -187,7 +218,7 @@ class Recorder:
                                                 rows, h_in, stride)
 
         def legendre(x, table, extents):
-            key = (table.data_ptr(), table.stride())
+            key = (tuple(table.shape), table.stride())
             ent = self.legendre.setdefault(key, {"table": table, "b": 0,
                                                  "extents": extents,
                                                  "shape": None,
@@ -824,6 +855,209 @@ def small_gradient_check() -> float:
     return worst
 
 
+def _timed_blocks(blocks) -> tuple[list, list[float]]:
+    """Drain a result stream; the host seconds per lead of each block
+    (synced at each block)."""
+    import torch
+    out, per_lead = [], []
+    torch.cuda.synchronize()
+    t = time.time()
+    for block in blocks:
+        torch.cuda.synchronize()
+        now = time.time()
+        first = block[0] if isinstance(block, list) else block
+        per_lead += [(now - t) / len(first.lead_steps)] * len(
+            first.lead_steps)
+        out.append(block)
+        t = now
+    return out, per_lead
+
+
+def _gemm_profile(eng, buffers, state0, aux, noise) -> dict:
+    """One bf16 lead under ``torch.profiler`` (the GEMM kernels by device
+    time) and a dispatch hook (every product's operand dtypes)."""
+    import collections
+    import torch
+    from repro_torch.runtime import ProductDtypes
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof, ProductDtypes() as products:
+        eng.forecast(buffers, state0, aux, noise, steps=1)
+        torch.cuda.synchronize()
+    gemms = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        low = e.name.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                "gemm" in low or "xmma" in low):
+            gemms[e.name][0] += 1
+            gemms[e.name][1] += e.time_range.elapsed_us() / 1e3
+    return {"gemms": sorted(gemms.items(), key=lambda kv: -kv[1][1]),
+            "products": dict(products.counts)}
+
+
+def engine_phase(run, report) -> dict:
+    """The forecast engine's remaining paths at fcn3_full on the serve
+    phase's model: coalesced requests (E1), the bf16 policy (E2) and bred
+    init (E3).  Raises on any failed check; returns the numbers the
+    ``[engine]`` lines print."""
+    import numpy as np
+    import torch
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference import perturbations as perturblib
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              members_noise)
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    model, ds, buffers = run.model, run.ds, run.buffers
+    grid, static = ds.grid, ds.static_aux
+
+    def aux(n):
+        # host fields, as a deployment reads them: staged through pinned
+        # memory and the engine's copy stream
+        cz = dlib.cos_zenith_angle(grid.colat, grid.lons, 6.0 * (n + 1))
+        return np.concatenate([static, cz[None].astype(np.float32)])
+
+    def truth_of(sample):
+        return lambda n: ds.state(sample, n + 1)
+
+    out: dict = {}
+    state0s = [ds.state(s, 0) for s in ENGINE_SAMPLES]
+    truths = [truth_of(s) for s in ENGINE_SAMPLES]
+
+    # -- E1: two coalesced requests against request 0 alone --------------
+    pcfg = perturblib.PerturbationConfig(kind="obs", amplitude=0.05)
+    t0 = time.time()
+    pert = perturblib.InitialConditionPerturbation.from_dataset(
+        model.in_sht, pcfg, ds)
+    eng = ForecastEngine(model, EngineConfig(
+        members=ENGINE_MEMBERS, lead_chunk=2, perturb=pcfg, spectra=True),
+        perturbation=pert)
+    eng.spectral_wpct   # the spectra's 1.5 GB table, built once
+    torch.cuda.synchronize()
+    out["e1_setup_s"] = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    blocks, out["batched_lead_s"] = _timed_blocks(eng.stream_batched(
+        buffers, state0s, [aux, aux],
+        [members_noise(model, 11), members_noise(model, 12)],
+        steps=ENGINE_LEADS, truths=truths))
+    out["batched_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["batched_stats"] = eng.dispatch_stats()
+    batched = [[b[r] for b in blocks] for r in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    serial, out["serial_lead_s"] = _timed_blocks(eng.stream(
+        buffers, state0s[0], aux, members_noise(model, 11),
+        steps=ENGINE_LEADS, truth=truths[0]))
+    out["serial_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    got, want = batched[0][-1], serial[-1]
+    worst = {"state": errors(got.final_state, want.final_state)[0]}
+    torch.testing.assert_close(got.final_state, want.final_state,
+                               rtol=STATE_RTOL, atol=STATE_ATOL)
+    for name in want.scores:
+        g = torch.cat([b.scores[name] for b in batched[0]])
+        w = torch.cat([b.scores[name] for b in serial])
+        atol = STATE_ATOL if name == "rank_hist" else SCORE_ATOL
+        torch.testing.assert_close(g, w, rtol=SCORE_RTOL, atol=atol,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"E1 score {name} not finite")
+        worst[name] = errors(g, w)[0]
+    out["e1_worst"] = worst
+    # the counts were set to 0 just before the phase: E1's launches
+    out["e1_launches"] = {"disco_band_contract": disco_ops.launches,
+                          "legendre_contract": legendre_ops.launches}
+    spec = torch.cat([b.scores["spectrum"] for b in batched[1]])
+    if tuple(spec.shape) != (ENGINE_LEADS, model.cfg.n_state,
+                             model.in_sht.lmax):
+        raise AssertionError(f"spectrum shape {tuple(spec.shape)}")
+    if not torch.isfinite(batched[1][-1].final_state).all():
+        raise AssertionError("E1 request 1's final state is not finite")
+    del blocks, batched, serial, got, want, eng, pert
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- E2: the bf16 policy against fp32, from the same draws ------------
+    finals = {}
+    for dt in ("float32", "bfloat16"):
+        eng = ForecastEngine(model, EngineConfig(
+            members=ENGINE_MEMBERS, lead_chunk=1, compute_dtype=dt))
+        torch.cuda.reset_peak_memory_stats()
+        res, out[f"{dt}_lead_s"] = _timed_blocks(eng.stream(
+            buffers, state0s[0], aux, members_noise(model, 21),
+            steps=ENGINE_LEADS, truth=truths[0]))
+        out[f"{dt}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        finals[dt] = res[-1].final_state
+        for block in res:
+            for name, v in block.scores.items():
+                if v.dtype != torch.float32 or not torch.isfinite(v).all():
+                    raise AssertionError(f"E2 {dt} score {name}: {v.dtype}, "
+                                         "not fp32 and finite")
+        if dt == "bfloat16":
+            out["profile"] = _gemm_profile(eng, buffers, state0s[0], aux,
+                                           members_noise(model, 22))
+        del res, eng
+    if finals["bfloat16"].dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 final state is "
+                             f"{finals['bfloat16'].dtype}")
+    out["bf16_vs_fp32"] = float((finals["bfloat16"].float()
+                                 - finals["float32"]).abs().max())
+    if not out["bf16_vs_fp32"] < BF16_BAR:
+        raise AssertionError(f"bf16 final state {out['bf16_vs_fp32']:.3f} "
+                             f"from fp32 (bar {BF16_BAR})")
+    bf16_products = [k for k in out["profile"]["products"]
+                     if "bfloat16" in k[1]]
+    if bf16_products:
+        raise AssertionError(f"a product took a bf16 operand: "
+                             f"{bf16_products}")
+    del finals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- E3: bred init, ensemble transform, one lead ----------------------
+    pcfg = perturblib.PerturbationConfig(kind="bred",
+                                         ensemble_transform=True)
+    pert = perturblib.InitialConditionPerturbation.from_dataset(
+        model.in_sht, pcfg, ds)
+    eng = ForecastEngine(model, EngineConfig(members=4, lead_chunk=1,
+                                             perturb=pcfg),
+                         perturbation=pert)
+    s0 = torch.as_tensor(state0s[0]).cuda().float()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.time()
+    with torch.inference_mode():
+        members, _ = eng.init_carry(s0, members_noise(model, 31), buffers,
+                                    torch.from_numpy(aux(0)).cuda())
+    torch.cuda.synchronize()
+    out["bred_init_s"] = time.time() - t
+    # one lead through the engine (its first block makes the members again)
+    res, lead_s = _timed_blocks(eng.stream(
+        buffers, state0s[0], aux, members_noise(model, 31), steps=1,
+        truth=truths[0]))
+    out["bred_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["bred_lead_s"] = [lead_s[0] - out["bred_init_s"]]
+    pair_err = float(((members[0::2] + members[1::2]) / 2 - s0).abs().max())
+    out["bred_pair_rel"] = pair_err / float(s0.abs().max())
+    p = members[0::2] - s0
+    out["bred_cosine"] = float(torch.nn.functional.cosine_similarity(
+        p[0].flatten(), p[1].flatten(), dim=0))
+    # the transform on its own: its output's Gram matrix in the
+    # area-weighted inner product, formed here from the output
+    q = pert.orthogonalize(p)
+    w = pert.area_weights / pert.area_weights.sum()
+    flat = (q * w.sqrt()).reshape(q.shape[0], -1)
+    out["bred_gram_err"] = float((flat @ flat.T - torch.eye(
+        q.shape[0], device=q.device)).abs().max())
+    out["bred_crps"] = float(res[-1].scores["crps"].mean())
+    if not out["bred_pair_rel"] <= PAIR_TOL:
+        raise AssertionError(f"bred pairs off state0: {out['bred_pair_rel']}")
+    if not out["bred_gram_err"] <= ORTHO_TOL:
+        raise AssertionError(f"transformed draws not orthonormal: "
+                             f"{out['bred_gram_err']}")
+    if not torch.isfinite(res[-1].final_state).all():
+        raise AssertionError("E3 final state is not finite")
+    return out
+
+
 def train_phase(report) -> dict:
     """The fcn3_full training path with fresh launch counts; returns the
     summary the ``[train]`` lines print."""
@@ -838,7 +1072,7 @@ def train_phase(report) -> dict:
     t0 = time.time()
     run = train_mod.setup(CONFIG, TRAIN_STAGE, TRAIN_BATCH, TRAIN_ENSEMBLE,
                           TRAIN_ROLLOUT, seed=0, device="cuda",
-                          calibration_rounds=CALIBRATION_ROUNDS,
+                          calibration_rounds=TRAIN_CALIBRATION_ROUNDS,
                           report=report)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -923,9 +1157,10 @@ def main() -> int:
     disco_ops.reset_launches()
     legendre_ops.reset_launches()
     t0 = time.time()
+    run = serve_mod.setup(CONFIG, device="cuda",
+                          calibration_rounds=CALIBRATION_ROUNDS)
     results = serve_mod.serve(
-        CONFIG, MEMBERS, LEAD_STEPS, lead_chunk=1,
-        device="cuda", calibration_rounds=CALIBRATION_ROUNDS, report=report)
+        CONFIG, MEMBERS, LEAD_STEPS, lead_chunk=1, report=report, run=run)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     launches = {"disco_band_contract": disco_ops.launches,
@@ -966,6 +1201,77 @@ def main() -> int:
                              f"forecast: {guard.counts}")
     del results, final
 
+    # -- phase 2b: the engine's other paths on the same model --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    disco_ops.reset_launches()
+    legendre_ops.reset_launches()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    eng_rec = Recorder()    # the engine path's own shapes
+    t0 = time.time()
+    eng = engine_phase(run, log)
+    torch.cuda.synchronize()
+    engine_s = time.time() - t0
+    engine_launches = {"disco_band_contract": disco_ops.launches,
+                       "legendre_contract": legendre_ops.launches}
+    eng_rec.close()
+    engine_plain = dict(guard.counts)
+    del run
+    w1 = eng["e1_worst"]
+    # member-leads per second over the steady (last) lead
+    rate_b = 2 * ENGINE_MEMBERS / eng["batched_lead_s"][-1]
+    rate_s = ENGINE_MEMBERS / eng["serial_lead_s"][-1]
+    log(f"[engine] E1 coalesced: 2 requests x {ENGINE_MEMBERS} members, "
+        f"{ENGINE_LEADS} leads (chunks of 2), obs perturbations 0.05, "
+        f"spectra; batched per_lead_s="
+        f"{[round(x, 3) for x in eng['batched_lead_s']]} "
+        f"member_leads_per_s={rate_b:.3f} "
+        f"peak_mem_gb={eng['batched_peak_gb']:.2f}; request 0 alone "
+        f"per_lead_s={[round(x, 3) for x in eng['serial_lead_s']]} "
+        f"member_leads_per_s={rate_s:.3f} "
+        f"peak_mem_gb={eng['serial_peak_gb']:.2f}; "
+        f"setup_s={eng['e1_setup_s']:.1f} staging={eng['batched_stats']} "
+        f"launches={eng['e1_launches']} (both runs)")
+    log(f"[engine] E1 batched vs serial max_abs_err: "
+        + " ".join(f"{k}={v:.3e}" for k, v in w1.items())
+        + f" (state rtol={STATE_RTOL} atol={STATE_ATOL}; scores "
+          f"rtol={SCORE_RTOL} atol={SCORE_ATOL}, rank_hist atol="
+          f"{STATE_ATOL})")
+    log(f"[engine] E2 bf16 policy: bf16 per_lead_s="
+        f"{[round(x, 3) for x in eng['bfloat16_lead_s']]} peak_mem_gb="
+        f"{eng['bfloat16_peak_gb']:.2f}; fp32 per_lead_s="
+        f"{[round(x, 3) for x in eng['float32_lead_s']]} peak_mem_gb="
+        f"{eng['float32_peak_gb']:.2f}; final state bf16, max |bf16 - fp32|"
+        f"={eng['bf16_vs_fp32']:.4f} (bar {BF16_BAR}); scores fp32, finite")
+    prof = eng["profile"]
+    log("[profile] bf16 lead GEMM kernels by device time: " + "; ".join(
+        f"{name[:60]} x{n} {ms:.1f} ms" for name, (n, ms)
+        in prof["gemms"][:6]) + " | products by operand dtypes: " + ", ".join(
+        f"{op}({dts}) x{n}" for (op, dts), n in sorted(
+            prof["products"].items(), key=lambda kv: -kv[1])))
+    log(f"[engine] E3 bred init: 4 members, 3 cycles, ensemble transform; "
+        f"init_s={eng['bred_init_s']:.2f} lead_s={eng['bred_lead_s'][0]:.2f} "
+        f"peak_mem_gb={eng['bred_peak_gb']:.2f} pair_mean_vs_state0="
+        f"{eng['bred_pair_rel']:.2e} of max|state0| (bar {PAIR_TOL}) "
+        f"transform_gram_err={eng['bred_gram_err']:.2e} (bar {ORTHO_TOL}) "
+        f"final_draw_cosine={eng['bred_cosine']:.3f} "
+        f"crps={eng['bred_crps']:.4f}")
+    log(f"[engine] phase_s={engine_s:.1f} launches={engine_launches} "
+        f"plain_calls_on_cuda={engine_plain}")
+    for name, n in engine_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched in the engine phase")
+    if any(engine_plain.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors in the "
+                             f"engine phase: {engine_plain}")
+    for key in ("batched_peak_gb", "serial_peak_gb", "bfloat16_peak_gb",
+                "float32_peak_gb", "bred_peak_gb"):
+        if not eng[key] < 80:
+            raise AssertionError(f"{key} = {eng[key]:.2f} GB")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- phase 3: small input against the reference path -------------------
     err = small_input_check()
     log(f"[check] fcn3_smoke kernel path vs reference path on the card: "
@@ -989,7 +1295,7 @@ def main() -> int:
     log(f"[train] config={CONFIG} stage={TRAIN_STAGE} "
         f"ensemble={TRAIN_ENSEMBLE} batch={TRAIN_BATCH} "
         f"rollout={TRAIN_ROLLOUT} steps={TRAIN_STEPS} "
-        f"calibration_rounds={CALIBRATION_ROUNDS} "
+        f"calibration_rounds={TRAIN_CALIBRATION_ROUNDS} "
         f"setup_s={summary['setup_s']:.1f} "
         f"step_s={[round(x, 2) for x in summary['step_s']]} "
         f"peak_mem_gb={summary['peak_mem_gb']:.2f} "
@@ -1075,31 +1381,66 @@ def main() -> int:
                 check_ssd_state(states, decay, lm["state_launches"])]}
     del states, decay
     torch.cuda.empty_cache()
-    for ent in rec.legendre.values():
+
+    def legendre_what(ent):
         # the inverse SHT passes pct as a transposed (L, H, M) view
-        what = "forward" if ent["table"].is_contiguous() else "inverse"
+        return "forward" if ent["table"].is_contiguous() else "inverse"
+
+    for ent in rec.legendre.values():
         rows["legendre_contract"].append(
             check_legendre(ent["table"], ent["extents"], ent["shape"],
-                           ent["dtype"], what))
-    widest = {}     # the largest batch of each band geometry
-    for ent in rec.disco.values():
-        key = (ent["psi"].data_ptr(), ent["stride"])
-        if ent["shape"][0] > widest.get(key, (0,))[0]:
-            widest[key] = ent["shape"]
+                           ent["dtype"], legendre_what(ent)))
+    # the engine path's largest batch of each table, where the serve path
+    # gave it fewer rows
+    for key, ent in eng_rec.legendre.items():
+        if ent["b"] > rec.legendre.get(key, {"b": 0})["b"]:
+            row = check_legendre(ent["table"], ent["extents"], ent["shape"],
+                                 ent["dtype"], legendre_what(ent) + " engine")
+            rows["legendre_contract"].append(dict(row, path="engine"))
+
+    def widest(entries) -> dict:
+        # the largest batch of each band geometry
+        out = {}
+        for ent in entries:
+            key = (tuple(ent["psi"].shape), ent["stride"])
+            if ent["shape"][0] > out.get(key, (0,))[0]:
+                out[key] = ent["shape"]
+        return out
+
+    def disco_what(ent):
+        _, h_in, w_in = ent["shape"]
+        return (f"{h_in}x{w_in}->{ent['psi'].shape[1]}x"
+                f"{w_in // ent['stride']}")
+
+    served = widest(rec.disco.values())
     for ent in sorted(rec.disco.values(),
                       key=lambda e: (e["psi"].shape[1], e["stride"],
                                      -e["shape"][0])):
-        _, h_in, w_in = ent["shape"]
-        what = (f"{h_in}x{w_in}->{ent['psi'].shape[1]}x"
-                f"{w_in // ent['stride']}")
-        full = ent["shape"] == widest[(ent["psi"].data_ptr(),
+        full = ent["shape"] == served[(tuple(ent["psi"].shape),
                                        ent["stride"])]
-        rows["disco_band_contract"].append(check_disco(ent, what, full))
+        rows["disco_band_contract"].append(check_disco(ent, disco_what(ent),
+                                                       full))
         torch.cuda.empty_cache()
     if sum(r["launches"] for r in rows["disco_band_contract"]) != launches[
             "disco_band_contract"]:
         raise AssertionError("the band contraction's launches per shape do "
                              "not add up to its count on the main path")
+    if sum(e["launches"] for e in eng_rec.disco.values()) != engine_launches[
+            "disco_band_contract"]:
+        raise AssertionError("the band contraction's launches per shape do "
+                             "not add up to its count on the engine path")
+    log("[kernel] disco engine path launches by shape: " + "; ".join(
+        f"{disco_what(e)} x{e['shape']} {e['launches']}"
+        for e in sorted(eng_rec.disco.values(),
+                        key=lambda e: (e["psi"].shape[1], -e["shape"][0]))))
+    # the engine path's largest batch of each geometry, where the serve
+    # path's was smaller: against the plain version too
+    for key, shape in widest(eng_rec.disco.values()).items():
+        if shape[0] > served.get(key, (0,))[0]:
+            ent = eng_rec.disco[key + (shape,)]
+            row = check_disco(ent, disco_what(ent) + " engine", True)
+            rows["disco_band_contract"].append(dict(row, path="engine"))
+            torch.cuda.empty_cache()
     for ent in train_rec.transpose.values():
         what = (f"{ent['psi'].shape[1]}x{ent['shape'][-1]}->{ent['h_in']}x"
                 f"{ent['shape'][-1] * ent['stride']}")
@@ -1136,9 +1477,13 @@ def main() -> int:
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        fwd = [r for r in rows[name] if r["what"] != "backward"]
+        # the headline shape is the kernel's main path's (the engine
+        # path's rows stay in "shapes")
+        fwd = [r for r in rows[name]
+               if r["what"] != "backward" and r.get("path") != "engine"]
         top = max(fwd, key=lambda r: r["flops"])
         by_path = {"serve": launches.get(name, 0),
+                   "engine": engine_launches.get(name, 0),
                    "train": summary["launches"].get(name, 0),
                    "lm_prefill": {"ssd_intra_chunk": lm["launches"],
                                   "ssd_chunk_recurrence":

@@ -52,10 +52,11 @@ class MLP(nn.Module):
         self.b2.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., C, H, W) -> (..., C_out, H, W)."""
-        h = torch.einsum("oc,...chw->...ohw", self.w1, x)
+        """x: (..., C, H, W) -> (..., C_out, H, W), in fp32 (bf16 weights
+        of the bf16 policy are widened, as JAX promotes them)."""
+        h = torch.einsum("oc,...chw->...ohw", self.w1.float(), x)
         h = gelu(h + self.b1[:, None, None])
-        y = torch.einsum("oc,...chw->...ohw", self.w2, h)
+        y = torch.einsum("oc,...chw->...ohw", self.w2.float(), h)
         return y + self.b2[:, None, None]
 
 

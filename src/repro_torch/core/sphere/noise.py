@@ -134,11 +134,39 @@ class SphericalDiffusion:
         return shtlib.sht_inverse(z_hat, buffers["pct"], self.sht.grid.nlon)
 
 
+def _mirror_pairs(x: torch.Tensor, src: torch.Tensor, n: int, dim: int
+                  ) -> torch.Tensor:
+    """Gather ``src`` slices along ``dim`` and negate every odd output slot.
+
+    The one antithetic-pairing primitive (paper E.3) shared by noise
+    centering (src maps members onto their even partner) and
+    initial-condition perturbations (src expands K independent draws to
+    2K +/- members).
+    """
+    idx = torch.arange(n, device=x.device)
+    sign = torch.where(idx % 2 == 0, 1.0, -1.0)
+    xt = x.index_select(dim, src.to(x.device))
+    shape = [1] * xt.dim()
+    shape[dim] = n
+    return xt * sign.reshape(shape).to(x.dtype)
+
+
 def center_noise(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Antithetic noise centering (paper E.3): odd members = -even members."""
     n = z.shape[dim]
-    src = (torch.arange(n, device=z.device) // 2) * 2
-    sign = torch.where(torch.arange(n, device=z.device) % 2 == 0, 1.0, -1.0)
-    shape = [1] * z.dim()
-    shape[dim] = n
-    return z.index_select(dim, src) * sign.reshape(shape).to(z.dtype)
+    return _mirror_pairs(z, (torch.arange(n) // 2) * 2, n, dim)
+
+
+def antithetic_expand(p: torch.Tensor, members: int, dim: int = 0
+                      ) -> torch.Tensor:
+    """Expand ceil(members/2) independent draws to ``members`` +/- pairs.
+
+    p has K = ceil(members/2) slices along ``dim``; output slot 2i is +p_i
+    and slot 2i+1 is -p_i (a trailing unpaired member gets +p_K-1), so
+    each pair's mean is exactly the control state.
+    """
+    if p.shape[dim] != (members + 1) // 2:
+        raise ValueError(
+            f"need {(members + 1) // 2} draws for {members} antithetic "
+            f"members, got {p.shape[dim]}")
+    return _mirror_pairs(p, torch.arange(members) // 2, members, dim)

@@ -21,9 +21,13 @@ from repro_torch.core.sphere import legendre as leg
 
 
 def sht_forward(x: torch.Tensor, wpct: torch.Tensor) -> torch.Tensor:
-    """Forward SHT. x: (..., H, W) real -> (..., L, M) complex64."""
+    """Forward SHT. x: (..., H, W) real -> (..., L, M) complex64.
+
+    The contraction is fp32 whatever the table's dtype (a bf16 table, as
+    the bf16 policy rounds it, is widened exactly)."""
     m = wpct.shape[2]
     w = x.shape[-1]
+    wpct = wpct.float()
     xf = fourier.rfft(x.float())[..., :m] * (2.0 * math.pi / w)
     re = torch.einsum("...hm,hlm->...lm", xf.real, wpct)
     im = torch.einsum("...hm,hlm->...lm", xf.imag, wpct)
@@ -41,7 +45,9 @@ def pad_orders(spec: torch.Tensor, nlon: int) -> torch.Tensor:
 
 
 def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int) -> torch.Tensor:
-    """Inverse SHT. c: (..., L, M) complex -> (..., H, nlon) real."""
+    """Inverse SHT. c: (..., L, M) complex -> (..., H, nlon) real, fp32
+    whatever the table's dtype."""
+    pct = pct.float()
     sr = torch.einsum("...lm,hlm->...hm", c.real.float(), pct)
     si = torch.einsum("...lm,hlm->...hm", c.imag.float(), pct)
     spec = pad_orders(torch.complex(sr, si), nlon)

@@ -72,13 +72,27 @@ class SyntheticERA5:
         return torch.from_numpy(pbar.astype(np.float32)).to(self.dev)
 
     @functools.cached_property
+    def spectrum_sigma_l(self) -> np.ndarray:
+        """(L,) per-degree std of the surrogate's angular spectrum, shared
+        with the obs-error initial-condition perturbations so perturbed
+        members carry the data's spectral signature."""
+        return noiselib.power_law_sigma_l(self.sht.lmax, self.spectral_slope,
+                                          self.peak_l)
+
+    def channel_std(self, n: int = 8) -> np.ndarray:
+        """(C,) climatological per-channel std over ``n`` deterministic
+        samples: the obs-error scaling of paper App. E (real ERA5 would
+        read it from the normalization statistics)."""
+        x = torch.stack([self.state(i) for i in range(n)])
+        return x.std(dim=(0, 2, 3), correction=0).cpu().numpy()
+
+    @functools.cached_property
     def _coeff_scale(self) -> torch.Tensor:
         """(L, M) per-coefficient std: power-law sigma_l on valid slots."""
-        lmax, mmax = self.sht.lmax, self.sht.mmax
-        sig = noiselib.power_law_sigma_l(lmax, self.spectral_slope,
-                                         self.peak_l)
-        mask = shtlib.mode_mask(lmax, mmax).astype(np.float32)
-        return torch.from_numpy(mask * sig[:, None]).to(self.dev)
+        mask = shtlib.mode_mask(self.sht.lmax, self.sht.mmax).astype(
+            np.float32)
+        return torch.from_numpy(mask * self.spectrum_sigma_l[:, None]).to(
+            self.dev)
 
     # -- auxiliary fields ------------------------------------------------
     @functools.cached_property

@@ -85,21 +85,24 @@ def sht_forward(x: torch.Tensor, wpct: torch.Tensor, wpct_ext: torch.Tensor
                 ) -> torch.Tensor:
     """Forward SHT, (..., H, W) -> (..., L, M) complex64.  Real and
     imaginary parts share one kernel launch, read in place; ``wpct_ext``
-    is ``sht.order_extents(wpct)``."""
+    is ``sht.order_extents(wpct)``.  The kernel takes fp32 operands: a
+    bf16 table (the bf16 policy) is widened here, as the reference's
+    dispatch does."""
     h, l, m = wpct.shape
     w = x.shape[-1]
     xf = fourier.rfft(x.float())[..., :m] * (2.0 * math.pi / w)
-    out = _Legendre.apply(_batched(xf), wpct, wpct_ext)
+    out = _Legendre.apply(_batched(xf), wpct.float(), wpct_ext)
     return out.reshape(xf.shape[:-2] + (l, m))
 
 
 def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
                 pct_ext: torch.Tensor) -> torch.Tensor:
     """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real;
-    ``pct_ext`` is ``sht.order_extents(pct)``."""
+    ``pct_ext`` is ``sht.order_extents(pct)``; a bf16 table is widened to
+    fp32 for the kernel."""
     h, l, m = pct.shape
     # contract over degree: table (L, H, M), a transposed view of pct
-    out = _Legendre.apply(_batched(c), pct.permute(1, 0, 2),
+    out = _Legendre.apply(_batched(c), pct.float().permute(1, 0, 2),
                           transposed_extents(pct_ext))
     spec = shtlib.pad_orders(out.reshape(c.shape[:-2] + (h, m)), nlon)
     return fourier.irfft(spec, nlon) * nlon
@@ -122,13 +125,17 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     rows (zero in the band) are recomputed by the exact FFT correlation
     and scattered back in.
     """
-    psi_band, lat_idx = buffers["psi_band"], buffers["lat_idx"]
+    # the kernels take fp32 operands: under the bf16 policy psi and the
+    # live taps' packed psi arrive bf16-rounded and are widened here, as
+    # the reference's dispatch widens its band
+    psi_band, lat_idx = buffers["psi_band"].float(), buffers["lat_idx"]
+    taps = disco_ops.LiveTaps.of(buffers)
     k, h_out, s, d = psi_band.shape
     batch = x.shape[:-2]
     h_in, w_in = x.shape[-2:]
     xb = x.reshape((-1, h_in, w_in)).float().contiguous()
     out = _BandContract.apply(xb, psi_band, lat_idx,
-                              disco_ops.LiveTaps.of(buffers),
+                              taps._replace(psi=taps.psi.float()),
                               disco_ops.RowTaps.of(buffers), stride)
     wrap_rows = buffers["wrap_rows"]
     if wrap_rows.numel():

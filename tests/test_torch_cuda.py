@@ -549,3 +549,106 @@ def test_cuda_ssd_chunked_and_lm_kernel_vs_reference(cuda):
         assert (ssd_ops.launches - before[0],
                 ssd_ops.state_launches - before[1]) == (want, want)
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_staging_batching_and_bf16(cuda):
+    # host aux goes through pinned memory and the engine's copy stream:
+    # the same numbers as device-made aux, bitwise; two coalesced
+    # requests hold the dispatch bar against their serial runs; the bf16
+    # policy runs the kernels on widened operands
+    import numpy as np
+    from repro_torch.configs import fcn3 as cfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              members_noise)
+    from repro_torch.inference.params import load_params
+    cfg = cfgs.fcn3_smoke()
+    model = FCN3(cfg, device=cuda)
+    ds = dlib.SyntheticERA5(cfg, device=cuda)
+    bufs = model.make_buffers()
+    s0s = [ds.state(s) for s in (1, 2)]
+    load_params(model, ds, bufs, s0s[0], None, rounds=4)
+    truths = [(lambda n, s=s: ds.state(s, n + 1)) for s in (1, 2)]
+    host = np.stack([ds.aux_fields(6.0 * (n + 1)).cpu().numpy()
+                     for n in range(3)])
+    eng = ForecastEngine(model, EngineConfig(members=2, lead_chunk=2,
+                                             spectra=True))
+    a = eng.forecast(bufs, s0s[0], lambda n: host[n],
+                     members_noise(model, 5), steps=3, truth=truths[0])
+    b = eng.forecast(bufs, s0s[0], torch.from_numpy(host).to(cuda),
+                     members_noise(model, 5), truth=truths[0])
+    assert torch.equal(a.final_state, b.final_state)
+    assert torch.equal(a.scores["spectrum"], b.scores["spectrum"])
+    both = eng.forecast_batched(bufs, s0s, [lambda n: host[n]] * 2,
+                                [members_noise(model, 5),
+                                 members_noise(model, 6)],
+                                steps=3, truths=truths)
+    torch.testing.assert_close(both[0].final_state, a.final_state,
+                               rtol=1e-4, atol=1e-5)
+    for name in ("crps", "ssr", "spectrum"):
+        torch.testing.assert_close(both[0].scores[name], a.scores[name],
+                                   rtol=1e-4, atol=1e-6)
+    before = legendre_ops.launches, disco_ops.launches
+    half = ForecastEngine(model, EngineConfig(
+        members=2, lead_chunk=3, compute_dtype="bfloat16")).forecast(
+            bufs, s0s[0], host, members_noise(model, 5), truth=truths[0])
+    assert legendre_ops.launches > before[0]
+    assert disco_ops.launches > before[1]
+    assert half.final_state.dtype == torch.bfloat16
+    assert float((half.final_state.float() - a.final_state).abs().max()) \
+        < 0.15
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for v in half.scores.values())
+
+
+@pytest.mark.cuda
+def test_cuda_engine_waits_for_device_data_in_flight(cuda):
+    # device aux and truth arrays whose producing kernels are still
+    # running on the compute stream: the copy stream reads them only after
+    # those kernels, both when one chunk is staged on its own and through
+    # a whole rollout, which equals one from the same arrays made
+    # synchronously
+    import numpy as np
+    from repro_torch.configs import fcn3 as cfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              members_noise)
+    from repro_torch.inference.params import load_params
+    cfg = cfgs.fcn3_smoke()
+    model = FCN3(cfg, device=cuda)
+    ds = dlib.SyntheticERA5(cfg, device=cuda)
+    bufs = model.make_buffers()
+    s0 = ds.state(1)
+    load_params(model, ds, bufs, s0, None, rounds=1)
+    aux = torch.from_numpy(np.stack([ds.aux_fields(6.0 * (n + 1)).cpu().numpy()
+                                     for n in range(3)])).to(cuda)
+    truth = torch.stack([ds.state(1, n + 1) for n in range(3)])
+    torch.cuda.synchronize()
+    eng = ForecastEngine(model, EngineConfig(members=2, lead_chunk=1))
+
+    def late(x):
+        # x again, written behind about a second of the compute stream
+        out = torch.zeros_like(x)
+        torch.cuda._sleep(2_000_000_000)
+        return out.add_(x)
+
+    # stage once first: the copy stream then has a block of this size
+    # cached, and the staging below allocates without a cudaMalloc (which
+    # may synchronize the device and hide a missing wait)
+    eng._ready(eng._on_copy_stream(
+        lambda: {"aux": eng._stage(aux, 0, 3, eng._mark())}))
+    torch.cuda.synchronize()
+    src = late(aux)
+    mark = eng._mark()      # on the compute stream, as the stager takes it
+    staged = eng._ready(eng._on_copy_stream(
+        lambda: {"aux": eng._stage(src, 0, 3, mark)}))
+    assert torch.equal(staged["aux"], aux)
+    want = eng.forecast(bufs, s0, aux, members_noise(model, 5), truth=truth)
+    got = eng.forecast(bufs, s0, late(aux), members_noise(model, 5),
+                       truth=late(truth))
+    assert torch.equal(got.final_state, want.final_state)
+    for name, v in want.scores.items():
+        assert torch.equal(got.scores[name], v), name

@@ -191,7 +191,8 @@ class TestRollout:
         np.testing.assert_allclose(rh.sum(-1), 1.0, rtol=1e-5)
         np.testing.assert_allclose(rh, np.asarray(want.scores["rank_hist"]),
                                    rtol=1e-4, atol=1e-5)
-        assert tuple(got.scores) == SCORE_NAMES
+        # the spectra are opt-in (EngineConfig.spectra)
+        assert tuple(got.scores) == SCORE_NAMES[:5]
 
 
 class TestSyntheticData:

@@ -4,7 +4,9 @@
   module of the JAX package;
 * the serve and train entry points without ``--device cpu`` refuse a
   machine that has no CUDA card; with it, serve prints one line per lead
-  and train one line per step.
+  (and writes its scores and calibration lines when asked) and train one
+  line per step;
+* serve takes the member counts the reference takes.
 """
 
 import os
@@ -12,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from _torch_threads import TORCH_THREADS, few_torch_threads  # noqa: F401
@@ -82,6 +85,41 @@ def test_serve_cli_on_cpu_prints_each_lead():
     for ln, hours in zip(leads, ("6h", "12h")):
         assert hours in ln and "CRPS=" in ln and "ensRMSE=" in ln \
             and "SSR=" in ln
+
+
+def test_serve_cli_engine_options_on_cpu(tmp_path):
+    out = tmp_path / "scores.npz"
+    proc = _run("", "-m", "repro_torch.launch.serve", "--config", "smoke",
+                "--members", "2", "--lead-steps", "2", "--device", "cpu",
+                "--precision", "bfloat16", "--perturb", "obs",
+                "--calibration", "--scores-out", str(out))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len([ln for ln in lines if ln.startswith("lead")]) == 2
+    assert len([ln for ln in lines if "rank-hist flatness=" in ln
+                and "spectral ratio=" in ln]) == 2
+    scores = np.load(out)
+    assert {"crps", "rank_hist", "spectrum", "spectrum_truth"} <= set(scores)
+    assert scores["spectrum"].shape == scores["spectrum_truth"].shape \
+        == (2, 17, 33)
+
+
+@pytest.mark.parametrize("members", [1, 3])
+def test_serve_cli_member_counts_as_the_reference(members):
+    # one member is the degenerate single-trajectory case the reference
+    # accepts; an odd count above one cannot be antithetically centered
+    proc = _run("", "-m", "repro_torch.launch.serve", "--config", "smoke",
+                "--members", str(members), "--lead-steps", "1", "--device",
+                "cpu")
+    if members == 1:
+        assert proc.returncode == 0, proc.stderr
+        assert [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("lead")]
+    else:
+        assert proc.returncode == 2
+        assert ("antithetic noise centering needs an even member count "
+                "(members come in +/- pairs whose mean is the control); "
+                "got members=3") in proc.stderr
 
 
 def test_train_cli_without_device_flag_raises_on_cpu_only_machine():
