@@ -26,6 +26,22 @@ non-zero exit code and no result line:
    fp32 finite scores) and one bf16 lead's GEMM kernels and product
    dtypes (``[profile]``); E3 bred init (4 members, ensemble transform):
    pairs centered on the analysis, the transform's draws orthonormal;
+2c. the forecast service at ``fcn3_full`` (``[service]`` lines), the
+   forecast's model freed first, with both forecast kernels' counts and
+   the plain-version guard set to 0 just before and read just after: the
+   geometry plans built from empty caches (``plans_build_s``); a
+   warm-start bundle packed for 2 members x 2 leads (chunks of 2) at
+   batch 1 and 2; a readonly replica booted from it in this process as a
+   fresh one would (plan caches emptied, loaded libraries forgotten):
+   no nvcc run, the libraries loaded from the bundle; behind the port's
+   HTTP service, R1 alone and then R2 with R3 (other samples and seeds)
+   coalesced into one batch of 2, through the port's client; R1 equal
+   to a direct engine on the replica's model bitwise, R2/R3 to their
+   serial runs at the dispatch bar; ``/v1/stats`` (one batch of 2, a
+   readonly cache with no miss, the bundle block) and ``/metrics``;
+   every request's ``compile_s`` 0.0; per-request times, member-leads
+   per second alone and coalesced, and ``estimated_bytes`` against the
+   measured peak;
 3. a small-input check: one ``fcn3_smoke`` step on the card through the
    kernels against the port's reference (FFT/einsum) path;
 4. training: ``repro_torch.launch.train``'s path at ``fcn3_full`` (stage
@@ -112,6 +128,13 @@ BF16_BAR = 0.15
 #: bred pairs' mean vs state0, relative to max |state0|; the ensemble
 #: transform's output Gram matrix vs the identity
 PAIR_TOL, ORTHO_TOL = 1e-6, 1e-4
+#: the service phase at fcn3_full: a bundle for this request shape (the
+#: serial and the batch-2 keys), R1 (sample 0, seed 7) alone, then R2 and
+#: R3 (other samples and seeds) together, coalesced within the window
+SERVICE_SPEC = {"members": 2, "lead_steps": 2, "lead_chunk": 2,
+                "return_state": True}
+SERVICE_REQUESTS = ((0, 7), (123, 11), (321, 13))
+SERVICE_WINDOW_MS, SERVICE_TIMEOUT_S = 5000.0, 600.0
 #: the training path: fcn3_full, all 10 blocks, Table 3's second stage
 #: with its own ensemble of 2; batch 32 -> 1, rollout 4 -> 1 and
 #: calibration rounds 4 -> 1 are the cuts
@@ -1058,6 +1081,252 @@ def engine_phase(run, report) -> dict:
     return out
 
 
+def _geometry_caches_cleared() -> None:
+    """Empty the port's plan and table caches and its installed plans, as
+    a fresh process has them."""
+    from repro_torch.core.sphere import disco as discolib
+    from repro_torch.core.sphere import legendre as leg
+    discolib._cached_plan.cache_clear()
+    discolib._PLAN_OVERRIDES.clear()
+    leg._cached_table.cache_clear()
+    leg._TABLE_OVERRIDES.clear()
+
+
+def _build_plans(config: str) -> float:
+    """Seconds to build the geometry plans a bundle installs instead: the
+    three DISCO plans (psi and banded split) and the two Legendre tables
+    of ``config``, from empty caches."""
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core import fcn3
+    from repro_torch.core.sphere import disco as discolib
+    from repro_torch.core.sphere import legendre as leg
+    _geometry_caches_cleared()
+    t0 = time.time()
+    geo = fcn3.geometry(fcn3cfg.NAMED_CONFIGS[config]())
+    for name in ("enc", "latent", "dec"):
+        discolib.make_disco_plan(*geo[name]).banded_split()
+    for sht in (geo["in_sht"], geo["latent_sht"]):
+        leg.cached_legendre_table(sht.lmax, sht.mmax, sht.grid.colat)
+    return time.time() - t0
+
+
+def service_phase(report, config: str = "full", device: str = "cuda",
+                  guard: PlainGuard | None = None) -> dict:
+    """The forecast service at ``config``: pack a warm-start bundle, boot
+    a readonly replica from it (no nvcc), serve R1 alone and then R2 with
+    R3 coalesced over HTTP, and hold them to direct engines on the
+    replica's model.  Raises on any failed check; returns the numbers the
+    ``[service]`` lines print.  The launch counters and ``guard``'s
+    counts are set to 0 when the replica has booted and read when the
+    last served request has ended (``launches``, ``plain``); the boot's
+    own (the model's calibration) are ``boot_launches``/``boot_plain``,
+    and the pack's plain calls ``pack_plain``."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.inference.engine import ForecastEngine, members_noise
+    from repro_torch.kernels import build
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.serving import bundle as bundlelib
+    from repro_torch.serving.client import ForecastClient
+    from repro_torch.serving.scheduler import ModelPool
+    from repro_torch.serving.service import ForecastService
+    from repro_torch.serving.spec import RequestSpec
+    from repro_torch.telemetry import parse_prometheus, prom_value
+
+    def counts() -> tuple[dict, dict]:
+        """(launches, plain calls on CUDA tensors) since the last reset."""
+        return ({"disco_band_contract": disco_ops.launches,
+                 "legendre_contract": legendre_ops.launches},
+                dict(guard.counts) if guard is not None else {})
+
+    def reset_counts() -> None:
+        disco_ops.reset_launches()
+        legendre_ops.reset_launches()
+        if guard is not None:
+            guard.counts = dict.fromkeys(guard.counts, 0)
+
+    cuda = torch.device(device).type == "cuda"
+    base = dict(SERVICE_SPEC, config=config)
+    # R1 opts out of coalescing: it runs alone without waiting out the
+    # batch window for a companion
+    specs = [RequestSpec(**base, sample=sm, seed=sd, coalesce=i > 0)
+             for i, (sm, sd) in enumerate(SERVICE_REQUESTS)]
+    out: dict = {"plans_build_s": _build_plans(config)}
+    reset_counts()
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="service-bundle-",
+                                     dir=root) as tmp:
+        # -- pack: the serial and the batch-2 keys ------------------------
+        t0 = time.time()
+        path = bundlelib.pack([RequestSpec(**base)], out=f"{tmp}/bundle",
+                              max_batch=2, device=device)
+        out["pack_s"] = time.time() - t0
+        manifest = bundlelib.WarmStartBundle.load(path).manifest
+        files = manifest["files"]
+        out["bundle"] = {
+            kind: (len([f for f in files if f.startswith(kind)]),
+                   sum(v["bytes"] for f, v in files.items()
+                       if f.startswith(kind)))
+            for kind in ("plans/", "blobs/")}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # -- boot a readonly replica, as a fresh process would -----------
+        _geometry_caches_cleared()
+        build.reset_registry()
+        nvcc_before = build.nvcc_runs
+        _, out["pack_plain"] = counts()
+        reset_counts()
+        t0 = time.time()
+        pool = ModelPool(device=device)
+        sched = bundlelib.boot_scheduler(
+            path, pool=pool, max_concurrency=1, max_batch=2,
+            batch_window_ms=SERVICE_WINDOW_MS)
+        out["boot_s"] = time.time() - t0
+        out["nvcc_during_boot"] = build.nvcc_runs - nvcc_before
+        out["boot_launches"], out["boot_plain"] = counts()
+        reset_counts()
+        out["libraries"] = {name: Path(build.library_path(name)).parent
+                            == Path(path, "blobs")
+                            for name in build.SOURCES
+                            if build.is_loaded(name)}
+        try:
+            srv = ForecastService(scheduler=sched).make_server(
+                "127.0.0.1", 0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                client = ForecastClient(port=srv.server_address[1],
+                                        timeout=SERVICE_TIMEOUT_S)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                served = [client.forecast(specs[0])]
+                pair: list = [None, None]
+
+                def one(i):
+                    pair[i] = client.forecast(specs[1 + i])
+
+                threads = [threading.Thread(target=one, args=(i,))
+                           for i in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(SERVICE_TIMEOUT_S)
+                if any(t.is_alive() for t in threads) or None in pair:
+                    raise AssertionError("a coalesced request did not end")
+                served += pair
+                out["launches"], out["plain"] = counts()
+                out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                  if cuda else 0.0)
+                stats = client.stats()
+                metrics = parse_prometheus(client.metrics())
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=60)
+        finally:
+            sched.close(timeout=120)
+        out["info"] = sched.bundle_info
+    out["stats"] = stats
+    out["served"] = served
+    # -- checks -------------------------------------------------------------
+    if out["nvcc_during_boot"]:
+        raise AssertionError(f"nvcc ran {out['nvcc_during_boot']} time(s) "
+                             "during the bundle boot")
+    if cuda and not (out["libraries"] and all(out["libraries"].values())):
+        raise AssertionError(f"kernel libraries not loaded from the bundle:"
+                             f" {out['libraries']}")
+    if stats["batches"].get("2") != 1:
+        raise AssertionError(f"want one coalesced batch of 2, got "
+                             f"{stats['batches']}")
+    cache = stats["cache"]
+    if not (cache["readonly"] and cache["misses"] == 0
+            and stats["bundle"]):
+        raise AssertionError(f"the replica's cache: {cache}, bundle "
+                             f"{stats['bundle']}")
+    for name, want in (("requests_served_total", stats["served"]),
+                       ("cache_misses_total", 0),
+                       ("batches_total", 1)):
+        labels = {"size": "2"} if name == "batches_total" else {}
+        got = prom_value(metrics, f"fcn3_serving_{name}", **labels)
+        if got != want:
+            raise AssertionError(f"/metrics {name} = {got}, want {want}")
+    for spec, res in zip(specs, served):
+        if res.timing["compile_s"] != 0.0:
+            raise AssertionError(f"request {res.request_id} warmed a key: "
+                                 f"compile_s={res.timing['compile_s']}")
+        for name, v in res.scores.items():
+            if not np.isfinite(v).all() or v.shape[0] != spec.lead_steps:
+                raise AssertionError(f"{res.request_id} score {name}: "
+                                     f"{v.shape}, not finite")
+    if [r.batch_size for r in served] != [1, 2, 2]:
+        raise AssertionError(f"batch sizes {[r.batch_size for r in served]}")
+    # -- direct engines on the replica's model ----------------------------
+    b = pool.get(config)
+    direct = []
+    for spec in specs:
+        eng = ForecastEngine(b.model, spec.engine_config())
+        direct.append(eng.forecast(
+            b.buffers, b.ds.state(spec.sample, 0),
+            lambda n: b.ds.aux_fields(6.0 * (n + 1)),
+            members_noise(b.model, spec.seed), steps=spec.lead_steps,
+            truth=lambda n, sm=spec.sample: b.ds.state(sm, n + 1)))
+    want = direct[0]
+    if not np.array_equal(served[0].final_state,
+                          want.final_state.cpu().numpy()) or not all(
+            np.array_equal(served[0].scores[k], v.cpu().numpy())
+            for k, v in want.scores.items()):
+        raise AssertionError("R1 differs from a direct engine on the "
+                             "replica's model and seed")
+    worst = {}
+    for res, want in zip(served[1:], direct[1:]):
+        fs = want.final_state.cpu().numpy()
+        np.testing.assert_allclose(res.final_state, fs, rtol=STATE_RTOL,
+                                   atol=STATE_ATOL)
+        worst["state"] = max(worst.get("state", 0.0),
+                             float(np.abs(res.final_state - fs).max()))
+        for name, v in want.scores.items():
+            v = v.cpu().numpy()
+            atol = STATE_ATOL if name == "rank_hist" else SCORE_ATOL
+            np.testing.assert_allclose(res.scores[name], v, rtol=SCORE_RTOL,
+                                       atol=atol, err_msg=name)
+            worst[name] = max(worst.get(name, 0.0),
+                              float(np.abs(res.scores[name] - v).max()))
+    out["coalesced_vs_serial"] = worst
+    # the pool's budget: every engine's estimate (one engine here, its
+    # serial and batch-2 keys) and the model they share
+    out["estimated_bytes"] = sum(e["estimated_bytes"]
+                                 for e in stats["engines"])
+    out["model_bytes"] = (
+        sum(p.nbytes for p in b.model.parameters())
+        + sum(t.nbytes for part in b.buffers.values() for t in part.values()))
+    if cuda and not out["peak_gb"] < 80:
+        raise AssertionError(f"service peak {out['peak_gb']:.2f} GB")
+    if cuda and (out["estimated_bytes"] + out["model_bytes"]) / 1e9 < \
+            out["peak_gb"]:
+        raise AssertionError(
+            f"estimated_bytes {out['estimated_bytes'] / 1e9:.3f} GB + model "
+            f"{out['model_bytes'] / 1e9:.3f} GB is under the measured peak "
+            f"{out['peak_gb']:.3f} GB")
+    for window, plain in (("pack", out["pack_plain"]),
+                          ("boot", out["boot_plain"]),
+                          ("served requests", out["plain"])):
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran on CUDA tensors in "
+                                 f"the service's {window}: {plain}")
+    for name, n in out["launches"].items():
+        if cuda and n <= 0:
+            raise AssertionError(f"{name} never launched in the served "
+                                 "requests")
+    del direct, b, pool
+    return out
+
+
 def train_phase(report) -> dict:
     """The fcn3_full training path with fresh launch counts; returns the
     summary the ``[train]`` lines print."""
@@ -1272,6 +1541,69 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- phase 2c: the forecast service (the forecast's model is gone) ------
+    t0 = time.time()
+    svc = service_phase(log, guard=guard)
+    service_s = time.time() - t0
+    service_launches = svc["launches"]
+    # later phases build their plans and load their libraries as before
+    # (the bundle's directory is gone; its libraries stay mapped)
+    _geometry_caches_cleared()
+    build.reset_registry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (n_plans, plan_bytes), (n_libs, lib_bytes) = (
+        svc["bundle"]["plans/"], svc["bundle"]["blobs/"])
+    info = svc["info"]
+    log(f"[service] card: {card}")
+    log(f"[service] bundle for {dict(SERVICE_SPEC, config='full')} at "
+        f"batch 1 and 2: {n_plans} plans {plan_bytes / 1e9:.3f} GB, "
+        f"{n_libs} kernel libraries {lib_bytes / 1e6:.3f} MB; "
+        f"plans_build_s={svc['plans_build_s']:.2f} "
+        f"pack_s={svc['pack_s']:.1f}")
+    log(f"[service] readonly replica boot: boot_s={svc['boot_s']:.1f} "
+        f"(programs={info['programs']} disk_hits={info['disk_hits']} "
+        f"warm_s={info['boot_s']}) plans_install_s="
+        f"{info['plans_install_s']} against plans_build_s="
+        f"{svc['plans_build_s']:.2f}; nvcc runs during boot="
+        f"{svc['nvcc_during_boot']}; {info['libraries']} libraries "
+        f"loaded from the bundle: {svc['libraries']}")
+    for tag, res in zip(("R1 alone", "R2 coalesced", "R3 coalesced"),
+                        svc["served"]):
+        t = res.timing
+        log(f"[service] {tag} ({res.request_id}, sample "
+            f"{res.spec['sample']}, seed {res.spec['seed']}): "
+            f"batch_size={res.batch_size} "
+            + " ".join(f"{k}={t[k]:.3f}" for k in
+                       ("queue_s", "setup_s", "compile_s", "run_s",
+                        "total_s"))
+            + f" cache={res.cache}")
+    r1, r2 = svc["served"][0], svc["served"][1]
+    member_leads = SERVICE_SPEC["members"] * SERVICE_SPEC["lead_steps"]
+    log(f"[service] member-leads per second: alone "
+        f"{member_leads / r1.timing['run_s']:.3f}, coalesced "
+        f"{2 * member_leads / r2.timing['run_s']:.3f} (run_s of the "
+        f"shared rollout)")
+    log(f"[service] estimated_bytes={svc['estimated_bytes'] / 1e9:.3f} GB "
+        f"(the engine's own tensors and its warm keys' working sets) + "
+        f"model params and buffers {svc['model_bytes'] / 1e9:.3f} GB, "
+        f"against peak_mem_gb={svc['peak_gb']:.3f} measured over the three "
+        f"requests")
+    log(f"[service] /v1/stats batches={svc['stats']['batches']} "
+        f"cache={svc['stats']['cache']} served={svc['stats']['served']}; "
+        f"R1 equals a direct engine bitwise; R2/R3 vs serial max_abs_err: "
+        + " ".join(f"{k}={v:.3e}" for k, v in
+                   svc["coalesced_vs_serial"].items())
+        + f" (state rtol={STATE_RTOL} atol={STATE_ATOL}; scores "
+          f"rtol={SCORE_RTOL} atol={SCORE_ATOL}, rank_hist atol="
+          f"{STATE_ATOL})")
+    log(f"[service] phase_s={service_s:.1f}; from the booted replica to "
+        f"the last served request: launches={service_launches} "
+        f"plain_calls_on_cuda={svc['plain']}; the boot's calibration "
+        f"alone: launches={svc['boot_launches']} "
+        f"plain_calls_on_cuda={svc['boot_plain']}")
+    del svc
+
     # -- phase 3: small input against the reference path -------------------
     err = small_input_check()
     log(f"[check] fcn3_smoke kernel path vs reference path on the card: "
@@ -1484,6 +1816,7 @@ def main() -> int:
         top = max(fwd, key=lambda r: r["flops"])
         by_path = {"serve": launches.get(name, 0),
                    "engine": engine_launches.get(name, 0),
+                   "service": service_launches.get(name, 0),
                    "train": summary["launches"].get(name, 0),
                    "lm_prefill": {"ssd_intra_chunk": lm["launches"],
                                   "ssd_chunk_recurrence":

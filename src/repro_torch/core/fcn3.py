@@ -108,6 +108,38 @@ class FCN3Config:
         return specs
 
 
+def geometry(cfg: FCN3Config) -> dict:
+    """The grids, the DISCO plans' arguments and the SHTs of a model of
+    ``cfg``, without building any plan or table: ``grid_in`` /
+    ``grid_latent``, ``enc`` / ``latent`` / ``dec`` (the arguments of
+    ``disco.make_disco_plan``) and ``in_sht`` / ``latent_sht``."""
+    grid_in = glib.make_grid(cfg.nlat, cfg.nlon, cfg.grid)
+    grid_latent = glib.make_grid(cfg.latent_nlat, cfg.latent_nlon,
+                                 cfg.latent_grid)
+    filt = (cfg.filter_ell_max, cfg.filter_m_max)
+    return {
+        "grid_in": grid_in, "grid_latent": grid_latent,
+        "enc": (grid_in, grid_latent, *filt, cfg.encoder_cutoff),
+        "latent": (grid_latent, grid_latent, *filt, cfg.latent_cutoff),
+        "dec": (grid_in, grid_in, *filt, cfg.encoder_cutoff),
+        "in_sht": shtlib.SHT.create(grid_in),
+        "latent_sht": shtlib.SHT.create(grid_latent),
+    }
+
+
+def geometry_keys(cfg: FCN3Config) -> list[tuple[str, tuple]]:
+    """The cache keys of the plans a model of ``cfg`` needs, as
+    ``("disco", disco.plan_key(...))`` and ``("legendre",
+    legendre.table_key(...))`` pairs, each once."""
+    from repro_torch.core.sphere import legendre as leg
+    geo = geometry(cfg)
+    keys = [("disco", discolib.plan_key(*geo[name]))
+            for name in ("enc", "latent", "dec")]
+    keys += [("legendre", leg.table_key(sht.lmax, sht.mmax, sht.grid.colat))
+             for sht in (geo["in_sht"], geo["latent_sht"])]
+    return list(dict.fromkeys(keys))
+
+
 class FCN3(nn.Module):
     """FCN3 parameters plus the host-side geometry plans of one config.
 
@@ -120,20 +152,13 @@ class FCN3(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = dev = resolve_device(device)
-        self.grid_in = glib.make_grid(cfg.nlat, cfg.nlon, cfg.grid)
-        self.grid_latent = glib.make_grid(cfg.latent_nlat, cfg.latent_nlon,
-                                          cfg.latent_grid)
-        self.enc_plan = discolib.make_disco_plan(
-            self.grid_in, self.grid_latent, cfg.filter_ell_max,
-            cfg.filter_m_max, cfg.encoder_cutoff)
-        self.latent_plan = discolib.make_disco_plan(
-            self.grid_latent, self.grid_latent, cfg.filter_ell_max,
-            cfg.filter_m_max, cfg.latent_cutoff)
-        self.dec_plan = discolib.make_disco_plan(
-            self.grid_in, self.grid_in, cfg.filter_ell_max,
-            cfg.filter_m_max, cfg.encoder_cutoff)
-        self.latent_sht = shtlib.SHT.create(self.grid_latent)
-        self.in_sht = shtlib.SHT.create(self.grid_in)  # noise at IO res
+        geo = geometry(cfg)
+        self.grid_in, self.grid_latent = geo["grid_in"], geo["grid_latent"]
+        self.enc_plan, self.latent_plan, self.dec_plan = (
+            discolib.make_disco_plan(*geo[name])
+            for name in ("enc", "latent", "dec"))
+        self.latent_sht = geo["latent_sht"]
+        self.in_sht = geo["in_sht"]  # noise at IO res
         self.upsample = interplib.BilinearResample.create(self.grid_latent,
                                                           self.grid_in)
         self.noise = noiselib.SphericalDiffusion(sht=self.in_sht)

@@ -101,6 +101,12 @@ class DiscoPlan:
     m_max: int = 2
     cutoff_factor: float = 3.0
 
+    def plan_key(self) -> tuple:
+        """This plan's ``plan_key``: the 9-tuple cache identity
+        ``_cached_plan`` is keyed by."""
+        return plan_key(self.grid_in, self.grid_out, self.ell_max,
+                        self.m_max, self.cutoff_factor)
+
     def buffers(self, device: torch.device | str = "cpu",
                 kernels: KernelConfig | None = None) -> dict[str, torch.Tensor]:
         """Tensors in the layout the kernel config selects: the banded
@@ -167,6 +173,85 @@ def _cached_plan(nlat_in, nlon_in, kind_in, nlat_out, nlon_out, kind_out,
     return _build_plan(gi, go, ell_max, m_max, cutoff_factor)
 
 
+# Plans installed from a warm-start bundle (repro_torch.serving.bundle):
+# keyed like _cached_plan and consulted before it, so a replica skips the
+# psi construction and, through the seeded _split_cache, the banded split.
+# install_plan only seeds what _build_plan reproduces bit for bit.
+_PLAN_OVERRIDES: dict[tuple, DiscoPlan] = {}
+
+
+def plan_key(grid_in: glib.SphereGrid, grid_out: glib.SphereGrid,
+             ell_max: int = 2, m_max: int = 2,
+             cutoff_factor: float = 3.0) -> tuple:
+    """The cache key ``make_disco_plan`` files its plan under."""
+    return (grid_in.nlat, grid_in.nlon, grid_in.kind,
+            grid_out.nlat, grid_out.nlon, grid_out.kind,
+            ell_max, m_max, cutoff_factor)
+
+
+def export_plan(plan: DiscoPlan) -> dict:
+    """Serializable payload of one plan: its cache key and every
+    precomputed array, the memoized banded split included.
+
+    The keys and dtypes are the JAX package's
+    (``repro.core.sphere.disco.export_plan``), so each package installs
+    the other's exports.  The kernels' extra layouts (``band_live_taps``,
+    ``band_row_taps``) are not carried: ``install_plan``'s plan derives
+    them from the installed band at first use, as a built plan does.
+    """
+    band, wrap_rows, psi_wrap = plan.banded_split()
+    return {
+        "key": plan.plan_key(),
+        "n_basis": plan.n_basis,
+        "theta_cutoff": plan.theta_cutoff,
+        "stride": plan.stride,
+        "affine": plan.affine,
+        "psi": plan.psi,
+        "lat_idx": plan.lat_idx,
+        "psi_band": band,
+        "wrap_rows": wrap_rows,
+        "psi_wrap": psi_wrap,
+    }
+
+
+def install_plan(payload: dict) -> DiscoPlan:
+    """Rebuild a plan from an ``export_plan`` payload (the port's or the
+    JAX package's) and register it, so that ``make_disco_plan`` returns
+    it for its key.
+
+    The grids are rebuilt from the key (cheap and deterministic); psi and
+    its banded split come from the payload, the split seeded into the
+    plan's ``_split_cache`` memo.  The live taps and their lists by input
+    row are derived from the installed band when first asked for.
+    """
+    (nlat_in, nlon_in, kind_in, nlat_out, nlon_out, kind_out,
+     ell_max, m_max, cutoff_factor) = payload["key"]
+    gi = glib.make_grid(int(nlat_in), int(nlon_in), str(kind_in))
+    go = glib.make_grid(int(nlat_out), int(nlon_out), str(kind_out))
+    affine = payload["affine"]
+    plan = DiscoPlan(
+        grid_in=gi, grid_out=go, n_basis=int(payload["n_basis"]),
+        theta_cutoff=float(payload["theta_cutoff"]),
+        lat_idx=np.asarray(payload["lat_idx"], np.int32),
+        psi=np.asarray(payload["psi"], np.float32),
+        stride=int(payload["stride"]),
+        affine=tuple(int(a) for a in affine) if affine is not None else None,
+        ell_max=int(ell_max), m_max=int(m_max),
+        cutoff_factor=float(cutoff_factor),
+    )
+    object.__setattr__(plan, "_split_cache", (
+        np.asarray(payload["psi_band"], np.float32),
+        np.asarray(payload["wrap_rows"], np.int32),
+        np.asarray(payload["psi_wrap"], np.float32)))
+    _PLAN_OVERRIDES[plan.plan_key()] = plan
+    return plan
+
+
+def is_installed(key: tuple) -> bool:
+    """Whether a plan for ``key`` was installed by ``install_plan``."""
+    return key in _PLAN_OVERRIDES
+
+
 def make_disco_plan(grid_in: glib.SphereGrid, grid_out: glib.SphereGrid,
                     ell_max: int = 2, m_max: int = 2,
                     cutoff_factor: float = 3.0) -> DiscoPlan:
@@ -174,12 +259,16 @@ def make_disco_plan(grid_in: glib.SphereGrid, grid_out: glib.SphereGrid,
 
     theta_cutoff = cutoff_factor * (pi / nlat_out): the filter radius scales
     with the *output* resolution, mirroring torch-harmonics' convention.
+    A plan installed by ``install_plan`` is returned without any
+    construction.
     """
     if grid_in.nlon % grid_out.nlon:
         raise ValueError("W_out must divide W_in for strided DISCO")
-    return _cached_plan(grid_in.nlat, grid_in.nlon, grid_in.kind,
-                        grid_out.nlat, grid_out.nlon, grid_out.kind,
-                        ell_max, m_max, cutoff_factor)
+    key = plan_key(grid_in, grid_out, ell_max, m_max, cutoff_factor)
+    hit = _PLAN_OVERRIDES.get(key)
+    if hit is not None:
+        return hit
+    return _cached_plan(*key)
 
 
 def _build_plan(grid_in, grid_out, ell_max, m_max, cutoff_factor) -> DiscoPlan:

@@ -65,12 +65,48 @@ def _cached_table(lmax: int, mmax: int, colat_key: bytes, nlat: int) -> np.ndarr
     return legendre_table(lmax, mmax, colat)
 
 
+# Tables installed from a warm-start bundle (repro_torch.serving.bundle):
+# keyed like _cached_table and consulted before it, so a replica skips the
+# float64 recurrences.  An installed table is what legendre_table computes
+# for its key: install_legendre_table seeds the cache, it approximates
+# nothing.
+_TABLE_OVERRIDES: dict[tuple, np.ndarray] = {}
+
+
 def table_key(lmax: int, mmax: int, colat: np.ndarray) -> tuple:
     """Cache key identifying one Legendre table: (lmax, mmax, colat)."""
     colat = np.ascontiguousarray(colat, np.float64)
     return (int(lmax), int(mmax), colat.tobytes(), colat.shape[0])
 
 
+def install_legendre_table(lmax: int, mmax: int, colat: np.ndarray,
+                           table: np.ndarray) -> None:
+    """Seed the table cache with a precomputed table (bundle warm start).
+
+    ``table`` must be the (nlat, lmax, mmax) float64 array
+    ``legendre_table`` computes for these arguments (the JAX package's
+    ``install_legendre_table`` takes the same); the shape is checked here,
+    the values are the caller's contract.
+    """
+    expect = (colat.shape[0], lmax, mmax)
+    if tuple(table.shape) != expect:
+        raise ValueError(f"legendre table shape {table.shape} does not "
+                         f"match key (expected {expect})")
+    _TABLE_OVERRIDES[table_key(lmax, mmax, colat)] = np.ascontiguousarray(
+        table, np.float64)
+
+
+def is_installed(key: tuple) -> bool:
+    """Whether a table for ``key`` was installed by
+    ``install_legendre_table``."""
+    return key in _TABLE_OVERRIDES
+
+
 def cached_legendre_table(lmax: int, mmax: int, colat: np.ndarray) -> np.ndarray:
-    """``legendre_table``, cached by (lmax, mmax, colat)."""
-    return _cached_table(*table_key(lmax, mmax, colat))
+    """``legendre_table``, cached by (lmax, mmax, colat); an installed
+    table is returned without computing."""
+    key = table_key(lmax, mmax, colat)
+    hit = _TABLE_OVERRIDES.get(key)
+    if hit is not None:
+        return hit
+    return _cached_table(*key)

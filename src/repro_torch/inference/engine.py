@@ -41,10 +41,19 @@ Noise draws come from a ``NoiseSource``: ``GeneratorNoise`` (a
 ``torch.Generator``, the default) or ``InjectedNoise`` (given draws, so a
 test can replay the JAX reference's threefry stream).
 
-Not ported: the JAX engine's AOT hooks (``lower/compile/export/
-import_chunk``, ``has_chunk_executable``, ``plan_exports``,
-``estimated_bytes``), ``member_axes``, ``donate`` and ``static_buffers``
-(ROADMAP A8, A10; the last two are XLA-only).
+Serving hooks (``repro_torch.serving``): ``plan_exports`` (the geometry
+plans a warm-start bundle packs), ``estimated_bytes`` (the engine pool's
+memory budget) and the counterpart of the JAX engine's ``compile_chunk``
+/ ``has_chunk_executable``.  The port compiles no chunk program: warming
+a key loads the kernel libraries its path launches
+(``kernel_libraries``, loaded by the serving cache) and makes the
+adapted buffers and precision casts resident (``make_resident``), and
+never runs a rollout; ``mark_warm`` / ``is_warm`` keep the warmed
+(scored, chunk_len, batch) keys.
+
+Not ported: the JAX engine's ``lower/export/import_chunk`` (no program to
+lower or export), ``member_axes`` (ROADMAP A10), ``donate`` and
+``static_buffers`` (XLA-only).
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.fcn3 import FCN3
+from repro_torch.core.sphere import disco as discolib
+from repro_torch.core.sphere import legendre as leg
 from repro_torch.core.sphere import noise as noiselib
 from repro_torch.evaluation import metrics
 from repro_torch.inference import perturbations as perturblib
@@ -185,6 +196,13 @@ def _concat_results(parts: list[ForecastResult]) -> ForecastResult:
         diagnostics=diag,
         final_state=parts[-1].final_state,
         final_noise=parts[-1].final_noise)
+
+
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor leaf of a (nested dict) tree."""
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    return tree.nbytes if isinstance(tree, torch.Tensor) else 0
 
 
 def _cast_floats(tree, dtype: torch.dtype):
@@ -377,6 +395,8 @@ class ForecastEngine:
         self._wpct: torch.Tensor | None = None
         self._copy_stream = None
         self._cast_cache: dict[str, tuple] = {}
+        #: warmed (scored, chunk_len, batch) keys (``mark_warm``)
+        self._warm: set[tuple] = set()
         self.dispatch_counts = {"chunks": 0, "h2d_chunks": 0,
                                 "h2d_steps": 0, "shrinks": 0}
         # the stager's worker ticks the staging counts
@@ -395,13 +415,21 @@ class ForecastEngine:
         with self._count_lock:
             return dict(self.dispatch_counts)
 
+    def _layout_matches(self, buffers: dict) -> bool:
+        """Whether ``buffers`` are in this engine's DISCO layout."""
+        want = self.model.cfg.kernels.disco == "kernel"
+        return ("psi_band" in buffers["enc"]) == want
+
+    def _param_stamp(self) -> tuple:
+        return tuple((id(p), p._version)
+                     for p in self.model.parameters())
+
     def _adapt_buffers(self, buffers: dict) -> dict:
         """The caller's buffers in this engine's layout: an engine
         re-homed by ``EngineConfig.kernels`` rebuilds them when the
         layout differs (geometry is deterministic, so the rebuild is
         exact), once per incoming object."""
-        want = self.model.cfg.kernels.disco == "kernel"
-        if ("psi_band" in buffers["enc"]) == want:
+        if self._layout_matches(buffers):
             return buffers
         entry = self._cast_cache.get("layout")
         if entry is None or entry[0] is not buffers:
@@ -420,7 +448,7 @@ class ForecastEngine:
         if dt == torch.float32:
             return None, buffers
         named = dict(self.model.named_parameters())
-        stamp = tuple((id(p), p._version) for p in named.values())
+        stamp = self._param_stamp()
         entry = self._cast_cache.get("params")
         with torch.no_grad():
             if entry is None or entry[0] != stamp:
@@ -451,6 +479,139 @@ class ForecastEngine:
             self._wpct = torch.from_numpy(wpct.astype(np.float32)).to(
                 self.model.device)
         return self._wpct
+
+    # -- serving hooks ---------------------------------------------------
+    def kernel_libraries(self) -> tuple[str, ...]:
+        """The kernel libraries (``kernels.build`` names) the step launches
+        on this engine's device: the Legendre kernel on the SHT path
+        "kernel", the band contraction on the DISCO path "kernel"; none
+        on the CPU, where the wrappers run their plain versions."""
+        if self.model.device.type != "cuda":
+            return ()
+        kc = self.model.cfg.kernels
+        return tuple(name for name, on in (("legendre", kc.sht == "kernel"),
+                                           ("disco_band",
+                                            kc.disco == "kernel")) if on)
+
+    def make_resident(self, buffers: dict) -> None:
+        """Set up everything the step reads besides the caller's own
+        tensors, without running it: the buffers in this engine's layout,
+        the bf16 copies under the bf16 policy and the spectra's table."""
+        self._prepare_inputs(buffers)
+        if self.cfg.spectra:
+            self.spectral_wpct  # noqa: B018 -- built at first use
+
+    def is_resident(self, buffers: dict) -> bool:
+        """Whether ``make_resident(buffers)`` has nothing left to do."""
+        if not self._layout_matches(buffers):
+            entry = self._cast_cache.get("layout")
+            if entry is None or entry[0] is not buffers:
+                return False
+            buffers = entry[1]
+        if self.cfg.tdtype != torch.float32:
+            params = self._cast_cache.get("params")
+            bufs = self._cast_cache.get("buffers")
+            if (params is None or params[0] != self._param_stamp()
+                    or bufs is None or bufs[0] is not buffers):
+                return False
+        return not self.cfg.spectra or self._wpct is not None
+
+    def mark_warm(self, scored: bool, chunk_len: int,
+                  batch: int | None = None) -> None:
+        """Record a warmed (scored, chunk_len, batch) key."""
+        with self._count_lock:
+            self._warm.add((scored, chunk_len, batch))
+
+    def is_warm(self, scored: bool, chunk_len: int, buffers: dict,
+                batch: int | None = None) -> bool:
+        """Whether the key was warmed and its inputs are still resident
+        for these ``buffers`` (the JAX engine's ``has_chunk_executable``)."""
+        with self._count_lock:
+            warmed = (scored, chunk_len, batch) in self._warm
+        return warmed and self.is_resident(buffers)
+
+    def estimated_bytes(self) -> int:
+        """Estimated device bytes of this engine's warm state.
+
+        The engine's own tensors, counted from ``nbytes``: the noise
+        tables, the area weights, the layout and precision copies and the
+        spectra's table (the model's parameters and geometry buffers are
+        shared by every engine on the model and are not counted).  Then,
+        per warm (scored, chunk_len, batch) key, the working set of its
+        N = batch x members member-states: the carries (state and noise
+        coefficients, in and out), the staged inputs (two chunks of aux,
+        and truth when scored) and the step's live set at its peak
+        (``_step_peak_bytes``).  The serving pool evicts engines on this
+        number; ``chip_smoke.py``'s ``[service]`` phase fails if it and
+        the model's bytes fall below the measured peak."""
+        total = _tree_nbytes(self.noise_buffers) + self.area_weights.nbytes
+        for entry in list(self._cast_cache.values()):
+            total += _tree_nbytes(entry[1])
+        if self._wpct is not None:
+            total += self._wpct.nbytes
+        m, cfg = self.model, self.cfg
+        h, w = m.grid_in.nlat, m.grid_in.nlon
+        item = torch.tensor([], dtype=cfg.tdtype).element_size()
+        with self._count_lock:
+            warm = list(self._warm)
+        for scored, k, batch in warm:
+            n = (batch or 1) * cfg.members
+            state = n * m.cfg.n_state * h * w * item
+            noise = n * m.noise.n_proc * m.in_sht.lmax * m.in_sht.mmax * 8
+            xs = ((batch or 1) * k * (m.cfg.n_aux
+                                      + (m.cfg.n_state if scored else 0))
+                  * h * w * 4)
+            total += 2 * (state + noise) + 2 * xs + self._step_peak_bytes(n)
+        return int(total)
+
+    def _step_peak_bytes(self, n: int) -> int:
+        """fp32 bytes one step over ``n`` member-states holds at its
+        peak, in the decoder.  Either the bilinear upsample
+        (``interp.BilinearResample``): the latent, its longitudinal pass
+        on the latent rows and two pole rows at the IO width, and at the
+        IO grid two weighted row gathers and their sum, live together.
+        Or the DISCO decoders: the upsampled latent, one contraction
+        chunk (capped at ``Z_CHUNK_BYTES``) and its merge.  At fcn3_full
+        the upsample is the larger, 10.0 GB a member-state."""
+        m = self.model
+        c = m.cfg.c_latent
+        h, w = m.grid_in.nlat, m.grid_in.nlon
+        hl, wl = m.grid_latent.nlat, m.grid_latent.nlon
+        io = n * c * h * w * 4
+        upsample = n * c * (hl * wl + (hl + 2) * w) * 4 + 3 * io
+        chunk = min(discolib.Z_CHUNK_BYTES, n * c * m.n_basis * h * w * 4)
+        return max(upsample, io + 2 * chunk)
+
+    def plan_exports(self) -> list[dict]:
+        """Serializable geometry-plan payloads for warm-start bundles, as
+        the JAX engine exports them: the three DISCO plans (encoder,
+        latent, decoder; deduplicated by ``DiscoPlan.plan_key``) and the
+        Legendre tables of the IO and latent SHTs (deduplicated by
+        ``legendre.table_key``).  A replica installs them with
+        ``core.sphere.disco.install_plan`` and
+        ``legendre.install_legendre_table`` instead of building them.
+        Plain scalars and numpy arrays (npz-friendly)."""
+        m = self.model
+        payloads: list[dict] = []
+        seen: set = set()
+        for plan in (m.enc_plan, m.latent_plan, m.dec_plan):
+            key = ("disco",) + plan.plan_key()
+            if key in seen:
+                continue
+            seen.add(key)
+            payloads.append({"kind": "disco", **discolib.export_plan(plan)})
+        for sht in (m.in_sht, m.latent_sht):
+            colat = np.ascontiguousarray(sht.grid.colat, np.float64)
+            key = ("legendre",) + leg.table_key(sht.lmax, sht.mmax, colat)
+            if key in seen:
+                continue
+            seen.add(key)
+            payloads.append({
+                "kind": "legendre", "lmax": sht.lmax, "mmax": sht.mmax,
+                "colat": colat,
+                "table": leg.cached_legendre_table(sht.lmax, sht.mmax,
+                                                   colat)})
+        return payloads
 
     # ------------------------------------------------------------------
     def init_carry(self, state0, noise: NoiseSource,

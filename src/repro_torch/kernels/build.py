@@ -10,6 +10,12 @@ source and of the shared headers (``csrc/*.cuh``), so an edited source
 is rebuilt and a stale library never loads.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them.  A failed build raises; nothing falls back to a plain version.
+
+A library can also be loaded from another directory that holds it under
+the same content-addressed name (``load_library_from``: the serving
+cache's persist directory, a warm-start bundle's ``blobs/``); a file
+built from other sources has another name and is never loaded.
+``nvcc_runs`` counts the compiler processes this process started.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: ``nvcc -Xptxas -v`` output of each build (registers, shared memory).
 build_logs: dict[str, str] = {}
+#: ``nvcc`` processes started by this process (a plain integer).
+nvcc_runs = 0
 
 
 def nvcc_path() -> str:
@@ -46,11 +54,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def library_file(name: str) -> str:
+    """``lib<name>-<sha>.so``: the library's file name, addressed by the
+    hash of ``<name>.cu`` and of the shared headers."""
     sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         sha.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:12]}.so"
+    return f"lib{name}-{sha.hexdigest()[:12]}.so"
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / library_file(name)
+
+
+def library_path(name: str) -> Path:
+    """The file of the loaded library, else where ``build_all`` puts it
+    (which may not exist yet)."""
+    with _lock:
+        lib = _libs.get(name)
+    return Path(lib._name) if lib is not None else _target(name)
 
 
 def _command(name: str, out: Path) -> list[str]:
@@ -61,6 +83,7 @@ def _command(name: str, out: Path) -> list[str]:
 
 def build_all(names: tuple[str, ...] = SOURCES) -> None:
     """Compile every missing library, one ``nvcc`` per source in parallel."""
+    global nvcc_runs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -68,6 +91,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        nvcc_runs += 1
         procs[name] = (tmp, out, subprocess.Popen(
             _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -93,6 +117,40 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def is_loaded(name: str) -> bool:
+    """Whether this process has the library for ``csrc/<name>.cu`` loaded."""
+    with _lock:
+        return name in _libs
+
+
+def load_library_from(name: str, directory: str | os.PathLike
+                      ) -> ctypes.CDLL:
+    """Load ``<directory>/lib<name>-<sha>.so`` for the current sources,
+    never building; raises ``FileNotFoundError`` when the directory has no
+    library of these sources (one built from other sources has another
+    hash in its name).  A library already loaded stays the one used."""
+    path = Path(directory) / library_file(name)
+    if not path.is_file():
+        stale = sorted(p.name for p in Path(directory).glob(f"lib{name}-*.so"))
+        raise FileNotFoundError(
+            f"no {path.name} in {directory}"
+            + (f" (found {stale}: built from other sources)" if stale else ""))
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def reset_registry() -> None:
+    """Forget which libraries are loaded, so that the next load resolves
+    each one again (from the build directory or ``load_library_from``'s).
+    Libraries already loaded stay mapped in the process."""
+    with _lock:
+        _libs.clear()
 
 
 def check_launch(err: int, what: str) -> None:

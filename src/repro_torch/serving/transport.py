@@ -1,0 +1,241 @@
+"""NDJSON chunk-stream wire format for the forecast service.
+
+A served forecast is a stream of newline-delimited JSON events, one per
+line, emitted in order:
+
+* ``start`` -- request accepted and its keys warm: echoed ``spec``,
+  ``queue_s`` (time spent waiting for a worker), ``compile_s`` (time
+  spent warming this request's keys: kernel builds or loads and the
+  engine's geometry and buffer set-up, see ``repro_torch.serving.cache``;
+  0.0 on a warm cache hit), ``batch_size``/``batch_index`` (how many coalesced
+  requests share this rollout and this request's slot in it) and the
+  per-chunk-length ``cache`` outcomes.
+* ``chunk`` -- one retired ``lead_chunk``: global ``lead_steps``, the
+  in-loop ``scores`` for those leads and ``chunk_s`` wall time.  Chunks
+  arrive as the rollout retires them, not at rollout end.
+* ``done`` -- rollout finished: the timing summary, per-request cache
+  totals, and (when requested) the final ensemble state.  A request
+  cancelled while still queued gets a zero-chunk ``done`` with
+  ``cancelled: true`` (no start event, no rollout); a request served
+  under the degrade policy carries ``degraded_members``, the member
+  count actually rolled.
+* ``error`` -- terminal failure; ``message`` says why.  Admission-
+  control errors additionally carry a machine-readable ``reason``:
+  ``"deadline"`` (shed unserved after its deadline expired) or
+  ``"shutdown"`` (scheduler close() timed out with the stream open).
+
+Scores travel as plain JSON numbers: float32 -> float64 is exact,
+``json`` emits the shortest round-tripping decimal, and the float64 ->
+float32 cast on the way back is exact again -- so served scores are
+**bit-identical** to the engine's arrays.  Bulk fp32 tensors (the final
+ensemble state) use base64-encoded raw bytes instead: equally exact,
+~3x denser than decimal text.
+
+Raw member fields other than an explicitly requested final state never
+enter the transport -- the paper's in-situ scoring design extends to the
+wire.
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+import json
+from typing import Iterable, Iterator
+
+import numpy as np
+
+NDJSON_MIME = "application/x-ndjson"
+
+#: events that end a stream
+TERMINAL_EVENTS = ("done", "error")
+
+
+class ServingError(RuntimeError):
+    """A request failed server-side (validation, admission control or
+    mid-rollout).  ``reason`` is the error event's machine-readable
+    reason when it carried one ("deadline", "shutdown"), else None."""
+
+    def __init__(self, message: str, reason: str | None = None):
+        super().__init__(message)
+        self.reason = reason
+
+
+class StreamInterrupted(ServingError):
+    """The connection died mid-stream -- distinct from a server-side
+    failure: the server may well still be rolling the forecast, and a
+    ``GET /v1/stream/<id>?from=<seq>`` within the resume grace picks
+    the stream back up.  ``request_id``/``events_received`` carry what
+    the client knew when the connection dropped (the resume cursor)."""
+
+    def __init__(self, message: str, request_id: str | None = None,
+                 events_received: int = 0):
+        super().__init__(message, reason="disconnected")
+        self.request_id = request_id
+        self.events_received = events_received
+
+
+def encode_array(a) -> dict:
+    """Exact binary encoding of an ndarray as a JSON-safe dict."""
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "dtype": str(a.dtype),
+            "b64": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def _np_dtype(name: str) -> np.dtype:
+    try:
+        return np.dtype(name)
+    except TypeError:
+        # bfloat16 etc. live in ml_dtypes; importing it registers them
+        # with numpy without dragging torch into a light client process
+        import ml_dtypes  # noqa: F401
+        return np.dtype(name)
+
+
+def decode_array(d: dict) -> np.ndarray:
+    """Exact inverse of ``encode_array`` (returns a writable copy)."""
+    return np.frombuffer(base64.b64decode(d["b64"]),
+                         dtype=_np_dtype(d["dtype"])
+                         ).reshape(d["shape"]).copy()
+
+
+def dump_event(ev: dict) -> bytes:
+    """One NDJSON line (compact separators, trailing newline)."""
+    return json.dumps(ev, separators=(",", ":")).encode("utf-8") + b"\n"
+
+
+def read_events(fp) -> Iterator[dict]:
+    """Parse events from a binary line stream (socket file / HTTP body).
+
+    A half-written line (server died mid-write under close-delimited
+    framing) surfaces as ``StreamInterrupted`` (a ``ServingError``
+    subclass, so existing handlers still catch it -- and the client's
+    auto-resume can distinguish a dropped connection from a server-side
+    failure) -- never a raw json error.
+    """
+    for line in iter(fp.readline, b""):
+        line = line.strip()
+        if line:
+            try:
+                yield json.loads(line)
+            except json.JSONDecodeError as e:
+                raise StreamInterrupted(
+                    f"corrupt NDJSON line (connection died mid-write?): "
+                    f"{e}") from e
+
+
+def chunk_event(request_id: str, index: int, block) -> dict:
+    """Encode one ``ForecastResult`` block (scores only -- raw member
+    fields never leave the device, let alone the process).  ``block``'s
+    scores are host numpy arrays: the scheduler's fetch thread copies the
+    engine's device tensors to the host before encoding."""
+    return {
+        "event": "chunk",
+        "request_id": request_id,
+        "index": index,
+        "lead_steps": [int(n) for n in block.lead_steps],
+        "scores": {k: np.asarray(v, np.float32).tolist()
+                   for k, v in block.scores.items()},
+    }
+
+
+@dataclasses.dataclass
+class ServedForecast:
+    """A client-side forecast assembled from a chunk stream.
+
+    scores hold fp32 arrays concatenated over chunks, keyed like
+    ``ForecastResult.scores`` ((T, C) skill scores, (T, C, E+1) rank
+    histogram, (T, C, L) spectra); ``timing``/``cache`` come from the
+    ``done`` event; ``chunks`` keeps the per-chunk metadata (lead_steps,
+    chunk_s) for latency analysis.
+    """
+
+    request_id: str
+    spec: dict
+    lead_steps: np.ndarray
+    scores: dict[str, np.ndarray]
+    timing: dict
+    cache: dict
+    chunks: list[dict]
+    final_state: np.ndarray | None = None
+    #: True when the rollout was cancelled mid-stream -- the scores then
+    #: cover fewer leads than requested (not a completed forecast)
+    cancelled: bool = False
+    #: how many coalesced requests shared this forecast's rollout (1 =
+    #: served solo) and this request's slot in that batch
+    batch_size: int = 1
+    batch_index: int = 0
+    #: member count actually served when the scheduler's degrade policy
+    #: traded ensemble size for the deadline (None = served as asked)
+    degraded_members: int | None = None
+    #: transient failures this request survived (the done event's
+    #: ``retries`` field; 0 = served on the first dispatch)
+    retries: int = 0
+
+
+def collect(events: Iterable[dict]) -> ServedForecast:
+    """Fold an event stream into a ``ServedForecast``.
+
+    Raises ``ServingError`` when the stream ends with an error event --
+    or without a terminal event at all (close-delimited HTTP framing
+    means a dead server just looks like EOF; a truncated stream must
+    not pass for a completed forecast).
+    """
+    spec: dict = {}
+    request_id = ""
+    parts: dict[str, list[np.ndarray]] = {}
+    leads: list[int] = []
+    chunks: list[dict] = []
+    timing: dict = {}
+    cache: dict = {}
+    final_state = None
+    done = False
+    cancelled = False
+    batch_size, batch_index = 1, 0
+    degraded_members = None
+    retries = 0
+    for ev in events:
+        kind = ev.get("event")
+        if kind == "start":
+            request_id = ev.get("request_id", "")
+            spec = ev.get("spec", {})
+            batch_size = int(ev.get("batch_size", 1))
+            batch_index = int(ev.get("batch_index", 0))
+            if ev.get("degraded_members") is not None:
+                degraded_members = int(ev["degraded_members"])
+        elif kind == "chunk":
+            leads.extend(ev["lead_steps"])
+            for name, rows in ev["scores"].items():
+                parts.setdefault(name, []).append(
+                    np.asarray(rows, np.float32))
+            chunks.append({k: ev[k] for k in ("index", "lead_steps",
+                                              "chunk_s") if k in ev})
+        elif kind == "done":
+            done = True
+            cancelled = bool(ev.get("cancelled", False))
+            timing = ev.get("timing", {})
+            cache = ev.get("cache", {})
+            if not request_id:
+                # a cancel-at-pickup done is the stream's only event
+                # (zero chunks, no start); still identify the request
+                request_id = ev.get("request_id", "")
+            if ev.get("degraded_members") is not None:
+                degraded_members = int(ev["degraded_members"])
+            retries = int(ev.get("retries", 0))
+            if "final_state" in ev:
+                final_state = decode_array(ev["final_state"])
+        elif kind == "error":
+            raise ServingError(ev.get("message", "unknown serving error"),
+                               reason=ev.get("reason"))
+    if not done:
+        raise ServingError(
+            f"stream ended after {len(chunks)} chunk(s) without a "
+            f"terminal 'done' event (server died or connection dropped)")
+    scores = {k: np.concatenate(v) for k, v in parts.items()}
+    return ServedForecast(request_id=request_id, spec=spec,
+                          lead_steps=np.asarray(leads), scores=scores,
+                          timing=timing, cache=cache, chunks=chunks,
+                          final_state=final_state, cancelled=cancelled,
+                          batch_size=batch_size, batch_index=batch_index,
+                          degraded_members=degraded_members,
+                          retries=retries)

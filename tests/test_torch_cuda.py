@@ -652,3 +652,77 @@ def test_cuda_engine_waits_for_device_data_in_flight(cuda):
     assert torch.equal(got.final_state, want.final_state)
     for name, v in want.scores.items():
         assert torch.equal(got.scores[name], v), name
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_serves_through_the_kernels(cuda):
+    # a smoke scheduler on the card: the request runs through the band
+    # and Legendre kernels, its scores are fetched on the fetch thread's
+    # stream, it equals a direct engine on the same model bitwise and the
+    # port's reference (FFT/einsum) path at the dispatch bar; a second
+    # request for the warm key reports no warm-up; the engine's
+    # estimated_bytes covers what the requests add to the model's memory
+    import threading
+
+    import numpy as np
+    from repro_torch.inference.engine import ForecastEngine, members_noise
+    from repro_torch.serving.cache import ExecutableCache
+    from repro_torch.serving.scheduler import ForecastScheduler, ModelPool
+    from repro_torch.serving.spec import RequestSpec
+    spec = RequestSpec(config="smoke", members=2, lead_steps=3, lead_chunk=2,
+                       return_state=True)
+    pool = ModelPool(device=cuda)
+    sched = ForecastScheduler(pool=pool, cache=ExecutableCache())
+    served = []
+
+    def serve():
+        t = threading.Thread(
+            target=lambda: served.append(sched.submit(spec).result()),
+            daemon=True)
+        t.start()
+        t.join(timeout=300)
+        assert not t.is_alive()
+
+    try:
+        before = legendre_ops.launches, disco_ops.launches
+        serve()
+        # the first request also sets up state its streams keep (cuBLAS
+        # workspaces, ~100 MB against a smoke step's few MB); the second
+        # shows what a request on the warm key adds
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        serve()
+        added = torch.cuda.max_memory_allocated() - base
+        assert len(served) == 2
+        assert legendre_ops.launches > before[0]
+        assert disco_ops.launches > before[1]
+        estimated = sum(e["estimated_bytes"]
+                        for e in sched.stats()["engines"])
+    finally:
+        sched.close(timeout=60)
+    assert 0 < added <= estimated, (added, estimated)
+    b = pool.get("smoke")
+    res, again = served
+    assert again.timing["compile_s"] == 0.0 and again.cache["misses"] == 0
+
+    def direct(kernels):
+        eng = ForecastEngine(b.model, RequestSpec(
+            **{**spec.to_dict(), "kernels": kernels}).engine_config())
+        return eng.forecast(b.buffers, b.ds.state(spec.sample, 0),
+                            lambda n: b.ds.aux_fields(6.0 * (n + 1)),
+                            members_noise(b.model, spec.seed),
+                            steps=spec.lead_steps,
+                            truth=lambda n: b.ds.state(spec.sample, n + 1))
+
+    same, ref = direct("auto"), direct("reference")
+    np.testing.assert_array_equal(res.final_state,
+                                  same.final_state.cpu().numpy())
+    np.testing.assert_allclose(res.final_state, ref.final_state.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    for name, v in ref.scores.items():
+        np.testing.assert_array_equal(res.scores[name],
+                                      same.scores[name].cpu().numpy())
+        atol = 1e-5 if name == "rank_hist" else 1e-6
+        np.testing.assert_allclose(res.scores[name], v.cpu().numpy(),
+                                   rtol=1e-4, atol=atol, err_msg=name)
