@@ -54,6 +54,23 @@ non-zero exit code and no result line:
    been called on a CUDA tensor;
 5. a small-input gradient check: one ``fcn3_smoke`` train step's
    gradients through the kernels against the reference path's;
+5b. distribution (``[dist]`` lines), every rank a process on the card
+   over gloo (NCCL refuses two ranks on one device): (a) the selftest
+   (``repro_torch.distributed.selftest --device cuda``, 8 ranks), each
+   rank launching the Legendre, band and CRPS kernels; (b) Algorithms 1
+   and 2 at the ``fcn3_full`` latent, 641 channels padded with zero
+   channels to 644, over lat 2 x lon 2 ranks, against the single-process
+   kernel path (1e-4 of max |plain|), and each rank's band kernel on its
+   masked band against the plain version; per rank the seconds,
+   collective seconds, launches (> 0), plain calls on CUDA tensors (0)
+   and peak; (c) ``launch/train.py --mesh-model 2`` at ``fcn3_full``,
+   one member per rank, from the training phase's initial parameters
+   (a checkpoint) and its first step's draws: the loss within
+   ``DIST_LOSS_RTOL``, the gradients within the gradient bar, the
+   parameters bitwise equal on both ranks after the step; per rank the
+   step's seconds, its share in collectives, the CRPS launches (> 0) and
+   the peak.  The plans reach the ranks through ``export_plan`` /
+   ``install_plan`` payloads, not built again;
 6. the LM path: ``repro_torch.launch.lm`` at the full width of
    ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
    random weights): one prefill at ``prefill_32k`` with its batch cut
@@ -90,9 +107,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,6 +163,24 @@ TRAIN_CALIBRATION_ROUNDS = 1
 TRAIN_STEPS = 2
 #: gradient bar of tests/test_kernel_dispatch.py's grad-parity test
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+#: the distributed phase, every rank a process on the one card over gloo
+#: (NCCL refuses two ranks on one device): (a) the selftest's world of 8;
+#: (b) Algorithms 1 and 2 at the fcn3_full latent (360x720 Gauss, the
+#: global block's lmax = mmax = 360, the latent DISCO plan) over (lat 2,
+#: lon 2) = 4 ranks, the 641 latent channels padded with zero channels to
+#: 644, a multiple of both axes; (c) launch/train.py --mesh-model 2 at
+#: fcn3_full, one member per rank, from the training phase's initial
+#: parameters and its first step's draws
+DIST_BACKEND, DIST_GRID, DIST_CHANNELS = "gloo", (2, 2), 644
+#: (c) takes 2 steps: the first is held to the training phase's first
+#: step, the second is the steady one (the first pays each process's
+#: warm-up, as the training phase's own first step does)
+DIST_TRAIN_RANKS, DIST_TRAIN_STEPS = 2, 2
+#: the single-process loss vs the distributed one
+DIST_LOSS_RTOL = 1e-5
+#: two values closer than this, relative, are counted as a near-tie
+#: (8 units in the last place of fp32)
+TIE_REL = 8 * 2.0 ** -23
 #: CRPS kernel vs plain: relative error (a handful of fp32 terms)
 CRPS_REL_TOL = 1e-5
 #: the LM path: mamba2-130m at its published widths; prefill_32k with its
@@ -1327,14 +1364,18 @@ def service_phase(report, config: str = "full", device: str = "cuda",
     return out
 
 
-def train_phase(report) -> dict:
+def train_phase(report, keep: str | None = None, steps_done=None) -> dict:
     """The fcn3_full training path with fresh launch counts; returns the
-    summary the ``[train]`` lines print."""
+    summary the ``[train]`` lines print.  ``steps_done()`` is called once
+    the timed steps are over.  With ``keep`` (a directory), the initial
+    parameters are checkpointed there and, after the timed steps, the
+    first step is taken again (``step0``), for the distributed phase."""
     import torch
     from repro_torch.kernels.crps import ops as crps_ops
     from repro_torch.kernels.disco import ops as disco_ops
     from repro_torch.kernels.legendre import ops as legendre_ops
     from repro_torch.launch import train as train_mod
+    from repro_torch.train import checkpoint as ckptlib
     torch.cuda.reset_peak_memory_stats()
     for mod in (disco_ops, legendre_ops, crps_ops):
         mod.reset_launches()
@@ -1347,11 +1388,16 @@ def train_phase(report) -> dict:
     setup_s = time.time() - t0
     before = {k: p.detach().cpu().clone()
               for k, p in run.model.named_parameters()}
+    step0 = {}
+    if keep is not None:
+        step0["ckpt"] = ckptlib.save_checkpoint(
+            keep, 0, dict(run.model.named_parameters()))
     stamps = [time.time()]
     history = train_mod.run_steps(
         run, TRAIN_STEPS,
         report=lambda line: (stamps.append(time.time()), report(line)))
     torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"disco_band_contract": disco_ops.launches,
                 "disco_band_transpose": disco_ops.transpose_launches,
                 "legendre_contract": legendre_ops.launches,
@@ -1360,12 +1406,472 @@ def train_phase(report) -> dict:
     changed = sum(int(not torch.equal(p.detach().cpu(), before[k]))
                   for k, p in run.model.named_parameters())
     n_params = len(before)
+    if steps_done is not None:
+        steps_done()
+    if keep is not None:
+        step0.update(_first_step_again(run, before))
+        report(f"[train] step 0 again from the initial parameters, outside "
+               f"the timed steps: loss={step0['loss']:.7f} (the timed step "
+               f"{history[0]['loss']:.7f})")
     del run, before
-    return {"setup_s": setup_s,
+    return {"setup_s": setup_s, "step0": step0,
             "step_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_mem_gb": peak_gb,
             "launches": launches, "history": history,
             "changed": changed, "n_params": n_params}
+
+
+def _first_step_again(run, params: dict) -> dict:
+    """The first training step's loss and gradients (to the host) again:
+    the initial ``params`` loaded back, the loader's first training batch
+    (its second: the first calibrates) and ``run_steps``' draws for step
+    0.  With the shares of near-ties (within TIE_REL of each other) of
+    the step's two members, and of member 0 and the truth: where the fair
+    CRPS's gradient takes the sign of a rounding error."""
+    import torch
+    from repro_torch.core import crps as crpslib
+    from repro_torch.inference.engine import GeneratorNoise
+    with torch.no_grad():
+        for k, p in run.model.named_parameters():
+            p.copy_(params[k])
+    it = iter(run.batches)
+    next(it)
+    batch = next(it)
+    gen = torch.Generator(device=run.model.device)
+    gen.manual_seed(1000)
+    objective, ties = crpslib.fcn3_objective, []
+
+    def count_ties(ens, obs, *args):
+        with torch.no_grad():
+            u0, u1 = ens[0].detach(), ens[1].detach()
+            ties.append((
+                float(((u0 - u1).abs() <= TIE_REL * torch.maximum(
+                    u0.abs(), u1.abs())).float().mean()),
+                float(((u0 - obs).abs() <= TIE_REL
+                       * obs.abs()).float().mean())))
+        return objective(ens, obs, *args)
+    crpslib.fcn3_objective = count_ties
+    try:
+        loss, _, grads = run.trainer.loss_and_grads(
+            run.buffers, batch, GeneratorNoise(gen))
+    finally:
+        crpslib.fcn3_objective = objective
+    return {"loss": float(loss), "ties": ties[0],
+            "grads": {k: g.cpu() for k, g in grads.items()}}
+
+
+def _plan_payloads(names: tuple[str, ...], shts: tuple[str, ...],
+                   path: str) -> float:
+    """Pickle the export payloads of the fcn3_full DISCO plans ``names``
+    and Legendre tables ``shts`` (from this process's caches) to
+    ``path``, so that ranks install them instead of building them;
+    returns the bytes written."""
+    import pickle
+    import numpy as np
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core import fcn3
+    from repro_torch.core.sphere import disco as discolib
+    from repro_torch.core.sphere import legendre as leg
+    geo = fcn3.geometry(fcn3cfg.NAMED_CONFIGS[CONFIG]())
+    payloads = [{"kind": "disco",
+                 **discolib.export_plan(discolib.make_disco_plan(*geo[n]))}
+                for n in names]
+    for n in shts:
+        t = geo[n]
+        colat = np.ascontiguousarray(t.grid.colat, np.float64)
+        payloads.append({"kind": "legendre", "lmax": t.lmax,
+                         "mmax": t.mmax, "colat": colat,
+                         "table": leg.cached_legendre_table(t.lmax, t.mmax,
+                                                            colat)})
+    with open(path, "wb") as f:
+        pickle.dump(payloads, f, protocol=5)
+    return Path(path).stat().st_size
+
+
+def _install_payloads(path: str) -> None:
+    """Install ``_plan_payloads``' plans and tables in this process, as a
+    replica installs a bundle's."""
+    import pickle
+    from repro_torch.serving.bundle import _install_plan_payload
+    with open(path, "rb") as f:
+        for p in pickle.load(f):
+            _install_plan_payload(p)
+
+
+def _replicas_equal(tensors) -> bool:
+    """Whether this rank's tensors equal rank 0's bit for bit (rank 0's
+    broadcast a bucket at a time)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compat import buckets
+    equal = True
+    for _, flat in buckets(tensors):
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        equal &= torch.equal(flat, ref)
+    return equal
+
+
+def dist_geometry_rank(rank: int, world_size: int, plans: str) -> dict:
+    """Phase (b), on one rank of the (lat, lon) mesh: Algorithms 1 and 2
+    at the fcn3_full latent with the Legendre and band kernels inside,
+    against the single-process kernel path, and the band kernel on this
+    rank's masked band against its plain version."""
+    import torch
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core import fcn3
+    from repro_torch.core.sphere import disco as discolib
+    from repro_torch.distributed import compat, dist_disco, dist_sht
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.disco.ref import disco_gather_band_contract_ref
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.kernels.legendre.ref import legendre_contract_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import set_precision
+    set_precision()
+    t0 = time.time()
+    _install_payloads(plans)
+    cfg = fcn3cfg.NAMED_CONFIGS[CONFIG]()
+    geo = fcn3.geometry(cfg)
+    plan, t = discolib.make_disco_plan(*geo["latent"]), geo["latent_sht"]
+    mesh = make_mesh(DIST_GRID, ("lat", "lon"), "cuda")
+    la, lo = mesh.get_coordinate()
+    lat_g, lon_g = mesh.get_group("lat"), mesh.get_group("lon")
+    dev = torch.device("cuda")
+    h, w = t.grid.nlat, t.grid.nlon
+    hl, wl = h // DIST_GRID[0], w // DIST_GRID[1]
+    m0, m1 = dist_sht.order_block(t.mmax, DIST_GRID[1], lo)
+    local_sht = dist_sht.local_sht_buffers(t, m0, m1, dev)
+    local_band = dist_disco.local_band_buffers(plan, la, DIST_GRID[0], dev)
+    x = torch.randn((1, DIST_CHANNELS, h, w), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(17))
+    x[:, cfg.c_latent:] = 0.0          # the padding channels
+    xb = x[..., la * hl:(la + 1) * hl, lo * wl:(lo + 1) * wl].contiguous()
+    setup_s = time.time() - t0
+    guard = PlainGuard()
+    legendre_ops.reset_launches()
+    disco_ops.reset_launches()
+    compat.start_timing()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    c = dist_sht.dist_sht_forward(xb, local_sht, t.mmax, lat_g, lon_g)
+    u = dist_sht.dist_sht_inverse(c, local_sht, w, lat_g, lon_g)
+    torch.cuda.synchronize()
+    sht_s = time.time() - t0
+    d = dist_disco.dist_disco_conv(xb, local_band, plan.stride, lat_g, lon_g)
+    torch.cuda.synchronize()
+    out = {"coord": (la, lo), "setup_s": setup_s, "sht_s": sht_s,
+           "disco_s": time.time() - t0 - sht_s,
+           "collective_s": compat.timed_seconds(),
+           "launches": {"legendre_contract": legendre_ops.launches,
+                        "disco_band_contract": disco_ops.launches},
+           "plain": sum(guard.counts.values()),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "live_taps": (int(local_band["tap_ent"].shape[0]),
+                         int(plan.live_taps()["tap_ent"].shape[0]))}
+    guard.close()
+    # the single-process kernel path on the whole field, this rank's block
+    bufs = t.buffers(dev)
+    c_ref = dispatch.sht_forward(x, bufs["wpct"], bufs["wpct_ext"])
+    u_ref = dispatch.sht_inverse(c_ref, bufs["pct"], w, bufs["pct_ext"])
+    c_ref = c_ref[..., la * hl:(la + 1) * hl, m0:m1]
+    u_ref = u_ref[..., la * hl:(la + 1) * hl, lo * wl:(lo + 1) * wl]
+    out["sht_forward"] = errors(c, c_ref)[1]
+    out["sht_inverse"] = errors(u, u_ref)[1]
+    del c, u, c_ref, u_ref, bufs
+    d_ref = dispatch.disco_conv_banded_buffers(x, plan.banded_buffers(dev),
+                                               plan.stride)
+    out["disco"] = errors(d, d_ref[..., la * hl:(la + 1) * hl,
+                                   lo * wl:(lo + 1) * wl])[1]
+    del d, d_ref
+    # the band kernel on the masked band at the planes dist_disco_conv
+    # hands it (this rank's channel block after the longitude all-to-all,
+    # its input rows, every longitude), against its plain version a chunk
+    # of planes at a time
+    cw = DIST_CHANNELS // DIST_GRID[1]
+    xm = x[0, lo * cw:(lo + 1) * cw, la * hl:(la + 1) * hl].contiguous()
+    taps = disco_ops.LiveTaps.of(local_band)
+    got = disco_ops.disco_band_contract(xm, local_band["psi_band"],
+                                        local_band["lat_idx"], taps, 1)
+    err, top = 0.0, 0.0
+    for i in range(0, cw, 46):
+        ref = disco_gather_band_contract_ref(
+            xm[i:i + 46], local_band["psi_band"], local_band["lat_idx"], 1)
+        err = max(err, float((got[i:i + 46] - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+    out["masked_band"] = err / top
+    out["masked_band_shape"] = tuple(xm.shape)
+    del xm, got, ref
+    # the Legendre kernel on this rank's order-sliced tables with the
+    # extents of the slice, at the shapes dist_sht gives it (this rank's
+    # channel block after the latitude all-to-all, every latitude or
+    # degree, its orders), against its plain version
+    gen = torch.Generator(device=dev).manual_seed(18)
+    ch = DIST_CHANNELS // DIST_GRID[0]
+    for name, table, ext in (
+            ("legendre_forward", local_sht["wpct"], local_sht["wpct_ext"]),
+            ("legendre_inverse", local_sht["pct"].permute(1, 0, 2),
+             dispatch.transposed_extents(local_sht["pct_ext"]))):
+        k, _, mloc = table.shape
+        xc = torch.complex(*(torch.randn((ch, k, mloc), device=dev,
+                                         generator=gen) for _ in range(2)))
+        out[name] = errors(dispatch.legendre(xc, table, ext),
+                           legendre_contract_ref(xc, table))[1]
+    out["legendre_shape"] = (ch, k, mloc)
+    del xc
+    out["gloo_cuda"] = _collective_probe(
+        lat_g, (1, cw, 1, h, w), dev)
+    return out
+
+
+def _collective_probe(group, shape, dev) -> dict:
+    """Which collectives the process group takes on CUDA tensors
+    (``"ok"``, or the first line of what it raises), and the median
+    seconds of three calls, each, of ``compat.psum_scatter`` (all-to-all
+    plus a local sum) and of ``reduce_scatter_tensor`` (where it is
+    taken) over dim -2 of ``shape``, with their max abs difference."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    r = dist.get_world_size(group)
+    small = torch.arange(4.0 * r, device=dev)
+    ops = {
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(small), small, group=group),
+        "all_reduce": lambda: dist.all_reduce(small.clone(), group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            small.new_empty(4), small, group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            small.new_empty(4 * r * r), small, group=group)}
+    took = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            took[name] = "ok"
+        except Exception as e:  # what the backend refuses is the finding
+            took[name] = (str(e).strip().splitlines() or [type(e).__name__]
+                          )[0][:200]
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(19))
+
+    def psum_scatter():
+        return compat.psum_scatter(x, group, x.dim() - 2)
+
+    def reduce_scatter():
+        send = x.movedim(-2, 0).contiguous()
+        recv = send.new_empty((send.shape[0] // r,) + send.shape[1:])
+        dist.reduce_scatter_tensor(recv, send, group=group)
+        return recv.movedim(0, -2)
+
+    fns = {"psum_scatter": psum_scatter}
+    if took["reduce_scatter_tensor"] == "ok":
+        fns["reduce_scatter_tensor"] = reduce_scatter
+    secs: dict = {k: [] for k in fns}
+    res = {}
+    for _ in range(4):            # the first round warms up
+        for k, fn in fns.items():
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[k] = fn()
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+    out = {"took": took, "shape": tuple(shape),
+           "seconds": {k: statistics.median(v[1:]) for k, v in secs.items()}}
+    if len(res) == 2:
+        out["max_abs_diff"] = float((res["psum_scatter"]
+                                     - res["reduce_scatter_tensor"]).abs()
+                                    .max())
+    return out
+
+
+def dist_train_rank(rank: int, world_size: int, plans: str,
+                    argv: list[str]) -> dict:
+    """Phase (c), on one rank: ``launch/train.py``'s CLI with
+    ``--mesh-model`` (the process group is this world's); returns its
+    step diagnostics, kernel launches, plain calls on CUDA tensors, peak
+    memory, whether its parameters equal rank 0's after the step, and
+    (rank 0) the first step's reduced gradients."""
+    import torch
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import trainer as trlib
+    _install_payloads(plans)
+    guard = PlainGuard()
+    for mod in (crps_ops, disco_ops, legendre_ops):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    kept: dict = {}
+    grads_of = trlib.EnsembleTrainer.loss_and_grads
+
+    def loss_and_grads(self, *args):
+        loss, aux, grads = grads_of(self, *args)
+        if "trainer" not in kept:
+            # rank 0's reduced gradients to the host (its first step's
+            # time grows by the copy; a device copy would raise its peak)
+            kept["trainer"] = self
+            kept["grads"] = ({k: g.cpu() for k, g in grads.items()}
+                             if rank == 0 else None)
+        return loss, aux, grads
+    trlib.EnsembleTrainer.loss_and_grads = loss_and_grads
+    history = train_mod.main(argv)
+    torch.cuda.synchronize()
+    out = {"history": history,
+           "launches": {"disco_band_contract": disco_ops.launches,
+                        "disco_band_transpose": disco_ops.transpose_launches,
+                        "legendre_contract": legendre_ops.launches,
+                        "crps_fused": crps_ops.launches,
+                        "crps_fused_bwd": crps_ops.bwd_launches},
+           "plain": dict(guard.counts),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    guard.close()
+    model = kept["trainer"].model
+    out["params_equal"] = _replicas_equal(
+        [p.detach() for p in model.parameters()])
+    out["grads"] = kept["grads"]
+    return out
+
+
+def dist_phase(report, step0: dict, tmp: str) -> dict:
+    """(a) the selftest on the card, (b) Algorithms 1 and 2 at the
+    fcn3_full latent, (c) ensemble-parallel training at fcn3_full against
+    the training phase's first step; raises on any failed check."""
+    import torch
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.distributed import selftest
+    from repro_torch.distributed.world import run_world
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = selftest.run("cuda", DIST_BACKEND, timeout=600.0,
+                       report=lambda ln: report(f"[dist] (a) {ln}"))
+    for r in res:
+        if min(r["launches"].values()) <= 0:
+            raise AssertionError(f"selftest rank {r['coord']} launched a "
+                                 f"kernel no time: {r['launches']}")
+    out["selftest_s"] = time.time() - t0
+    report(f"[dist] (a) selftest: 8 ranks on one card, backend="
+           f"{DIST_BACKEND}, {out['selftest_s']:.1f} s")
+
+    t0 = time.time()
+    plans = str(Path(tmp) / "latent_plans.pkl")
+    nbytes = _plan_payloads(("latent",), ("latent_sht",), plans)
+    ranks = DIST_GRID[0] * DIST_GRID[1]
+    res = run_world(dist_geometry_rank, ranks, (plans,),
+                    backend=DIST_BACKEND, timeout=600.0)
+    out["geometry_s"] = time.time() - t0
+    cfg = fcn3cfg.NAMED_CONFIGS[CONFIG]()
+    report(f"[dist] (b) Algorithms 1-2 at the {CONFIG} latent: "
+           f"{cfg.latent_nlat}x{cfg.latent_nlon} {cfg.latent_grid}, "
+           f"lmax=mmax={cfg.latent_nlat}, {DIST_CHANNELS} channels "
+           f"({cfg.c_latent} + {DIST_CHANNELS - cfg.c_latent} zero "
+           f"padding), mesh lat {DIST_GRID[0]} x lon {DIST_GRID[1]} = "
+           f"{ranks} ranks on one card, backend={DIST_BACKEND}; plans "
+           f"{nbytes / 1e9:.3f} GB handed over; phase {out['geometry_s']:.1f}"
+           f" s")
+    for r in res:
+        report(f"[dist] (b) rank {r['coord']}: setup_s={r['setup_s']:.2f} "
+               f"sht_fwd_inv_s={r['sht_s']:.3f} disco_s={r['disco_s']:.3f} "
+               f"collective_s={r['collective_s']:.3f} "
+               f"launches={r['launches']} plain_calls_on_cuda={r['plain']} "
+               f"peak_mem_gb={r['peak_gb']:.2f} live_taps={r['live_taps'][0]}"
+               f" of {r['live_taps'][1]}; vs single process (rel to max "
+               f"|plain|): sht_forward={r['sht_forward']:.2e} "
+               f"sht_inverse={r['sht_inverse']:.2e} disco={r['disco']:.2e}; "
+               f"kernels vs plain: masked band x{r['masked_band_shape']} "
+               f"{r['masked_band']:.2e}, Legendre on the order slice "
+               f"x{r['legendre_shape']} forward "
+               f"{r['legendre_forward']:.2e} inverse "
+               f"{r['legendre_inverse']:.2e} (bar {REL_TOL:g})")
+        g = r["gloo_cuda"]
+        report(f"[dist] (b) rank {r['coord']} {DIST_BACKEND} on CUDA "
+               f"tensors over the lat group: {g['took']}; over dim -2 of "
+               f"{g['shape']} fp32, median s: "
+               + " ".join(f"{k}={v:.4f}" for k, v in g["seconds"].items())
+               + (f" max_abs_diff={g['max_abs_diff']:.3e}"
+                  if "max_abs_diff" in g else ""))
+        if min(r["launches"].values()) <= 0 or r["plain"]:
+            raise AssertionError(f"rank {r['coord']}: launches "
+                                 f"{r['launches']}, plain {r['plain']}")
+        worst = max(r[k] for k in ("sht_forward", "sht_inverse", "disco",
+                                   "masked_band", "legendre_forward",
+                                   "legendre_inverse"))
+        if not worst <= REL_TOL:
+            raise AssertionError(f"rank {r['coord']}: {worst:.3e} > "
+                                 f"{REL_TOL}")
+    out["geometry"] = res
+
+    t0 = time.time()
+    plans = str(Path(tmp) / "full_plans.pkl")
+    nbytes = _plan_payloads(("enc", "latent", "dec"),
+                            ("in_sht", "latent_sht"), plans)
+    argv = ["--config", CONFIG, "--stage", TRAIN_STAGE, "--ensemble",
+            str(TRAIN_ENSEMBLE), "--batch", str(TRAIN_BATCH), "--rollout",
+            str(TRAIN_ROLLOUT), "--steps", str(DIST_TRAIN_STEPS),
+            "--mesh-model",
+            str(DIST_TRAIN_RANKS), "--dist-backend", DIST_BACKEND,
+            "--init-from", step0["ckpt"], "--device", "cuda"]
+    report(f"[dist] (c) launch/train.py {' '.join(argv)} on "
+           f"{DIST_TRAIN_RANKS} ranks of one card (all {cfg.n_blocks} "
+           f"blocks: no depth cut); plans {nbytes / 1e9:.3f} GB handed over")
+    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv),
+                    backend=DIST_BACKEND, timeout=900.0)
+    out["train_s"] = time.time() - t0
+    loss = res[0]["history"][0]["loss"]
+    ref = step0["grads"]
+    worst, gerr, at, sq, sq_ref = 0.0, 0.0, None, 0.0, 0.0
+    for k, g in res[0]["grads"].items():
+        diff = (g - ref[k]).abs()
+        gerr = max(gerr, float(diff.max()))
+        ratio = diff / (GRAD_ATOL + GRAD_RTOL * ref[k].abs())
+        if float(ratio.max()) > worst:
+            i = int(ratio.argmax())
+            worst, at = float(ratio.max()), (k, float(ref[k].reshape(-1)[i]),
+                                             float(diff.reshape(-1)[i]))
+        sq += float((diff.double() ** 2).sum())
+        sq_ref += float((ref[k].double() ** 2).sum())
+    loss_rel = abs(loss - step0["loss"]) / abs(step0["loss"])
+    for i, r in enumerate(res):
+        hs = r["history"]
+        report(f"[dist] (c) rank {i}: step_s="
+               f"{[round(h['seconds'], 3) for h in hs]} collective_s="
+               f"{[round(h['collective_s'], 3) for h in hs]} (share "
+               f"{[round(h['collective_s'] / h['seconds'], 3) for h in hs]})"
+               f" loss={[round(h['loss'], 7) for h in hs]} |g|="
+               f"{[round(h['grad_norm'], 6) for h in hs]} launches="
+               f"{r['launches']} plain_calls_on_cuda={r['plain']} "
+               f"peak_mem_gb={r['peak_gb']:.2f} params_equal_rank0="
+               f"{r['params_equal']}")
+    report(f"[dist] (c) first step vs the single-process first step: loss "
+           f"{loss:.7f} vs {step0['loss']:.7f} (rel {loss_rel:.2e}, bar "
+           f"{DIST_LOSS_RTOL:g}); gradients max_abs_err={gerr:.3e}, "
+           f"|diff| / |ref| over all = {math.sqrt(sq / sq_ref):.2e}, worst "
+           f"|diff| / (atol + rtol |ref|) = {worst:.3f} at {at[0]} (ref "
+           f"{at[1]:.4e}, diff {at[2]:.3e}; rtol={GRAD_RTOL}, atol="
+           f"{GRAD_ATOL}); the single-process first step's members within "
+           f"{TIE_REL:.1e} relative of each other at {step0['ties'][0]:.2e}"
+           f" of the points, member 0 and the truth at "
+           f"{step0['ties'][1]:.2e}; phase {out['train_s']:.1f} s")
+    for i, r in enumerate(res):
+        if (r["launches"]["crps_fused"] <= 0
+                or r["launches"]["crps_fused_bwd"] <= 0
+                or min(r["launches"].values()) <= 0):
+            raise AssertionError(f"rank {i} launches {r['launches']}")
+        if any(r["plain"].values()) or not r["params_equal"]:
+            raise AssertionError(f"rank {i}: plain {r['plain']}, params "
+                                 f"equal {r['params_equal']}")
+    if not (loss_rel <= DIST_LOSS_RTOL and worst <= 1.0):
+        raise AssertionError(f"distributed step disagrees: loss rel "
+                             f"{loss_rel:.3e}, gradient {worst:.3f}")
+    out["train"] = [{k: v for k, v in r.items() if k != "grads"}
+                    for r in res]
+    return out
 
 
 def main() -> int:
@@ -1615,9 +2121,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rec = Recorder()
     guard.counts = dict.fromkeys(guard.counts, 0)
+    dist_tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     summary = train_phase(
-        lambda line: log(line if line.startswith("[") else f"[train] {line}"))
-    train_rec.close()
+        lambda line: log(line if line.startswith("[") else f"[train] {line}"),
+        keep=dist_tmp, steps_done=train_rec.close)
     plain_calls = dict(guard.counts)
     for i, (h, sec) in enumerate(zip(summary["history"],
                                      summary["step_s"])):
@@ -1653,6 +2160,16 @@ def main() -> int:
     log(f"[check] fcn3_smoke train-step gradients, kernel path vs reference "
         f"path on the card: max_abs_err={gerr:.3e} "
         f"(rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
+    torch.cuda.empty_cache()
+
+    # -- phase 5b: distribution, every rank a process on the card ----------
+    try:
+        dist = dist_phase(log, summary.pop("step0"), dist_tmp)
+    finally:
+        shutil.rmtree(dist_tmp, ignore_errors=True)
+    log(f"[dist] card: {card}; selftest {dist['selftest_s']:.1f} s, "
+        f"Algorithms 1-2 {dist['geometry_s']:.1f} s, training "
+        f"{dist['train_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
@@ -1820,7 +2337,11 @@ def main() -> int:
                    "train": summary["launches"].get(name, 0),
                    "lm_prefill": {"ssd_intra_chunk": lm["launches"],
                                   "ssd_chunk_recurrence":
-                                  lm["state_launches"]}.get(name, 0)}
+                                  lm["state_launches"]}.get(name, 0),
+                   # rank 0's, in Algorithms 1-2 and in its training run
+                   "dist_geometry": dist["geometry"][0]["launches"].get(
+                       name, 0),
+                   "dist_train": dist["train"][0]["launches"].get(name, 0)}
         ent = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,

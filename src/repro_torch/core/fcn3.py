@@ -201,6 +201,17 @@ class FCN3(nn.Module):
             "latent_sht": self.latent_sht.buffers(dev),
         }
 
+    def buffer_specs(self) -> dict:
+        """``make_buffers``' keys, shapes and dtypes as ``meta`` tensors
+        (the JAX ``FCN3.buffer_specs``)."""
+        kc = self.cfg.kernels
+        return {
+            "enc": self.enc_plan.buffer_specs(kc),
+            "latent": self.latent_plan.buffer_specs(kc),
+            "dec": self.dec_plan.buffer_specs(kc),
+            "latent_sht": self.latent_sht.buffer_specs(),
+        }
+
     def noise_buffers(self) -> dict:
         """The noise process's tables on the model's device (built once:
         the IO-resolution ``pct`` is 1.5 GB at 721x1440)."""

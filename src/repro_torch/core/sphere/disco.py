@@ -139,6 +139,25 @@ class DiscoPlan:
             "lat_idx": torch.from_numpy(self.lat_idx).to(device),
         }
 
+    def buffer_specs(self, kernels: KernelConfig | None = None
+                     ) -> dict[str, torch.Tensor]:
+        """``buffers``' keys, shapes and dtypes for ``kernels``, as
+        storage-free tensors on the ``meta`` device (the JAX
+        ``ShapeDtypeStruct``s).  The banded layout's live-tap shapes
+        depend on the band's zeros, so they are read off the (memoized)
+        split, as ``buffers`` builds them."""
+        if (kernels or KernelConfig()).disco == "kernel":
+            band, wrap_rows, psi_wrap = self.banded_split()
+            arrays = {**self.live_taps(), **self.row_taps(),
+                      "psi_band": band, "psi_wrap": psi_wrap,
+                      "wrap_rows": wrap_rows.astype(np.int64),
+                      "lat_idx": self.lat_idx}
+        else:
+            arrays = {"psi": self.psi, "lat_idx": self.lat_idx}
+        return {name: torch.empty(a.shape, device="meta",
+                                  dtype=torch.from_numpy(a[:0]).dtype)
+                for name, a in arrays.items()}
+
     def live_taps(self) -> dict[str, np.ndarray]:
         """``band_live_taps`` of the band, memoized on the (frozen) plan."""
         cached = getattr(self, "_taps_cache", None)

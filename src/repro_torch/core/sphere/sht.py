@@ -111,6 +111,17 @@ class SHT:
             "pct_ext": torch.from_numpy(order_extents(pbar)).to(device),
         }
 
+    def buffer_specs(self) -> dict[str, torch.Tensor]:
+        """``buffers``' keys, shapes and dtypes as storage-free tensors on
+        the ``meta`` device (the JAX ``ShapeDtypeStruct``s, plus the
+        extents)."""
+        shape = (self.grid.nlat, self.lmax, self.mmax)
+        table = torch.empty(shape, dtype=torch.float32, device="meta")
+        ext = torch.empty((2, 2, self.mmax), dtype=torch.int32,
+                          device="meta")
+        return {"wpct": table, "pct": table.clone(), "wpct_ext": ext,
+                "pct_ext": ext.clone()}
+
     def forward(self, x: torch.Tensor, buffers: dict) -> torch.Tensor:
         """``sht_forward`` with this grid's tables."""
         return sht_forward(x, buffers["wpct"])
@@ -118,6 +129,24 @@ class SHT:
     def inverse(self, c: torch.Tensor, buffers: dict) -> torch.Tensor:
         """``sht_inverse`` with this grid's tables."""
         return sht_inverse(c, buffers["pct"], self.grid.nlon)
+
+
+def resample(x: torch.Tensor, sht_in: SHT, sht_out: SHT,
+             buffers_in: dict | None = None,
+             buffers_out: dict | None = None) -> torch.Tensor:
+    """Alias-free spectral resampling between grids (paper B.6, SHT
+    variant): forward on ``sht_in``'s grid, keep the common degrees and
+    orders, zero-pad to ``sht_out``'s and invert there.  The tables are
+    built on ``x``'s device when not given."""
+    bi = buffers_in if buffers_in is not None else sht_in.buffers(x.device)
+    bo = (buffers_out if buffers_out is not None
+          else sht_out.buffers(x.device))
+    c = sht_in.forward(x, bi)
+    l = min(sht_in.lmax, sht_out.lmax)
+    m = min(sht_in.mmax, sht_out.mmax)
+    c = torch.nn.functional.pad(c[..., :l, :m],
+                                (0, sht_out.mmax - m, 0, sht_out.lmax - l))
+    return sht_out.inverse(c, bo)
 
 
 def spectrum(c: torch.Tensor) -> torch.Tensor:

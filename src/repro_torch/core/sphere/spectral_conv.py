@@ -1,10 +1,18 @@
 """Global spherical convolutions via the convolution theorem (paper B.4).
 
-Complex per-degree channel-mixing weights (the SFNO parameterization of
-FCN3's two global blocks; the JAX package's ``depthwise`` variant is not
-used by FCN3 and not ported).  The SHTs go through the Legendre kernel under
-``KernelConfig(sht="kernel")``; the channel mixing ``oil,...ilm->...olm``
-is one large complex64 product left to ``torch.einsum``.
+An axisymmetric filter acts diagonally in spherical-harmonic space,
+``(u (x) k)_l^m = u_l^m * k_l^0`` (eq. 19), so the filter is parameterized
+in the spectral domain, as in the JAX package.  Two modes:
+
+* ``full`` -- complex per-degree channel-mixing weights ``w_re``/``w_im``
+  (the SFNO parameterization FCN3's two global blocks use); the mixing
+  ``oil,...ilm->...olm`` is one complex64 product left to ``torch.einsum``;
+* ``depthwise`` -- a real per-(channel, degree) gain ``w``, the literal
+  convolution theorem (strictly rotation-equivariant).
+
+Either may truncate the spectrum to ``lmax_keep`` degrees before the
+inverse transform.  The SHTs go through the Legendre kernel under
+``KernelConfig(sht="kernel")``.
 """
 
 from __future__ import annotations
@@ -18,12 +26,27 @@ from repro_torch.core.sphere.disco import randn_like_param
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.config import KernelConfig
 
+MODES = ("full", "depthwise")
+
 
 class SpectralFilter(nn.Module):
-    """Complex weights ``w_re``/``w_im``, each (C_out, C_in, L)."""
+    """``full``: complex weights ``w_re``/``w_im``, each (C_out, C_in, L);
+    ``depthwise``: a real gain ``w`` (C, L), initialised to ones, which
+    needs C_out == C_in."""
 
-    def __init__(self, c_out: int, c_in: int, lmax: int, device=None):
+    def __init__(self, c_out: int, c_in: int, lmax: int, device=None,
+                 mode: str = "full"):
         super().__init__()
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        self.mode = mode
+        if mode == "depthwise":
+            if c_out != c_in:
+                raise ValueError("depthwise spectral filter requires "
+                                 "c_out == c_in")
+            self.w = nn.Parameter(torch.ones((c_in, lmax), device=device),
+                                  requires_grad=False)
+            return
         shape = (c_out, c_in, lmax)
         self.w_re = nn.Parameter(torch.zeros(shape, device=device),
                                  requires_grad=False)
@@ -32,24 +55,36 @@ class SpectralFilter(nn.Module):
 
     @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
-        """He-style init scaled so output variance matches input (C.6)."""
+        """He-style init scaled so output variance matches input (C.6);
+        a depthwise gain goes back to ones."""
+        if self.mode == "depthwise":
+            self.w.fill_(1.0)
+            return
         scale = float(np.sqrt(1.0 / max(self.w_re.shape[1], 1)))
         self.w_re.copy_(scale * randn_like_param(self.w_re, generator))
         self.w_im.copy_(scale * randn_like_param(self.w_im, generator))
 
     def forward(self, x: torch.Tensor, sht_buffers: dict, nlon: int,
-                kernels: KernelConfig | None = None) -> torch.Tensor:
+                kernels: KernelConfig | None = None,
+                lmax_keep: int | None = None) -> torch.Tensor:
         """x: (..., C, H, W) -> (..., C_out, H, W) through the spectral
         domain; ``sht_buffers`` holds the (H, L, M) ``wpct``/``pct`` and,
-        for the kernel path, their extents ``wpct_ext``/``pct_ext``."""
+        for the kernel path, their extents ``wpct_ext``/``pct_ext``.
+        ``lmax_keep`` zeroes every degree from it on (anti-aliasing)."""
         kernel = (kernels or KernelConfig()).sht == "kernel"
         wpct, pct = sht_buffers["wpct"], sht_buffers["pct"]
         if kernel:
             c = dispatch.sht_forward(x, wpct, sht_buffers["wpct_ext"])
         else:
             c = shtlib.sht_forward(x, wpct)                # (..., C, L, M)
-        w = torch.complex(self.w_re.float(), self.w_im.float())
-        y = torch.einsum("oil,...ilm->...olm", w, c)
+        if lmax_keep is not None and lmax_keep < c.shape[-2]:
+            c = torch.nn.functional.pad(c[..., :lmax_keep, :],
+                                        (0, 0, 0, c.shape[-2] - lmax_keep))
+        if self.mode == "depthwise":
+            y = c * self.w.float()[..., :, None]
+        else:
+            w = torch.complex(self.w_re.float(), self.w_im.float())
+            y = torch.einsum("oil,...ilm->...olm", w, c)
         if kernel:
             return dispatch.sht_inverse(y, pct, nlon, sht_buffers["pct_ext"])
         return shtlib.sht_inverse(y, pct, nlon)

@@ -81,18 +81,26 @@ def _batched(c: torch.Tensor) -> torch.Tensor:
     return c if c.stride(-1) == 1 else c.contiguous()
 
 
+def legendre(c: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
+             ) -> torch.Tensor:
+    """The Legendre step on the kernel, differentiable in ``c``:
+    (..., K, M) complex -> (..., N, M) complex64 with table (K, N, M)
+    float32 (a strided view will do) and its ``extents``.  Real and
+    imaginary parts share one launch, read in place."""
+    n, m = table.shape[1:]
+    out = _Legendre.apply(_batched(c), table, extents)
+    return out.reshape(c.shape[:-2] + (n, m))
+
+
 def sht_forward(x: torch.Tensor, wpct: torch.Tensor, wpct_ext: torch.Tensor
                 ) -> torch.Tensor:
-    """Forward SHT, (..., H, W) -> (..., L, M) complex64.  Real and
-    imaginary parts share one kernel launch, read in place; ``wpct_ext``
-    is ``sht.order_extents(wpct)``.  The kernel takes fp32 operands: a
-    bf16 table (the bf16 policy) is widened here, as the reference's
-    dispatch does."""
-    h, l, m = wpct.shape
+    """Forward SHT, (..., H, W) -> (..., L, M) complex64; ``wpct_ext`` is
+    ``sht.order_extents(wpct)``.  The kernel takes fp32 operands: a bf16
+    table (the bf16 policy) is widened here, as the reference's dispatch
+    does."""
     w = x.shape[-1]
-    xf = fourier.rfft(x.float())[..., :m] * (2.0 * math.pi / w)
-    out = _Legendre.apply(_batched(xf), wpct.float(), wpct_ext)
-    return out.reshape(xf.shape[:-2] + (l, m))
+    xf = fourier.rfft(x.float())[..., :wpct.shape[2]] * (2.0 * math.pi / w)
+    return legendre(xf, wpct.float(), wpct_ext)
 
 
 def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
@@ -100,12 +108,10 @@ def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
     """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real;
     ``pct_ext`` is ``sht.order_extents(pct)``; a bf16 table is widened to
     fp32 for the kernel."""
-    h, l, m = pct.shape
     # contract over degree: table (L, H, M), a transposed view of pct
-    out = _Legendre.apply(_batched(c), pct.float().permute(1, 0, 2),
-                          transposed_extents(pct_ext))
-    spec = shtlib.pad_orders(out.reshape(c.shape[:-2] + (h, m)), nlon)
-    return fourier.irfft(spec, nlon) * nlon
+    spec = legendre(c, pct.float().permute(1, 0, 2),
+                    transposed_extents(pct_ext))
+    return fourier.irfft(shtlib.pad_orders(spec, nlon), nlon) * nlon
 
 
 # ---------------------------------------------------------------------------

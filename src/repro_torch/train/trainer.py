@@ -14,8 +14,23 @@ The paper's training semantics, as in the JAX package:
 
 Members are the leading batch dim of one model call (the JAX trainer
 ``vmap``s them).  Noise draws come from a ``NoiseSource`` of the engine,
-so a test can replay the JAX reference's draws.  Ensemble-parallel
-sharding (the JAX ``member_axes``) belongs to the distributed port.
+so a test can replay the JAX reference's draws.
+
+Ensemble parallelism (paper G.1, the JAX ``member_axes``): with
+``TrainConfig.member_axes = (ens_axis, data_axis)`` and a ``DeviceMesh``,
+each rank of the ensemble group rolls out its E/R members on its slice
+of the data group's batch.  Every rank draws the whole (E, B) noise from
+the same ``NoiseSource`` and keeps its members, so the draws match a
+single process's.  Eq. (48) is computed with ``dist_crps`` (Algorithm 3)
+on two flattened spaces, C*H*W and C*L*M, whose per-point weights fold in
+everything linear: area weight x channel weight / B for the nodal term,
+mode mask x multiplicity / dof x the channel weight / B for the spectral
+one.  Gradients are summed over the ensemble group and averaged over the
+data group.  The parameters are placed as ``sharding.fcn3_param_specs(
+mode="domain")`` says: replicated, broadcast from rank 0 at construction,
+so they and the Adam state stay identical on every rank.  Noise
+centering gathers every member's noise with a ``psum`` over the ensemble
+group.
 """
 
 from __future__ import annotations
@@ -28,14 +43,15 @@ import torch
 from repro_torch.core import crps as crpslib
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import noise as noiselib
+from repro_torch.core.sphere import sht as shtlib
+from repro_torch.distributed import compat, sharding
 from repro_torch.inference.engine import NoiseSource
 from repro_torch.optim import adam as adamlib
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """One training stage's knobs (the JAX ``TrainConfig`` without
-    ``member_axes``)."""
+    """One training stage's knobs (the JAX ``TrainConfig``)."""
 
     ensemble_size: int = 2
     rollout_steps: int = 1
@@ -46,6 +62,10 @@ class TrainConfig:
     lr_halve_every: int | None = None
     clip_norm: float | None = 1.0
     rollout_weights: tuple[float, ...] | None = None  # default: uniform
+    # Ensemble parallelism (paper G.1): the mesh axes of the (E, B)
+    # leading dims of the member states, e.g. ("model", "data"); each
+    # entry a mesh-axis name or None.  None: one process.
+    member_axes: tuple | None = None
 
 
 def make_optimizer(cfg: TrainConfig) -> adamlib.Adam:
@@ -55,12 +75,57 @@ def make_optimizer(cfg: TrainConfig) -> adamlib.Adam:
     return adamlib.Adam(lr=lr, clip_norm=cfg.clip_norm)
 
 
+@dataclasses.dataclass(frozen=True)
+class MemberParallel:
+    """The groups of ``TrainConfig.member_axes`` on a mesh: the ensemble
+    group (its size and this rank's index) and the data group."""
+
+    ens_group: object
+    n_ens: int
+    ens_rank: int
+    data_group: object | None
+    n_data: int
+    data_rank: int
+
+    @classmethod
+    def of(cls, member_axes: tuple, mesh) -> "MemberParallel":
+        """The groups of ``member_axes`` = (ens_axis[, data_axis]) on
+        ``mesh``, which they must cover: the gradient sum runs over the
+        whole world."""
+        import torch.distributed as dist
+        ens_axis, data_axis = (tuple(member_axes) + (None,))[:2]
+        if mesh is None or not isinstance(ens_axis, str):
+            raise ValueError(f"member_axes {member_axes} needs a mesh and "
+                             "an ensemble axis name")
+        groups = {}
+        for axis in (ens_axis, data_axis):
+            if axis is not None:
+                g = mesh.get_group(axis)
+                groups[axis] = (g, dist.get_world_size(g), dist.get_rank(g))
+        dg, nd, dr = groups.get(data_axis, (None, 1, 0))
+        eg, ne, er = groups[ens_axis]
+        if ne * nd != dist.get_world_size():
+            raise ValueError(f"member_axes {member_axes} cover {ne * nd} of "
+                             f"{dist.get_world_size()} ranks; they must "
+                             "cover the world")
+        return cls(eg, ne, er, dg, nd, dr)
+
+
+def _flat_padded(x: torch.Tensor, lead: int, n: int) -> torch.Tensor:
+    """``x`` with its dims after the first ``lead`` flattened and
+    zero-padded to a multiple of ``n`` (zero points carry zero weight)."""
+    x = x.reshape(tuple(x.shape[:lead]) + (-1,))
+    return torch.nn.functional.pad(x, (0, -x.shape[-1] % n))
+
+
 class EnsembleTrainer:
     """Train and eval steps for an FCN3 model; makes its parameters
-    trainable."""
+    trainable.  With ``tcfg.member_axes``, ``mesh`` is the
+    ``DeviceMesh`` those axes name, and the parameters are broadcast
+    from rank 0 here."""
 
     def __init__(self, model: FCN3, tcfg: TrainConfig,
-                 channel_weights: np.ndarray):
+                 channel_weights: np.ndarray, mesh=None):
         self.model = model.requires_grad_(True)
         self.tcfg = tcfg
         self.optimizer = make_optimizer(tcfg)
@@ -69,6 +134,21 @@ class EnsembleTrainer:
             np.asarray(channel_weights, np.float32)).to(dev)
         self.area_weights = torch.from_numpy(
             model.grid_in.area_weights_2d().astype(np.float32)).to(dev)
+        self.par = None
+        if tcfg.member_axes is not None:
+            self.par = MemberParallel.of(tcfg.member_axes, mesh)
+            if tcfg.ensemble_size % self.par.n_ens:
+                raise ValueError(f"ensemble of {tcfg.ensemble_size} does "
+                                 f"not split over {self.par.n_ens} ranks")
+            # the parameters' placement is the rules' (fcn3_param_specs,
+            # mode="domain"): replicated, so rank 0's are broadcast
+            params = dict(model.named_parameters())
+            placed = [k for k, s in sharding.fcn3_param_specs(params).items()
+                      if any(s)]
+            if placed:
+                raise NotImplementedError(f"sharded parameters {placed} are "
+                                          "not placed by the trainer")
+            compat.broadcast_([p.detach() for p in params.values()], 0)
 
     def make_loss_buffers(self) -> dict:
         """The loss's forward-SHT table at IO resolution (1.5 GB at
@@ -80,15 +160,75 @@ class EnsembleTrainer:
             "noise": self.model.noise_buffers(),
         }
 
+    def loss_buffer_specs(self) -> dict:
+        """``make_loss_buffers``' keys, shapes and dtypes as ``meta``
+        tensors (the JAX ``loss_buffer_specs``)."""
+        m = self.model
+        specs = m.in_sht.buffer_specs()
+        sigma_l = torch.empty((m.noise.n_proc, m.in_sht.lmax),
+                              dtype=torch.float32, device="meta")
+        return {"loss_wpct": specs["wpct"],
+                "noise": {"pct": specs["pct"], "sigma_l": sigma_l}}
+
     # ------------------------------------------------------------------
+    def _members(self, z: torch.Tensor) -> torch.Tensor:
+        """This rank's block of (E, B_global, ...) member tensors."""
+        p = self.par
+        e = self.tcfg.ensemble_size // p.n_ens
+        b = z.shape[1] // p.n_data
+        return z[p.ens_rank * e:(p.ens_rank + 1) * e,
+                 p.data_rank * b:(p.data_rank + 1) * b]
+
+    def _centered(self, z: torch.Tensor) -> torch.Tensor:
+        """``center_noise`` over all E members of this rank's block:
+        every member gathered with a psum over the ensemble group."""
+        p = self.par
+        e_loc = z.shape[0]
+        full = z.new_zeros((self.tcfg.ensemble_size,) + tuple(z.shape[1:]))
+        full[p.ens_rank * e_loc:(p.ens_rank + 1) * e_loc] = z
+        full = compat.psum(full, p.ens_group)
+        return noiselib.center_noise(full, 0)[p.ens_rank * e_loc:
+                                             (p.ens_rank + 1) * e_loc]
+
+    def _dist_objective(self, ens: torch.Tensor, obs: torch.Tensor,
+                        wpct: torch.Tensor
+                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Eq. (48) of this rank's members (Eloc, B, C, H, W) against the
+        batch's truth (B, C, H, W) with ``dist_crps``, summed over the
+        ensemble group: ``fcn3_objective``'s value for the data group's
+        batch, on every rank of the ensemble group."""
+        from repro_torch.distributed.dist_crps import dist_crps
+        t, g, r = self.tcfg, self.par.ens_group, self.par.n_ens
+        b = obs.shape[0]
+        cw = self.channel_weights / self.channel_weights.sum()
+        w = (cw[:, None, None] * self.area_weights[None]) / b
+        nodal = dist_crps(_flat_padded(ens, 2, r), _flat_padded(obs, 1, r),
+                          _flat_padded(w, 0, r), g, t.fair_crps)
+        ce = shtlib.sht_forward(ens, wpct)                # (Eloc,B,C,L,M)
+        co = shtlib.sht_forward(obs, wpct)
+        l, m = ce.shape[-2:]
+        mult = np.concatenate([[1.0], np.full((m - 1,), 2.0)])
+        w_lm = shtlib.mode_mask(l, m) * mult[None, :]
+        w_lm = torch.from_numpy((w_lm / w_lm.sum()).astype(np.float32)).to(
+            ens.device)
+        ws = _flat_padded((cw[:, None, None] * w_lm[None]) / b, 0, r)
+        spec = sum(dist_crps(_flat_padded(part(ce), 2, r),
+                             _flat_padded(part(co), 1, r), ws, g,
+                             t.fair_crps)
+                   for part in (torch.real, torch.imag))
+        return nodal + t.lambda_spectral * spec, {"nodal": nodal,
+                                                  "spectral": spec}
+
     def rollout_loss(self, buffers: dict, batch: dict, noise: NoiseSource
                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """batch: state (B,C,H,W); targets (B,T,C,H,W); aux (B,T,A,H,W).
 
         Returns the w_n-weighted objective over the T rollout steps and
-        the per-step ``nodal_{n}`` / ``spectral_{n}`` terms.
+        the per-step ``nodal_{n}`` / ``spectral_{n}`` terms.  Ensemble-
+        parallel: ``batch`` is this rank's slice of the data group's
+        batch, and the values are those of the data group's batch.
         """
-        m, t = self.model, self.tcfg
+        m, t, p = self.model, self.tcfg, self.par
         e = t.ensemble_size
         steps = batch["targets"].shape[1]
         w_n = (np.asarray(t.rollout_weights, np.float32)
@@ -96,22 +236,29 @@ class EnsembleTrainer:
         w_n = w_n / w_n.sum()
         nbufs = buffers["noise"]
         state = batch["state"]
-        z_hat = noise.initial(m, (e,) + tuple(state.shape[:1]), nbufs)
-        s = state.expand((e,) + tuple(state.shape))
+        b_all = state.shape[0] * (p.n_data if p else 1)
+        z_hat = noise.initial(m, (e, b_all), nbufs)
+        e_loc = e // p.n_ens if p else e
+        s = state.expand((e_loc,) + tuple(state.shape))
         total = torch.zeros((), dtype=torch.float32, device=state.device)
         aux_out: dict[str, torch.Tensor] = {}
         for n in range(steps):
-            z = m.noise.to_grid(z_hat, nbufs)          # (E,B,8,H,W)
+            z = m.noise.to_grid(self._members(z_hat) if p else z_hat,
+                                nbufs)                 # (E,B,8,H,W)
             if t.noise_centering:
-                z = noiselib.center_noise(z, 0)
+                z = self._centered(z) if p else noiselib.center_noise(z, 0)
             aux_n = batch["aux"][:, n]                  # (B,A,H,W)
-            cond = torch.cat([aux_n.expand((e,) + tuple(aux_n.shape)), z],
-                             dim=2)
+            cond = torch.cat([aux_n.expand((e_loc,) + tuple(aux_n.shape)),
+                              z], dim=2)
             s = m(buffers, s, cond)
-            loss_n, aux = crpslib.fcn3_objective(
-                s, batch["targets"][:, n], self.area_weights,
-                buffers["loss_wpct"], self.channel_weights,
-                t.lambda_spectral, t.fair_crps)
+            if p:
+                loss_n, aux = self._dist_objective(
+                    s, batch["targets"][:, n], buffers["loss_wpct"])
+            else:
+                loss_n, aux = crpslib.fcn3_objective(
+                    s, batch["targets"][:, n], self.area_weights,
+                    buffers["loss_wpct"], self.channel_weights,
+                    t.lambda_spectral, t.fair_crps)
             total = total + float(w_n[n]) * loss_n
             aux_out = {f"nodal_{n}": aux["nodal"],
                        f"spectral_{n}": aux["spectral"], **aux_out}
@@ -126,8 +273,19 @@ class EnsembleTrainer:
         params = dict(self.model.named_parameters())
         loss, aux = self.rollout_loss(buffers, batch, noise)
         grads = torch.autograd.grad(loss, list(params.values()))
-        return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-                dict(zip(params, grads)))
+        aux = {k: v.detach() for k, v in aux.items()}
+        loss = loss.detach()
+        p = self.par
+        if p is not None:
+            # sum over the ensemble group, mean over the data group: one
+            # all-reduce over the world, which the two groups cover
+            compat.all_reduce_(list(grads), None)
+            grads = [g / p.n_data for g in grads]
+            if p.data_group is not None:
+                diag = torch.stack([loss, *aux.values()])
+                diag = compat.psum(diag, p.data_group) / p.n_data
+                loss, aux = diag[0], dict(zip(aux, diag[1:]))
+        return loss, aux, dict(zip(params, grads))
 
     def train_step(self, buffers: dict, opt_state: dict, batch: dict,
                    noise: NoiseSource) -> tuple[dict, dict]:

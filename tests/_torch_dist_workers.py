@@ -1,0 +1,133 @@
+"""Rank bodies for ``tests/test_torch_distributed.py``.
+
+They run in processes spawned by ``repro_torch.distributed.world``, so
+this module imports no JAX (each rank checks that ``jax`` is not in
+``sys.modules``): the test computes the JAX references in its own
+process and hands the ranks numpy inputs.
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+MESH, AXES = (2, 2, 2), ("ens", "lat", "lon")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def collectives(groups, coord, inputs) -> dict:
+    """compat's collectives on this rank's slab of each input, with the
+    gradient of a fixed cotangent through each."""
+    from repro_torch.distributed import compat
+    out = {"size": {a: compat.axis_size(g) for a, g in groups.items()},
+           "index": {a: compat.axis_index(g) for a, g in groups.items()}}
+    g = groups["lon"]
+    r = compat.axis_index(g)
+    for name, (split, concat) in (("a2a_0_2", (0, 2)), ("a2a_2_0", (2, 0)),
+                                  ("a2a_1_1", (1, 1))):
+        x = torch.from_numpy(inputs["x"][r]).requires_grad_(True)
+        y = compat.all_to_all(x, g, split, concat)
+        ct = torch.from_numpy(inputs[f"ct_{name}"][r])
+        (gx,) = torch.autograd.grad(y, x, ct)
+        out[name] = (_np(y), _np(gx))
+    z = torch.from_numpy(inputs["z"][r])
+    out["a2a_complex"] = _np(compat.all_to_all(z, g, 1, 0))
+    x = torch.from_numpy(inputs["x"][r]).requires_grad_(True)
+    y = compat.psum_scatter(x, g, 1)
+    (gx,) = torch.autograd.grad(y, x, torch.from_numpy(inputs["ct_rs"][r]))
+    out["psum_scatter"] = (_np(y), _np(gx))
+    # a replicated scalar: every rank backpropagates the same loss
+    x = torch.from_numpy(inputs["x"][r]).requires_grad_(True)
+    loss = compat.psum((x * x).sum(), g)
+    (gx,) = torch.autograd.grad(loss, x)
+    out["psum"] = (float(loss), _np(gx))
+    out["psum_complex"] = _np(compat.psum(z, g))
+    return out
+
+
+def algorithms(groups, coord, inputs) -> dict:
+    """Algorithms 1-3 on this rank's blocks of the selftest inputs."""
+    from repro_torch.core.sphere import disco, grids, sht
+    from repro_torch.distributed import dist_crps, dist_disco, dist_sht
+    e, la, lo = coord
+    rows, cols = slice(la * 16, (la + 1) * 16), slice(lo * 32, (lo + 1) * 32)
+    t = sht.SHT.create(grids.make_grid(32, 64, "gauss"), lmax=32, mmax=32)
+    m0, m1 = dist_sht.order_block(t.mmax, MESH[2], lo)
+    local = dist_sht.local_sht_buffers(t, m0, m1)
+    x = torch.from_numpy(inputs["sht_x"])
+    c = dist_sht.dist_sht_forward(x[:, :, rows, cols].contiguous(), local,
+                                  t.mmax, groups["lat"], groups["lon"])
+    cin = torch.from_numpy(inputs["sht_c"])[:, :, rows, m0:m1].contiguous()
+    u = dist_sht.dist_sht_inverse(cin, local, 64, groups["lat"],
+                                  groups["lon"])
+    out = {"sht_forward": _np(c), "sht_inverse": _np(u), "orders": (m0, m1)}
+    g = grids.make_grid(32, 64, "equiangular")
+    plan = disco.make_disco_plan(g, g, cutoff_factor=3.0)
+    xd = torch.from_numpy(inputs["disco_x"])[:, :, rows, cols].contiguous()
+    blocks, _ = dist_disco.local_psi_blocks(plan, MESH[1])
+    for name, loc in (("band", dist_disco.local_band_buffers(plan, la,
+                                                             MESH[1])),
+                      ("dense", torch.from_numpy(blocks[la]))):
+        out[f"disco_{name}"] = _np(dist_disco.dist_disco_conv(
+            xd, loc, plan.stride, groups["lat"], groups["lon"]))
+    ens = torch.from_numpy(inputs["crps_ens"][2 * e:2 * e + 2])
+    for fair in (False, True):
+        out[f"crps_{fair}"] = float(dist_crps.dist_crps(
+            ens, torch.from_numpy(inputs["crps_obs"]),
+            torch.from_numpy(inputs["crps_w"]), groups["ens"], fair))
+    return out
+
+
+def selftest_rank(rank: int, world_size: int, inputs: dict) -> dict:
+    """The collectives and Algorithms 1-3 on the (ens, lat, lon) mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(MESH, AXES, "cpu")
+    groups = {a: mesh.get_group(a) for a in AXES}
+    coord = tuple(mesh.get_coordinate())
+    return {"coord": coord, "jax_loaded": "jax" in sys.modules,
+            "collectives": collectives(groups, coord, inputs),
+            "algorithms": algorithms(groups, coord, inputs)}
+
+
+def train_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """One ensemble-parallel loss, gradient and Adam step of the
+    ``fcn3_smoke`` trainer on a (data 2, model 2) mesh, from the given
+    parameters, global batch and noise draws."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.inference import params as tparams
+    from repro_torch.inference.engine import InjectedNoise
+    from repro_torch.launch.mesh import make_toy_mesh
+    from repro_torch.train import trainer as ttr
+    mesh = make_toy_mesh(2, 2)
+    model = FCN3(tcfgs.fcn3_smoke(), device="cpu")
+    tparams.load_into(model, setup["params"])
+    if rank:   # the trainer broadcasts rank 0's parameters
+        for p in model.parameters():
+            p.detach().mul_(0.5)
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(**setup["tcfg"]),
+                             setup["cw"], mesh=mesh)
+    bufs = dict(model.make_buffers(), **tr.make_loss_buffers())
+    d = mesh.get_local_rank("data")
+    batch = {k: torch.from_numpy(v[d:d + 1]) for k, v in
+             setup["batch"].items()}
+
+    def noise():
+        return InjectedNoise(setup["z_hat0"], setup["etas"])
+
+    loss, aux, grads = tr.loss_and_grads(bufs, batch, noise())
+    state = tr.optimizer.init(dict(model.named_parameters()))
+    tr.train_step(bufs, state, batch, noise())
+    return {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+            "grads": {k: _np(v) for k, v in grads.items()},
+            "params": {k: _np(p) for k, p in model.named_parameters()},
+            "jax_loaded": "jax" in sys.modules}
+
+
+def launcher_rank(rank: int, world_size: int, argv: list) -> list:
+    """``launch/train.py``'s CLI in a world its caller set up."""
+    from repro_torch.launch import train
+    return train.main(argv)

@@ -726,3 +726,67 @@ def test_cuda_scheduler_serves_through_the_kernels(cuda):
         atol = 1e-5 if name == "rank_hist" else 1e-6
         np.testing.assert_allclose(res.scores[name], v.cpu().numpy(),
                                    rtol=1e-4, atol=atol, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the distributed bodies with the kernels inside: a gloo world of 2 ranks
+# on one card (NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+def dist_kernels_rank(rank, world_size):
+    """Rank body (spawned, so it lives at module level): Algorithm 1 on a
+    (lat 1, lon 2) mesh, each rank's Legendre kernel on its order block,
+    and Algorithm 2 on a (lat 2, lon 1) mesh, each rank's band kernel on
+    its masked band; each against the single-process plain path."""
+    from repro_torch.distributed import dist_disco, dist_sht
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import set_precision
+    set_precision()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    lon = make_mesh((1, 2), ("lat", "lon"), "cuda")
+    t = tsht.SHT.create(tgrids.make_grid(32, 64, "gauss"), lmax=32, mmax=32)
+    m0, m1 = dist_sht.order_block(t.mmax, 2, rank)
+    local = dist_sht.local_sht_buffers(t, m0, m1, dev)
+    x = torch.randn((3, 8, 32, 64), generator=gen, device=dev)
+    before = legendre_ops.launches
+    c = dist_sht.dist_sht_forward(x[..., rank * 32:(rank + 1) * 32]
+                                  .contiguous(), local, t.mmax,
+                                  lon.get_group("lat"), lon.get_group("lon"))
+    u = dist_sht.dist_sht_inverse(c, local, 64, lon.get_group("lat"),
+                                  lon.get_group("lon"))
+    out["legendre_launches"] = legendre_ops.launches - before
+    bufs = t.buffers(dev)
+    c_ref = tsht.sht_forward(x, bufs["wpct"])[..., m0:m1]
+    u_ref = tsht.sht_inverse(tsht.sht_forward(x, bufs["wpct"]), bufs["pct"],
+                             64)[..., rank * 32:(rank + 1) * 32]
+    out["sht"] = max(_rel_err(c, c_ref), _rel_err(u, u_ref))
+    lat = make_mesh((2, 1), ("lat", "lon"), "cuda")
+    plan = _plan(PAIRS[0])
+    h = plan.grid_in.nlat // 2
+    xd = torch.randn((3, 4, 2 * h, plan.grid_in.nlon), generator=gen,
+                     device=dev)
+    before = disco_ops.launches
+    got = dist_disco.dist_disco_conv(
+        xd[:, :, rank * h:(rank + 1) * h].contiguous(),
+        dist_disco.local_band_buffers(plan, rank, 2, dev), plan.stride,
+        lat.get_group("lat"), lat.get_group("lon"))
+    out["band_launches"] = disco_ops.launches - before
+    ho = plan.grid_out.nlat // 2
+    ref = tdisco.disco_conv(xd, torch.from_numpy(plan.psi).to(dev),
+                            torch.from_numpy(plan.lat_idx).to(dev),
+                            plan.stride)[..., rank * ho:(rank + 1) * ho, :]
+    out["disco"] = _rel_err(got, ref)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_dist_bodies_run_their_kernels_in_a_gloo_world(cuda):
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import build
+    build.build_all(("legendre", "disco_band"))
+    res = run_world(dist_kernels_rank, 2, timeout=300.0)
+    for r in res:
+        assert r["legendre_launches"] > 0 and r["band_launches"] > 0, r
+        assert r["sht"] <= REL_TOL and r["disco"] <= REL_TOL, r

@@ -210,3 +210,49 @@ class TestSyntheticData:
         # AR(1) persistence between consecutive 6-hour offsets
         corr = np.corrcoef(s0.numpy().ravel(), s1.numpy().ravel())[0, 1]
         assert corr > 0.8
+
+
+class TestBufferSpecs:
+    """``FCN3.buffer_specs`` and the trainer's ``loss_buffer_specs``
+    against the JAX package's ``ShapeDtypeStruct`` trees and the port's
+    own buffers."""
+
+    @staticmethod
+    def _same(specs, bufs, want):
+        for k, w in want.items():
+            if isinstance(w, dict):
+                TestBufferSpecs._same(specs[k], bufs[k], w)
+                continue
+            assert specs[k].device.type == "meta", k
+            assert tuple(specs[k].shape) == w.shape, k
+            if k != "wrap_rows":   # int64 index tensors in the port
+                assert str(specs[k].dtype).split(".")[-1] == str(
+                    np.dtype(w.dtype)), k
+        assert set(specs) == set(bufs)
+        for k, b in bufs.items():
+            if isinstance(b, dict):
+                continue
+            assert (specs[k].shape, specs[k].dtype) == (b.shape, b.dtype), k
+
+    @pytest.mark.parametrize("layout", ["reference", "kernel"])
+    def test_model_buffer_specs(self, layout):
+        from repro.kernels.config import KernelConfig as JKC
+        jk = (JKC() if layout == "reference"
+              else JKC(sht="pallas", disco="pallas", interpret=True))
+        want = JFCN3(dataclasses.replace(jcfgs.fcn3_smoke(),
+                                         kernels=jk)).buffer_specs()
+        model = _port(layout)
+        self._same(model.buffer_specs(), model.make_buffers(), want)
+
+    def test_loss_buffer_specs(self):
+        from repro.train import trainer as jtr
+        from repro_torch.train import trainer as ttr
+        cw = jcfgs.channel_weights(2)
+        want = jtr.EnsembleTrainer(JFCN3(jcfgs.fcn3_smoke()),
+                                   jtr.TrainConfig(), cw).loss_buffer_specs()
+        tr = ttr.EnsembleTrainer(_port(), ttr.TrainConfig(), cw)
+        specs, bufs = tr.loss_buffer_specs(), tr.make_loss_buffers()
+        # the port's noise buffers hold what its noise process reads
+        want["noise"] = {k: v for k, v in want["noise"].items()
+                         if k in bufs["noise"]}
+        self._same(specs, bufs, want)

@@ -323,3 +323,106 @@ class TestScores:
             np.asarray(jmetrics._spatial_mean(jnp.asarray(ens),
                                               jnp.asarray(w))),
             rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The extras: buffer specs, resampling, the spectral filter's modes
+# ---------------------------------------------------------------------------
+
+def _jdtype(d) -> str:
+    return str(np.dtype(d))
+
+
+def _tdtype(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+class TestExtras:
+    def test_sht_buffer_specs_match_jax_and_buffers(self):
+        g = (16, 32, "gauss")
+        j = jsht.SHT.create(jgrids.make_grid(*g)).buffer_specs()
+        t = tsht.SHT.create(tgrids.make_grid(*g))
+        specs = t.buffer_specs()
+        assert all(s.device.type == "meta" for s in specs.values())
+        for k, want in j.items():
+            assert tuple(specs[k].shape) == want.shape, k
+            assert _tdtype(specs[k]) == _jdtype(want.dtype), k
+        bufs = t.buffers()
+        assert set(specs) == set(bufs)
+        for k, b in bufs.items():
+            assert (specs[k].shape, specs[k].dtype) == (b.shape, b.dtype), k
+
+    @pytest.mark.parametrize("layout", ["reference", "kernel"])
+    def test_disco_buffer_specs_match_jax_and_buffers(self, layout):
+        from repro.kernels.config import KernelConfig as JKC
+        from repro_torch.kernels.config import KernelConfig as TKC
+        gi, go = SMOKE_PAIRS[0]
+        jplan = jdisco.make_disco_plan(jgrids.make_grid(*gi),
+                                       jgrids.make_grid(*go))
+        tplan = tdisco.make_disco_plan(tgrids.make_grid(*gi),
+                                       tgrids.make_grid(*go))
+        jk = (JKC() if layout == "reference"
+              else JKC(sht="pallas", disco="pallas", interpret=True))
+        tk = TKC(sht=layout, disco=layout)
+        want = jplan.buffer_specs(kernels=jk)
+        specs = tplan.buffer_specs(tk)
+        for k, w in want.items():
+            assert tuple(specs[k].shape) == w.shape, k
+            # the port keeps its wrap rows as int64 index tensors
+            if k != "wrap_rows":
+                assert _tdtype(specs[k]) == _jdtype(w.dtype), k
+        bufs = tplan.buffers("cpu", tk)
+        assert set(specs) == set(bufs)
+        for k, b in bufs.items():
+            assert (specs[k].shape, specs[k].dtype) == (b.shape, b.dtype), k
+
+    @pytest.mark.parametrize("src,dst", [
+        ((16, 32, "gauss"), (33, 64, "equiangular")),
+        ((33, 64, "equiangular"), (16, 32, "gauss"))], ids=["up", "down"])
+    def test_resample_matches_jax(self, src, dst):
+        x = _rng(5).standard_normal((2, 3) + src[:2]).astype(np.float32)
+        want = jsht.resample(jnp.asarray(x),
+                             jsht.SHT.create(jgrids.make_grid(*src)),
+                             jsht.SHT.create(jgrids.make_grid(*dst)))
+        got = tsht.resample(torch.from_numpy(x),
+                            tsht.SHT.create(tgrids.make_grid(*src)),
+                            tsht.SHT.create(tgrids.make_grid(*dst)))
+        assert tuple(got.shape) == (2, 3) + dst[:2]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("mode,lmax_keep", [
+        ("depthwise", None), ("depthwise", 9), ("full", 9)])
+    def test_spectral_conv_modes_match_jax(self, mode, lmax_keep):
+        import jax
+        from repro.core.sphere import spectral_conv as jspec
+        from repro_torch.core.sphere import spectral_conv as tspec
+        from repro_torch.kernels.config import KernelConfig as TKC
+        g = (16, 32, "gauss")
+        jt = jsht.SHT.create(jgrids.make_grid(*g))
+        tt = tsht.SHT.create(tgrids.make_grid(*g))
+        c, lmax = 4, jt.lmax
+        params = jspec.init_spectral_filter(jax.random.PRNGKey(3), c, c,
+                                            lmax, mode=mode)
+        if mode == "depthwise":   # move the gain off its ones
+            params = {"w": params["w"] + jnp.asarray(
+                _rng(6).standard_normal((c, lmax)), jnp.float32)}
+        x = _rng(7).standard_normal((2, c) + g[:2]).astype(np.float32)
+        want = jspec.apply_spectral_conv(params, jnp.asarray(x),
+                                         jt.buffers(), g[1],
+                                         lmax_keep=lmax_keep)
+        filt = tspec.SpectralFilter(c, c, lmax, mode=mode)
+        if mode == "depthwise":
+            assert torch.equal(filt.w, torch.ones(c, lmax))
+        with torch.no_grad():
+            for k, v in params.items():
+                getattr(filt, k).copy_(torch.from_numpy(np.array(v)))
+        got = filt(torch.from_numpy(x), tt.buffers(), g[1],
+                   TKC(sht="reference"), lmax_keep=lmax_keep)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+    def test_depthwise_needs_equal_channels(self):
+        from repro_torch.core.sphere import spectral_conv as tspec
+        with pytest.raises(ValueError, match="c_out == c_in"):
+            tspec.SpectralFilter(3, 4, 8, mode="depthwise")
