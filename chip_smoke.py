@@ -69,8 +69,25 @@ non-zero exit code and no result line:
    ``DIST_LOSS_RTOL``, the gradients within the gradient bar, the
    parameters bitwise equal on both ranks after the step; per rank the
    step's seconds, its share in collectives, the CRPS launches (> 0) and
-   the peak.  The plans reach the ranks through ``export_plan`` /
-   ``install_plan`` payloads, not built again;
+   the peak; (d) the domain-decomposed step (``--fcn3-sharding
+   domain``, latitude over the model axis): (d1) ``launch/train.py
+   --mesh-model 2`` at ``fcn3_full`` on the training cell's settings and
+   initial parameters, both members on each rank's 360 / 361 IO rows,
+   held to the first step as (c) is; per rank the step's seconds, its
+   share in collectives, its halo bytes, its peak and the launches of
+   the band forward, transpose, Legendre and CRPS kernels (> 0, no
+   plain version on a CUDA tensor); (d2) one ``fcn3_small`` forward over
+   4 ranks (181 rows: 45 / 45 / 45 / 46) gathered against the single
+   process at the dispatch bar; (d3) the band kernel on rank 0's
+   row-sliced encoder, latent and decoder bands and its transpose on
+   the latent and decoder ones (the encoders' inputs take no gradient)
+   at the largest planes (d1) launched them with, through the checks of
+   phase 7 (times, bounds, the ``F.conv1d`` / ``F.conv_transpose1d``
+   yardsticks, the plain version), the CRPS kernels at the points of
+   rank 0's loss terms, and the Legendre kernel on rank 0's padded
+   tables (the latent SHT's and the spectral loss's at the IO grid) at
+   the pencils (d1) gave it.  The plans reach the ranks through
+   ``export_plan`` / ``install_plan`` payloads, not built again;
 6. the LM path: ``repro_torch.launch.lm`` at the full width of
    ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
    random weights): one prefill at ``prefill_32k`` with its batch cut
@@ -94,7 +111,7 @@ non-zero exit code and no result line:
    operands of the prefill's first layer and the inter-chunk recurrence
    kernel on that layer's states; timings (CUDA
    events, median), the ``library_ms`` yardstick at every band shape
-   (``conv_transpose1d`` takes seconds a call: one call after one warm-up)
+   (``conv_transpose1d`` takes seconds a call: one timed call)
    and the least time the card could take, in fp32 (``bound_ms``) and
    on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
 8. the ``kernels`` JSON line, then the result line.
@@ -107,6 +124,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -178,6 +196,9 @@ DIST_BACKEND, DIST_GRID, DIST_CHANNELS = "gloo", (2, 2), 644
 DIST_TRAIN_RANKS, DIST_TRAIN_STEPS = 2, 2
 #: the single-process loss vs the distributed one
 DIST_LOSS_RTOL = 1e-5
+#: (d2) the domain step's forward at fcn3_small over 4 ranks (ragged IO
+#: rows 45/45/45/46 and latent rows 22/23/22/23), 2 samples
+DIST_SMALL_CONFIG, DIST_SMALL_RANKS = "small", 4
 #: two values closer than this, relative, are counted as a near-tie
 #: (8 units in the last place of fp32)
 TIE_REL = 8 * 2.0 ** -23
@@ -450,21 +471,22 @@ def check_disco(ent, name, full: bool) -> dict:
         return F.conv1d(xp, wt, stride=stride, groups=h_out)
 
     lib_ms = cuda_ms(lib, reps=3)
+    # the plain version: one timed call (seconds at these shapes), whose
+    # output the kernel is held to at the largest batch of each geometry
+    refs = []
+    plain_ms = cuda_ms(lambda: refs.append(
+        disco_gather_band_contract_ref(x, psi, lat_idx, stride)), reps=1,
+        warmup=0)
+    ref = refs.pop()
     if full:
         got = kernel()
-        torch.cuda.synchronize()
-        ref = disco_gather_band_contract_ref(x, psi, lat_idx, stride)
-        torch.cuda.synchronize()
         abs_err, rel_err = errors(got, ref)
         deterministic = torch.equal(got, kernel())
         del got
-        plain_ms = cuda_ms(
-            lambda: disco_gather_band_contract_ref(x, psi, lat_idx, stride),
-            reps=2, warmup=0)
         lib_out = lib().reshape(b, h_out, k, w_out).permute(0, 2, 1, 3)
         lib_err = errors(lib_out, ref)[1]
-        del lib_out, ref
-    del xp
+        del lib_out
+    del xp, ref
     if full:
         if not (rel_err <= REL_TOL and deterministic):
             raise AssertionError(f"disco {name}: kernel disagrees with its "
@@ -483,17 +505,17 @@ def check_disco(ent, name, full: bool) -> dict:
     log(f"[kernel] disco {name} {row['shape']}: launches={ent['launches']} "
         f"ms={ms:.3f} bound_ms={row['bound_ms']:.3f} "
         f"bound_tc_ms={row['bound_tc_ms']:.3f} "
-        f"tflops={flops / ms / 1e9:.2f} conv1d_ms={lib_ms:.3f}"
+        f"tflops={flops / ms / 1e9:.2f} conv1d_ms={lib_ms:.3f} "
+        f"plain_ms={plain_ms:.3f}"
         + (f" abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
-           f"plain_ms={plain_ms:.3f} (conv1d rel_err {lib_err:.1e})"
-           if full else ""))
+           f"(conv1d rel_err {lib_err:.1e})" if full else ""))
     return row
 
 
 def check_transpose(ent, name) -> dict:
     """Band transpose kernel vs its plain version at one training shape,
     its launches there, and the ``conv_transpose1d`` yardstick's time
-    (one call after one warm-up: it takes seconds, see PERF.md)."""
+    (one call: it takes seconds, see PERF.md)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
@@ -516,14 +538,14 @@ def check_transpose(ent, name) -> dict:
         return disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
 
     got = kernel()
-    torch.cuda.synchronize()
-    ref = plain()
-    torch.cuda.synchronize()
+    # the plain version: one timed call (seconds at these shapes)
+    refs = []
+    plain_ms = cuda_ms(lambda: refs.append(plain()), reps=1, warmup=0)
+    ref = refs.pop()
     abs_err, rel_err = errors(got, ref)
     deterministic = torch.equal(got, kernel())
     del got
     ms = cuda_ms(kernel, reps=5)
-    plain_ms = cuda_ms(plain, reps=1, warmup=0)
     lib_ms = lib_err = None
     # the grouped conv1d of check_disco, transposed: one conv_transpose1d
     # onto the wrap-padded gathered rows (cuDNN, TF32 off); folding the
@@ -535,7 +557,11 @@ def check_transpose(ent, name) -> dict:
         return F.conv_transpose1d(gl, wt, stride=stride, groups=h_out)
 
     try:
-        gxp = lib()   # the warm-up
+        # one timed call (no warm-up: at the decoder a call takes 35-44 s,
+        # cuDNN's benchmark mode is off), its output checked
+        outs = []
+        lib_ms = cuda_ms(lambda: outs.append(lib()), reps=1, warmup=0)
+        gxp = outs.pop()
         fold = gxp[..., :w_in].clone()
         fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
         del gxp
@@ -544,7 +570,6 @@ def check_transpose(ent, name) -> dict:
         del fold
         lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
         del gxr
-        lib_ms = cuda_ms(lib, reps=1, warmup=0)
     except RuntimeError as exc:  # the yardstick only; never in the port
         log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
     del gl, ref
@@ -1703,6 +1728,7 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
     from repro_torch.train import trainer as trlib
     _install_payloads(plans)
     guard = PlainGuard()
+    rec = Recorder()
     for mod in (crps_ops, disco_ops, legendre_ops):
         mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1728,8 +1754,24 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
                         "crps_fused": crps_ops.launches,
                         "crps_fused_bwd": crps_ops.bwd_launches},
            "plain": dict(guard.counts),
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           # the band kernels' launches by (psi, stride, operand) shape,
+           # and the Legendre kernel's largest operand by table shape and
+           # layout (the inverse SHT's table is a transposed view)
+           "shapes": {kind: {k: e["launches"] for k, e in ents.items()}
+                      for kind, ents in (("disco", rec.disco),
+                                         ("transpose", rec.transpose))},
+           "legendre": {(tuple(e["table"].shape),
+                         e["table"].is_contiguous()): e["shape"]
+                        for e in rec.legendre.values()},
+           # the CRPS kernels' operand shapes
+           "crps": list(rec.crps.values())}
+    rec.close()
     guard.close()
+    dom = kept["trainer"].domain
+    if dom is not None:
+        out["rows"] = (dom.io_block, dom.lat_block)
     model = kept["trainer"].model
     out["params_equal"] = _replicas_equal(
         [p.detach() for p in model.parameters()])
@@ -1817,26 +1859,14 @@ def dist_phase(report, step0: dict, tmp: str) -> dict:
             "--mesh-model",
             str(DIST_TRAIN_RANKS), "--dist-backend", DIST_BACKEND,
             "--init-from", step0["ckpt"], "--device", "cuda"]
-    report(f"[dist] (c) launch/train.py {' '.join(argv)} on "
+    argv_c = argv + ["--fcn3-sharding", "ensemble"]
+    report(f"[dist] (c) launch/train.py {' '.join(argv_c)} on "
            f"{DIST_TRAIN_RANKS} ranks of one card (all {cfg.n_blocks} "
            f"blocks: no depth cut); plans {nbytes / 1e9:.3f} GB handed over")
-    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv),
+    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_c),
                     backend=DIST_BACKEND, timeout=900.0)
     out["train_s"] = time.time() - t0
-    loss = res[0]["history"][0]["loss"]
-    ref = step0["grads"]
-    worst, gerr, at, sq, sq_ref = 0.0, 0.0, None, 0.0, 0.0
-    for k, g in res[0]["grads"].items():
-        diff = (g - ref[k]).abs()
-        gerr = max(gerr, float(diff.max()))
-        ratio = diff / (GRAD_ATOL + GRAD_RTOL * ref[k].abs())
-        if float(ratio.max()) > worst:
-            i = int(ratio.argmax())
-            worst, at = float(ratio.max()), (k, float(ref[k].reshape(-1)[i]),
-                                             float(diff.reshape(-1)[i]))
-        sq += float((diff.double() ** 2).sum())
-        sq_ref += float((ref[k].double() ** 2).sum())
-    loss_rel = abs(loss - step0["loss"]) / abs(step0["loss"])
+    loss, loss_rel, gerr, rel_all, worst, at = _vs_first_step(res, step0)
     for i, r in enumerate(res):
         hs = r["history"]
         report(f"[dist] (c) rank {i}: step_s="
@@ -1851,7 +1881,7 @@ def dist_phase(report, step0: dict, tmp: str) -> dict:
     report(f"[dist] (c) first step vs the single-process first step: loss "
            f"{loss:.7f} vs {step0['loss']:.7f} (rel {loss_rel:.2e}, bar "
            f"{DIST_LOSS_RTOL:g}); gradients max_abs_err={gerr:.3e}, "
-           f"|diff| / |ref| over all = {math.sqrt(sq / sq_ref):.2e}, worst "
+           f"|diff| / |ref| over all = {rel_all:.2e}, worst "
            f"|diff| / (atol + rtol |ref|) = {worst:.3f} at {at[0]} (ref "
            f"{at[1]:.4e}, diff {at[2]:.3e}; rtol={GRAD_RTOL}, atol="
            f"{GRAD_ATOL}); the single-process first step's members within "
@@ -1871,11 +1901,262 @@ def dist_phase(report, step0: dict, tmp: str) -> dict:
                              f"{loss_rel:.3e}, gradient {worst:.3f}")
     out["train"] = [{k: v for k, v in r.items() if k != "grads"}
                     for r in res]
+    out.update(domain_phase(report, step0, plans, argv))
+    return out
+
+
+def _vs_first_step(res, step0: dict) -> tuple:
+    """Rank 0's first distributed step against the single process's:
+    the loss, its relative error, the gradients' max abs error, their
+    relative error over all, the worst |diff| / (atol + rtol |ref|) and
+    where it is (name, ref, diff)."""
+    loss = res[0]["history"][0]["loss"]
+    ref = step0["grads"]
+    worst, gerr, at, sq, sq_ref = 0.0, 0.0, None, 0.0, 0.0
+    for k, g in res[0]["grads"].items():
+        diff = (g - ref[k]).abs()
+        gerr = max(gerr, float(diff.max()))
+        ratio = diff / (GRAD_ATOL + GRAD_RTOL * ref[k].abs())
+        if float(ratio.max()) > worst:
+            i = int(ratio.argmax())
+            worst, at = float(ratio.max()), (k, float(ref[k].reshape(-1)[i]),
+                                             float(diff.reshape(-1)[i]))
+        sq += float((diff.double() ** 2).sum())
+        sq_ref += float((ref[k].double() ** 2).sum())
+    loss_rel = abs(loss - step0["loss"]) / abs(step0["loss"])
+    return loss, loss_rel, gerr, math.sqrt(sq / sq_ref), worst, at
+
+
+def dist_small_rank(rank: int, world_size: int) -> dict:
+    """Phase (d2), on one rank: one forward of the domain step at
+    ``DIST_SMALL_CONFIG`` on this rank's rows (seeded parameters and
+    inputs), with its launches and plain calls on CUDA tensors; rank 0
+    gathers every rank's rows and holds them to the single process's
+    forward of the whole field (worst |diff| / (atol + rtol |ref|))."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import domain
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import set_precision
+    set_precision()
+    dev = torch.device("cuda")
+    cfg = fcn3cfg.NAMED_CONFIGS[DIST_SMALL_CONFIG]()
+    model = FCN3(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    mesh = make_mesh((1, world_size), ("data", "model"), "cuda")
+    d = domain.DomainFCN3(model, mesh.get_group("model"))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    state = torch.randn((2, cfg.n_state, cfg.nlat, cfg.nlon), generator=gen,
+                        device=dev)
+    cond = torch.randn((2, cfg.n_cond_in, cfg.nlat, cfg.nlon), generator=gen,
+                       device=dev)
+    lo, hi = d.io_block
+    bufs = d.make_buffers()
+    guard = PlainGuard()
+    disco_ops.reset_launches()
+    legendre_ops.reset_launches()
+    with torch.no_grad():
+        got = d(bufs, state[..., lo:hi, :].contiguous(),
+                cond[..., lo:hi, :].contiguous())
+    out = {"rows": (lo, hi), "latent_rows": d.lat_block,
+           "launches": {"disco_band_contract": disco_ops.launches,
+                        "legendre_contract": legendre_ops.launches},
+           "plain": sum(guard.counts.values())}
+    guard.close()
+    hp = max(b - a for a, b in d.io_blocks)
+    padded = F.pad(got, (0, 0, 0, hp - (hi - lo))).contiguous()
+    every = padded.new_empty((world_size * padded.shape[0],)
+                             + padded.shape[1:])
+    dist.all_gather_into_tensor(every, padded)
+    every = every.reshape((world_size,) + padded.shape)
+    if rank == 0:
+        full = torch.cat([every[q, ..., :b - a, :]
+                          for q, (a, b) in enumerate(d.io_blocks)], dim=-2)
+        with torch.no_grad():
+            ref = model(model.make_buffers(), state, cond)
+        diff = (full - ref).abs()
+        out["worst"] = float((diff / (STATE_ATOL + STATE_RTOL * ref.abs()))
+                             .max())
+        out["max_abs_err"] = float(diff.max())
+        out["finite"] = bool(torch.isfinite(full).all())
+    return out
+
+
+def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
+    """(d) the domain-decomposed step: (d1) the training cell through
+    ``launch/train.py --fcn3-sharding domain`` against the single
+    process's first step, (d2) the ``fcn3_small`` forward over 4 ranks,
+    (d3) the band, CRPS and Legendre kernels on rank 0's row-sliced
+    operands at (d1)'s shapes; raises on any failed check."""
+    import torch
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core import fcn3
+    from repro_torch.core.sphere import disco as discolib
+    from repro_torch.distributed import domain
+    from repro_torch.distributed.compat import row_block
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import dispatch
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    report(f"[dist] (d) this process holds "
+           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+           f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card "
+           f"{(total - free) / 1e9:.2f} of {total / 1e9:.2f} GB in use")
+    t0 = time.time()
+    argv_d = argv + ["--fcn3-sharding", "domain"]
+    report(f"[dist] (d1) launch/train.py {' '.join(argv_d)} on "
+           f"{DIST_TRAIN_RANKS} latitude ranks of one card, both members on "
+           "each rank's rows")
+    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_d),
+                    backend=DIST_BACKEND, timeout=900.0)
+    out["domain_s"] = time.time() - t0
+    loss, loss_rel, gerr, rel_all, worst, at = _vs_first_step(res, step0)
+    for i, r in enumerate(res):
+        hs = r["history"]
+        report(f"[dist] (d1) rank {i}: io_rows={r['rows'][0]} latent_rows="
+               f"{r['rows'][1]} step_s={[round(h['seconds'], 3) for h in hs]}"
+               f" collective_s={[round(h['collective_s'], 3) for h in hs]} "
+               f"(share "
+               f"{[round(h['collective_s'] / h['seconds'], 3) for h in hs]})"
+               f" halo_bytes={[int(h['halo_bytes']) for h in hs]} "
+               f"loss={[round(h['loss'], 7) for h in hs]} |g|="
+               f"{[round(h['grad_norm'], 6) for h in hs]} launches="
+               f"{r['launches']} plain_calls_on_cuda={r['plain']} "
+               f"peak_mem_gb={r['peak_gb']:.2f} peak_reserved_gb="
+               f"{r['reserved_gb']:.2f} params_equal_rank0="
+               f"{r['params_equal']}")
+    report(f"[dist] (d1) first step vs the single-process first step: loss "
+           f"{loss:.7f} vs {step0['loss']:.7f} (rel {loss_rel:.2e}, bar "
+           f"{DIST_LOSS_RTOL:g}); gradients max_abs_err={gerr:.3e}, "
+           f"|diff| / |ref| over all = {rel_all:.2e}, worst |diff| / (atol "
+           f"+ rtol |ref|) = {worst:.3f} at {at[0]} (ref {at[1]:.4e}, diff "
+           f"{at[2]:.3e}); phase {out['domain_s']:.1f} s")
+    for i, r in enumerate(res):
+        if min(r["launches"].values()) <= 0:
+            raise AssertionError(f"(d1) rank {i} launches {r['launches']}")
+        if any(r["plain"].values()) or not r["params_equal"]:
+            raise AssertionError(f"(d1) rank {i}: plain {r['plain']}, "
+                                 f"params equal {r['params_equal']}")
+        if not all(h["halo_bytes"] > 0 for h in r["history"]):
+            raise AssertionError(f"(d1) rank {i} exchanged no halo")
+    if not (loss_rel <= DIST_LOSS_RTOL and worst <= 1.0):
+        raise AssertionError(f"domain step disagrees: loss rel "
+                             f"{loss_rel:.3e}, gradient {worst:.3f}")
+    out["domain"] = [{k: v for k, v in r.items() if k != "grads"}
+                     for r in res]
+
+    t0 = time.time()
+    res = run_world(dist_small_rank, DIST_SMALL_RANKS, (),
+                    backend=DIST_BACKEND, timeout=600.0)
+    out["small_s"] = time.time() - t0
+    for i, r in enumerate(res):
+        report(f"[dist] (d2) {DIST_SMALL_CONFIG} forward rank {i}: io_rows="
+               f"{r['rows']} latent_rows={r['latent_rows']} launches="
+               f"{r['launches']} plain_calls_on_cuda={r['plain']}")
+        if min(r["launches"].values()) <= 0 or r["plain"]:
+            raise AssertionError(f"(d2) rank {i}: launches {r['launches']}"
+                                 f", plain {r['plain']}")
+    r0 = res[0]
+    report(f"[dist] (d2) gathered forward vs the single process: "
+           f"max_abs_err={r0['max_abs_err']:.3e}, worst |diff| / (atol + "
+           f"rtol |ref|) = {r0['worst']:.3f} (rtol={STATE_RTOL} atol="
+           f"{STATE_ATOL}), finite={r0['finite']}; phase "
+           f"{out['small_s']:.1f} s")
+    if not (r0["finite"] and r0["worst"] <= 1.0):
+        raise AssertionError(f"(d2) the domain forward disagrees: "
+                             f"{r0['worst']:.3f}")
+
+    # (d3) rank 0's row-sliced bands at the planes (d1) gave them, each
+    # through check_disco / check_transpose as a Recorder entry
+    from repro_torch.kernels.disco import ops as disco_ops
+    geo = fcn3.geometry(fcn3cfg.NAMED_CONFIGS[CONFIG]())
+    cfg = fcn3cfg.NAMED_CONFIGS[CONFIG]()
+    shapes = out["domain"][0]["shapes"]
+    rows = []
+    for name, h_out in (("enc", cfg.latent_nlat), ("latent", cfg.latent_nlat),
+                        ("dec", cfg.nlat)):
+        plan = discolib.make_disco_plan(*geo[name])
+        block = row_block(h_out, 0, DIST_TRAIN_RANKS)
+        need = domain.halo_rows(plan, *block)
+        bufs = {k: torch.from_numpy(v).cuda() for k, v in
+                domain.local_band_rows(plan, block, need).items()}
+        ent = {"psi": bufs["psi_band"], "lat_idx": bufs["lat_idx"],
+               "taps": disco_ops.LiveTaps.of(bufs),
+               "rows": disco_ops.RowTaps.of(bufs), "h_in": len(need),
+               "stride": plan.stride}
+        psi = tuple(bufs["psi_band"].shape)
+        fwd = {x: n for (ps, _, x), n in shapes["disco"].items() if ps == psi}
+        bwd = {g: n for (ps, _, g), n in shapes["transpose"].items()
+               if ps == psi}
+        what = f"{name} rows {block} of {DIST_TRAIN_RANKS}"
+        x = max(fwd, key=lambda x: x[0])
+        row = check_disco(dict(ent, shape=x, launches=sum(fwd.values())),
+                          what, full=True)
+        rows.append(dict(row, kernel="disco_band_contract",
+                         path="dist_domain"))
+        torch.cuda.empty_cache()
+        if bwd:    # the encoders' inputs take no gradient
+            g = max(bwd, key=lambda g: g[0])
+            row = check_transpose(dict(ent, shape=g,
+                                       launches=sum(bwd.values())), what)
+            rows.append(dict(row, kernel="disco_band_transpose",
+                             path="dist_domain"))
+            torch.cuda.empty_cache()
+        del bufs, ent
+    # the CRPS kernels at the points of rank 0's terms
+    for ent in out["domain"][0]["crps"]:
+        rows += [dict(row, kernel="crps_fused", path="dist_domain")
+                 for row in check_crps(ent)]
+    # the Legendre kernel on rank 0's tables (domain_sht_tables: rows
+    # padded to a multiple of the ranks, zero past lmax) at the pencils
+    # (d1) gave it, in each layout it read them: the latent SHT's forward
+    # table and pct transposed (the inverse SHT; the backwards read the
+    # same shapes), the loss's forward table at the IO grid and its
+    # transpose (the backward)
+    for sht_name, h, inverse in (("latent_sht", cfg.latent_nlat, True),
+                                 ("in_sht", cfg.nlat, False)):
+        tables = domain.domain_sht_tables(
+            geo[sht_name], [row_block(h, q, DIST_TRAIN_RANKS)
+                            for q in range(DIST_TRAIN_RANKS)], "cuda",
+            inverse=inverse)
+        key = "pct" if inverse else "wpct"
+        for what, table, ext in (
+                ("wpct", tables["wpct"], tables["wpct_ext"]),
+                (f"{key} transposed", tables[key].transpose(0, 1),
+                 dispatch.transposed_extents(tables[f"{key}_ext"]))):
+            shape = out["domain"][0]["legendre"].get(
+                (tuple(table.shape), table.is_contiguous()))
+            if shape is None:
+                continue
+            row = check_legendre(table, ext, shape, torch.complex64,
+                                 f"{sht_name} {what}, rank 0 of "
+                                 f"{DIST_TRAIN_RANKS}")
+            rows.append(dict(row, kernel="legendre_contract",
+                             path="dist_domain"))
+        del tables
+    if not any(r["kernel"] == "legendre_contract" for r in rows):
+        raise AssertionError("(d3) no Legendre shape of (d1) matched rank "
+                             "0's tables")
+    out["domain_rows"] = rows
     return out
 
 
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
+    # the [dist] phase puts two ranks of 30-34 GB beside this process on
+    # the card: expandable segments keep what each process reserves close
+    # to what it allocates (without them this process held 1.5 GB in 5.2
+    # GB reserved there, and a rank 4.7 GB beyond its allocations); set
+    # before the first CUDA allocation, and inherited by the ranks
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2169,7 +2450,8 @@ def main() -> int:
         shutil.rmtree(dist_tmp, ignore_errors=True)
     log(f"[dist] card: {card}; selftest {dist['selftest_s']:.1f} s, "
         f"Algorithms 1-2 {dist['geometry_s']:.1f} s, training "
-        f"{dist['train_s']:.1f} s")
+        f"{dist['train_s']:.1f} s, domain training {dist['domain_s']:.1f} "
+        f"s, domain forward {dist['small_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
@@ -2305,6 +2587,10 @@ def main() -> int:
     for ent in train_rec.crps.values():
         rows["crps_fused"].extend(check_crps(ent))
         torch.cuda.empty_cache()
+    # (d3): the band and CRPS kernels on a rank's row-sliced operands,
+    # the Legendre kernel on its padded tables
+    for row in dist["domain_rows"]:
+        rows[row["kernel"]].append(row)
 
     meta = {
         "legendre_contract": ("cuda", "src/repro_torch/csrc/legendre.cu",
@@ -2329,7 +2615,7 @@ def main() -> int:
         # the headline shape is the kernel's main path's (the engine
         # path's rows stay in "shapes")
         fwd = [r for r in rows[name]
-               if r["what"] != "backward" and r.get("path") != "engine"]
+               if r["what"] != "backward" and r.get("path") is None]
         top = max(fwd, key=lambda r: r["flops"])
         by_path = {"serve": launches.get(name, 0),
                    "engine": engine_launches.get(name, 0),
@@ -2341,7 +2627,9 @@ def main() -> int:
                    # rank 0's, in Algorithms 1-2 and in its training run
                    "dist_geometry": dist["geometry"][0]["launches"].get(
                        name, 0),
-                   "dist_train": dist["train"][0]["launches"].get(name, 0)}
+                   "dist_train": dist["train"][0]["launches"].get(name, 0),
+                   "dist_domain": dist["domain"][0]["launches"].get(name,
+                                                                    0)}
         ent = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,
@@ -2361,7 +2649,8 @@ def main() -> int:
             "bound_tc_ms": top["bound_tc_ms"],
             "library_ms": top["library_ms"], "at": top["shape"],
             "shapes": rows[name]}
-        bwd = [r for r in rows[name] if r["what"] == "backward"]
+        bwd = [r for r in rows[name]
+               if r["what"] == "backward" and r.get("path") is None]
         if bwd:
             # the CRPS backward kernel of the same source, at its largest
             # shape: its launches, times and bound

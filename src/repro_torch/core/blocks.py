@@ -112,6 +112,11 @@ class Block(nn.Module):
             h = self.conv(h, buffers, stride=1)
         else:
             h = self.conv(h, buffers, nlon=x.shape[-1], kernels=kernels)
+        return self.mix(x, h)
+
+    def mix(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The block after its convolution: GELU, the MLP, LayerScale and
+        the residual, from the conv's output ``h`` (pointwise)."""
         h = gelu(h)
         h = self.mlp(h)
         return x + self.layer_scale[:, None, None] * h

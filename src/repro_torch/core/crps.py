@@ -100,11 +100,18 @@ def spectral_crps_loss(ens: torch.Tensor, obs: torch.Tensor,
     co = shtlib.sht_forward(obs, wpct)
     sr = crps_ops.crps_pointwise(ce.real, co.real, fair)
     si = crps_ops.crps_pointwise(ce.imag, co.imag, fair)
-    l, m = sr.shape[-2:]
-    mult = np.concatenate([[1.0], np.full((m - 1,), 2.0)])
-    w = shtlib.mode_mask(l, m) * mult[None, :]
-    wt = torch.from_numpy(w.astype(np.float32)).to(sr.device)
-    return torch.einsum("...clm,lm->...c", sr + si, wt) / float(w.sum())
+    wt = torch.from_numpy(spectral_weights(*sr.shape[-2:]).astype(
+        np.float32)).to(sr.device)
+    return torch.einsum("...clm,lm->...c", sr + si, wt)
+
+
+def spectral_weights(lmax: int, mmax: int) -> np.ndarray:
+    """Eq. (51)'s weight of each (l, m) coefficient slot: the mode mask
+    (m <= l) times the multiplicity (1 at m = 0, 2 above), normalized by
+    the number of real degrees of freedom.  (lmax, mmax) float64."""
+    mult = np.concatenate([[1.0], np.full((mmax - 1,), 2.0)])
+    w = shtlib.mode_mask(lmax, mmax) * mult[None, :]
+    return w / w.sum()
 
 
 def fcn3_objective(ens: torch.Tensor, obs: torch.Tensor,

@@ -293,9 +293,14 @@ class FCN3(nn.Module):
         return torch.cat([za, zs], dim=-3), zc
 
     def _decode(self, buffers: dict, latent: torch.Tensor) -> torch.Tensor:
+        return self._decoders(buffers, self.upsample(latent))
+
+    def _decoders(self, buffers: dict, up: torch.Tensor) -> torch.Tensor:
+        """The two grouped decoders on the upsampled latent ``up``
+        (..., C_latent, H_in, W) -> (..., n_state, H_out, W), H_out the
+        rows of ``buffers["dec"]``."""
         cfg = self.cfg
         nl = cfg.n_levels
-        up = self.upsample(latent)  # (..., C_latent, H, W)
         b = up.shape[:-3]
         hw = up.shape[-2:]
         atmos_lat = up[..., : nl * cfg.atmos_embed, :, :].reshape(
@@ -303,7 +308,7 @@ class FCN3(nn.Module):
         surf_lat = up[..., nl * cfg.atmos_embed:, :, :]
         del up
         ua = self.dec_atmos(atmos_lat, buffers["dec"], 1)
-        ua = ua.reshape(b + (nl * cfg.n_atmos,) + hw)
+        ua = ua.reshape(b + (nl * cfg.n_atmos,) + ua.shape[-2:])
         us = self.dec_surface(surf_lat, buffers["dec"], 1)
         return torch.cat([ua, us], dim=-3)
 

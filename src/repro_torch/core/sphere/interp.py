@@ -55,8 +55,31 @@ class BilinearResample:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (..., H_in, W_in) -> (..., H_out, W_out)."""
+        return self.resample_rows(x, np.arange(self.grid_in.nlat),
+                                  (0, self.grid_out.nlat))
+
+    def input_rows(self, out_block: tuple[int, int]) -> np.ndarray:
+        """The sorted input rows that output rows ``[lo, hi)`` read: their
+        two latitude neighbours, a pole standing for the ring next to it
+        (its value is that ring's mean)."""
+        i0 = self.lat_idx0[out_block[0]:out_block[1]].astype(np.int64)
+        return np.unique(np.clip(np.concatenate([i0, i0 + 1]), 0,
+                                 self.grid_in.nlat - 1))
+
+    def resample_rows(self, x: torch.Tensor, rows: np.ndarray,
+                      out_block: tuple[int, int]) -> torch.Tensor:
+        """Output rows ``[lo, hi)`` from the input rows ``rows`` (sorted,
+        covering ``input_rows(out_block)``): x (..., len(rows), W_in) ->
+        (..., hi - lo, W_out).  The same arithmetic as the whole field's,
+        row for row."""
         dev = x.device
         hin = self.grid_in.nlat
+        lo, hi = out_block
+        pos = np.full((hin,), -1, np.int64)
+        pos[rows] = np.arange(len(rows))
+        if (pos[self.input_rows(out_block)] < 0).any():
+            raise ValueError(f"rows miss input rows that output rows "
+                             f"[{lo}, {hi}) read")
         # Longitudinal interpolation first (cheap, periodic).
         j0 = torch.from_numpy(self.lon_idx0.astype(np.int64)).to(dev)
         j1 = (j0 + 1) % self.grid_in.nlon
@@ -64,15 +87,18 @@ class BilinearResample:
         xl = x.index_select(-1, j0) * (1.0 - wl) + x.index_select(-1, j1) * wl
 
         # Pole rows: longitudinal mean of the nearest ring, over W_out.
-        north = x[..., 0, :].mean(dim=-1, keepdim=True)
-        south = x[..., hin - 1, :].mean(dim=-1, keepdim=True)
+        north = x[..., max(pos[0], 0), :].mean(dim=-1, keepdim=True)
+        south = x[..., max(pos[hin - 1], 0), :].mean(dim=-1, keepdim=True)
         ones = torch.ones((1, xl.shape[-1]), dtype=xl.dtype, device=dev)
         xl = torch.cat([north[..., None, :] * ones, xl,
                         south[..., None, :] * ones], dim=-2)
-        # (..., H_in + 2, W_out); row 0 = north pole, row H_in+1 = south.
+        # (..., len(rows) + 2, W_out); row 0 = north pole, the last south.
 
-        i0 = torch.from_numpy(self.lat_idx0.astype(np.int64) + 1).to(dev)
-        i1 = i0 + 1
-        wt = torch.from_numpy(self.lat_w).to(dev)[:, None]
+        # input row g sits at row 1 + pos[g]; g = -1 / hin are the poles
+        ext = np.concatenate([[0], 1 + pos, [len(rows) + 1]])
+        g0 = self.lat_idx0[lo:hi].astype(np.int64)
+        i0 = torch.from_numpy(ext[g0 + 1]).to(dev)
+        i1 = torch.from_numpy(ext[g0 + 2]).to(dev)
+        wt = torch.from_numpy(self.lat_w[lo:hi]).to(dev)[:, None]
         return (xl.index_select(-2, i0) * (1.0 - wt)
                 + xl.index_select(-2, i1) * wt)

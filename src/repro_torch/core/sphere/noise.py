@@ -94,10 +94,15 @@ class SphericalDiffusion:
         out[:, 0] = 0.0  # l = 0: no mean offset, matches sum_{l>0} in (28c)
         return out
 
-    def buffers(self, device: torch.device | str = "cpu"
+    def buffers(self, device: torch.device | str = "cpu",
+                rows: tuple[int, int] | None = None
                 ) -> dict[str, torch.Tensor]:
-        """``pct`` (the inverse-SHT table) and ``sigma_l``."""
+        """``pct`` (the inverse-SHT table) and ``sigma_l``; with ``rows`` =
+        (lo, hi), ``pct`` of those latitudes only, so ``to_grid`` gives
+        just those rows (a rank's block in the domain decomposition)."""
         _, pbar = self.sht.tables()
+        if rows is not None:
+            pbar = pbar[rows[0]:rows[1]]
         return {
             "pct": torch.from_numpy(pbar.astype(np.float32)).to(device),
             "sigma_l": torch.from_numpy(

@@ -64,6 +64,17 @@ class SpectralFilter(nn.Module):
         self.w_re.copy_(scale * randn_like_param(self.w_re, generator))
         self.w_im.copy_(scale * randn_like_param(self.w_im, generator))
 
+    def apply_weights(self, c: torch.Tensor, degrees=None) -> torch.Tensor:
+        """The filter on coefficients c (..., C_in, L', M) -> (..., C_out,
+        L', M).  ``degrees`` maps a (..., L) per-degree weight to the L'
+        degrees c holds (a rank's block of them); by default c holds all
+        L."""
+        sel = degrees or (lambda w: w)
+        if self.mode == "depthwise":
+            return c * sel(self.w.float())[..., :, None]
+        w = torch.complex(sel(self.w_re.float()), sel(self.w_im.float()))
+        return torch.einsum("oil,...ilm->...olm", w, c)
+
     def forward(self, x: torch.Tensor, sht_buffers: dict, nlon: int,
                 kernels: KernelConfig | None = None,
                 lmax_keep: int | None = None) -> torch.Tensor:
@@ -80,11 +91,7 @@ class SpectralFilter(nn.Module):
         if lmax_keep is not None and lmax_keep < c.shape[-2]:
             c = torch.nn.functional.pad(c[..., :lmax_keep, :],
                                         (0, 0, 0, c.shape[-2] - lmax_keep))
-        if self.mode == "depthwise":
-            y = c * self.w.float()[..., :, None]
-        else:
-            w = torch.complex(self.w_re.float(), self.w_im.float())
-            y = torch.einsum("oil,...ilm->...olm", w, c)
+        y = self.apply_weights(c)
         if kernel:
             return dispatch.sht_inverse(y, pct, nlon, sht_buffers["pct_ext"])
         return shtlib.sht_inverse(y, pct, nlon)

@@ -23,6 +23,7 @@ from repro_torch.core.fcn3 import FCN3Config
 from repro_torch.core.sphere import grids as glib
 from repro_torch.core.sphere import noise as noiselib
 from repro_torch.core.sphere import sht as shtlib
+from repro_torch.distributed.compat import row_block
 from repro_torch.runtime import resolve_device
 
 _SEED_BASE = 20200101
@@ -171,7 +172,8 @@ class Loader:
 
     Each data-parallel rank generates only its ``rank``-th slice of the
     global batch; with ``lat_shard = (i, n)`` it also keeps only its
-    latitude band, as the JAX package's loader does.
+    latitude band, ``compat.row_block``'s rows, as the JAX package's
+    loader does.
     """
 
     ds: SyntheticERA5
@@ -206,9 +208,11 @@ class Loader:
                  "aux": torch.stack(aux)}
         i, n = self.lat_shard
         if n > 1:
-            h = batch["state"].shape[-2]
-            lo, hi = (h * i) // n, (h * (i + 1)) // n
-            batch = {k: v[..., lo:hi, :] for k, v in batch.items()}
+            lo, hi = row_block(batch["state"].shape[-2], i, n)
+            # copies, so that the whole field is freed
+            batch = {k: v[..., lo:hi, :].clone(
+                memory_format=torch.contiguous_format)
+                for k, v in batch.items()}
         self._step += 1
         return batch
 

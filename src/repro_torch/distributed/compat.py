@@ -18,15 +18,22 @@ Each takes a ``ProcessGroup`` where JAX takes a mesh-axis name:
   (b)`` probe);
 * ``psum(x, group)`` -- the sum over ranks; its gradient is the identity,
   as JAX's when every rank backpropagates the same replicated value
-  (multiplying it by R would count each rank's contribution R times).
+  (multiplying it by R would count each rank's contribution R times);
+* ``all_to_all_v(x, group, dim, send_sizes, recv_sizes)`` -- the ragged
+  all-to-all: ``dim`` of ``x`` is the blocks for each rank in rank order,
+  of ``send_sizes`` rows each, and the result is the blocks received, in
+  rank order, of ``recv_sizes`` rows; its gradient is the reverse
+  exchange (the domain step's halo exchange rides on it);
+* ``row_block(h, rank, n)`` -- the rows of ``h`` that rank ``rank`` of
+  ``n`` holds, the loader's ragged split.
 
 Complex tensors cross every collective as ``torch.view_as_real`` (gloo
 and NCCL take no complex64).  Between ``start_timing()`` and
 ``timed_seconds()`` each collective is timed where it runs: on a CUDA
 tensor by two CUDA events recorded on the current stream around it (no
 synchronization of the card; ``timed_seconds`` waits for the last event),
-on a CPU tensor by the host clock.  Outside such a window nothing is
-recorded.
+on a CPU tensor by the host clock, and ``timed_bytes()`` counts the bytes
+``all_to_all_v`` received.  Outside such a window nothing is recorded.
 """
 
 from __future__ import annotations
@@ -39,12 +46,19 @@ import torch.distributed as dist
 #: the timings since ``start_timing``: host seconds (CPU tensors) and
 #: (start, end) CUDA event pairs; ``None`` while timing is off
 _timed: list | None = None
+#: the bytes ``all_to_all_v`` received since ``start_timing``
+_received = 0
 
 
 def start_timing() -> None:
     """Time every collective from here on (the earlier timings dropped)."""
-    global _timed
-    _timed = []
+    global _timed, _received
+    _timed, _received = [], 0
+
+
+def timed_bytes() -> int:
+    """The bytes ``all_to_all_v`` received since ``start_timing``."""
+    return _received
 
 
 def timed_seconds() -> float:
@@ -129,6 +143,59 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int
                ) -> torch.Tensor:
     """Tiled all-to-all over ``group`` (see the module docstring)."""
     return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def row_block(h: int, rank: int, n: int) -> tuple[int, int]:
+    """The rows ``[lo, hi)`` of ``h`` that rank ``rank`` of ``n`` holds:
+    ``((h * rank) // n, (h * (rank + 1)) // n)``, the JAX loader's split
+    (ragged where ``n`` does not divide ``h``: 721 rows over 2 ranks are
+    360 and 361)."""
+    return (h * rank) // n, (h * (rank + 1)) // n
+
+
+def _all_to_all_v(x: torch.Tensor, group, dim: int, send_sizes, recv_sizes
+                  ) -> torch.Tensor:
+    global _received
+    r = axis_size(group)
+    dim = dim % x.dim()
+    if len(send_sizes) != r or len(recv_sizes) != r:
+        raise ValueError(f"all_to_all_v: {len(send_sizes)} send and "
+                         f"{len(recv_sizes)} receive sizes for {r} ranks")
+    if x.shape[dim] != sum(send_sizes):
+        raise ValueError(f"all_to_all_v: dim {dim} of size {x.shape[dim]} "
+                         f"is not the {sum(send_sizes)} rows sent")
+    # the exchanged dim leads and is contiguous: each peer's block is a
+    # run of rows
+    send = x.movedim(dim, 0).contiguous()
+    recv = send.new_empty((sum(recv_sizes),) + send.shape[1:])
+    _run(lambda: dist.all_to_all_single(recv, send, list(recv_sizes),
+                                        list(send_sizes), group=group),
+         send)
+    if _timed is not None:
+        _received += recv.numel() * recv.element_size()
+    return recv.movedim(0, dim)
+
+
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, send_sizes, recv_sizes):
+        ctx.args = group, dim, send_sizes, recv_sizes
+        return _all_to_all_v(x, group, dim, send_sizes, recv_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, send_sizes, recv_sizes = ctx.args
+        return (_all_to_all_v(g, group, dim, recv_sizes, send_sizes), None,
+                None, None, None)
+
+
+def all_to_all_v(x: torch.Tensor, group, dim: int, send_sizes, recv_sizes
+                 ) -> torch.Tensor:
+    """Ragged all-to-all over ``group`` along ``dim`` (see the module
+    docstring); sizes are sequences of one int per rank.  Real tensors
+    only."""
+    return _AllToAllV.apply(x, group, dim, tuple(send_sizes),
+                            tuple(recv_sizes))
 
 
 def psum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:

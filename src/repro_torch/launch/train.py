@@ -11,18 +11,24 @@ checkpoint ``--init-from``), then one line per step:
       --steps 2 --device cpu
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) it trains on a ``("data",
-"model")`` mesh of ``--mesh-data`` x ``--mesh-model`` ranks: the batch
-over the data axis, the ensemble over the model axis (ensemble
-parallelism, ``TrainConfig.member_axes = ("model", "data")``).  The
-process group uses ``--dist-backend`` (nccl by default on ``cuda``,
-gloo on ``cpu``), as the caller names it: nothing switches it.  NCCL
-takes one card per rank; several ranks on one card take gloo, which
-stages each collective through host memory.  Each rank prints a
+"model")`` mesh of ``--mesh-data`` x ``--mesh-model`` ranks, the batch
+over the data axis.  ``--fcn3-sharding`` (the JAX dry run's flag) says
+what the model axis carries: ``domain`` (the default, as there) latitude
+-- each rank loads and computes the loader's row block of every field,
+the domain-decomposed step of ``distributed.domain`` -- and
+``ensemble`` the members (ensemble parallelism, ``TrainConfig.
+member_axes = ("model", "data")``); ``channel`` is refused (ROADMAP
+A10.3).  The process group uses ``--dist-backend`` (nccl by default on
+``cuda``, gloo on ``cpu``), as the caller names it: nothing switches
+it.  NCCL takes one card per rank; several ranks on one card take gloo,
+which stages each collective through host memory.  Each rank prints a
 ``[dist]`` line: its seconds per step, the share spent in collectives,
-its CRPS launches and its peak memory.
+its row blocks and halo bytes per step (domain) or its members
+(ensemble), its kernel launches and its peak memory.
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-      --config smoke --device cpu --mesh-model 2 --steps 2
+      --config smoke --device cpu --fcn3-sharding domain --mesh-model 2 \
+      --steps 2
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ CONFIGS = fcn3cfg.NAMED_CONFIGS
 STAGES = {s.name: s for s in fcn3cfg.FCN3_CURRICULUM}
 
 
-#: the axes of the training mesh; the ensemble rides the model axis, as
-#: the JAX package's dry run puts it (``member_axes=("model", dp)``)
+#: the axes of the training mesh; with ``--fcn3-sharding ensemble`` the
+#: ensemble rides the model axis, as the JAX package's dry run puts it
+#: (``member_axes=("model", dp)``)
 MESH_AXES = ("data", "model")
 MEMBER_AXES = ("model", "data")
+SHARDINGS = ("domain", "ensemble", "channel")
 
 
 def stage_to_tcfg(stage: fcn3cfg.FCN3TrainingStage, ensemble: int | None,
@@ -90,7 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="ranks along the data axis (batch)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="ranks along the model axis (ensemble)")
+                    help="ranks along the model axis (latitude or "
+                         "ensemble, as --fcn3-sharding says)")
+    ap.add_argument("--fcn3-sharding", choices=SHARDINGS, default="domain",
+                    help="what the model axis carries: latitude (domain "
+                         "decomposition) or the ensemble members")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None, help="process-group backend: nccl by "
                     "default on cuda, gloo on cpu")
@@ -133,18 +145,27 @@ def load_init(model: FCN3, path: str) -> str:
 def setup(config: str, stage: str, batch: int = 1,
           ensemble: int | None = 2, rollout: int | None = None,
           seed: int = 0, device: str = "cuda", calibration_rounds: int = 4,
-          report=print, mesh=None, init_from: str | None = None
-          ) -> TrainRun:
+          report=print, mesh=None, init_from: str | None = None,
+          sharding_mode: str = "domain") -> TrainRun:
     """Build the model, calibrate it on the first batch (or load the
     parameters of ``init_from``) and make the optimizer state (the JAX
-    CLI's set-up).  With ``mesh`` (axes ``MESH_AXES``) the trainer is
-    ensemble-parallel, this rank loads its slice of each batch, and the
-    parameters are rank 0's."""
+    CLI's set-up).  With ``mesh`` (axes ``MESH_AXES``) this rank loads
+    its slice of each batch, the trainer is domain-decomposed or
+    ensemble-parallel as ``sharding_mode`` says, and the parameters are
+    rank 0's (in the domain decomposition only rank 0 calibrates, on the
+    whole field of its first batch)."""
+    import torch.distributed as dist
+    if sharding_mode not in SHARDINGS[:2]:
+        raise NotImplementedError(
+            f"--fcn3-sharding {sharding_mode}: the trainer places no "
+            "sharded parameters yet (ROADMAP A10.3)")
     dev = resolve_device(device)
     cfg = CONFIGS[config]()
     st = STAGES[stage]
+    domain = mesh is not None and sharding_mode == "domain"
     tcfg = stage_to_tcfg(st, ensemble, rollout,
-                         MEMBER_AXES if mesh is not None else None)
+                         MEMBER_AXES if mesh is not None and not domain
+                         else None)
     report(f"[train] config={config} stage={st.name} "
            f"E={tcfg.ensemble_size} rollout={tcfg.rollout_steps} "
            f"fair={tcfg.fair_crps} lr={tcfg.lr} on {dev}")
@@ -153,27 +174,45 @@ def setup(config: str, stage: str, batch: int = 1,
     data_block, lat_block = (0, 1), (0, 1)
     if mesh is not None:
         # the batch's placement is the rules': the batch over the data
-        # axis, latitude whole (the model axis carries the ensemble)
+        # axis, latitude over the model axis in the domain decomposition
+        # and whole when the model axis carries the ensemble
         spec = sharding.fcn3_batch_specs(
             {"state": torch.empty((batch, 1, 1, 1), device="meta")},
-            (MESH_AXES[0],), model_axis=None)["state"]
+            (MESH_AXES[0],),
+            model_axis=MESH_AXES[1] if domain else None)["state"]
         data_block, lat_block = (sharding.block_of(spec[0], mesh),
                                  sharding.block_of(spec[-2], mesh))
-    loader = dlib.Loader(ds, global_batch=batch, rollout=tcfg.rollout_steps,
-                         seed=seed, rank=data_block[0], world=data_block[1],
-                         lat_shard=lat_block)
-    buffers = model.make_buffers()
-    it = iter(loader)
-    batch0 = next(it)
+
+    def loader(lat_shard):
+        return dlib.Loader(ds, global_batch=batch,
+                           rollout=tcfg.rollout_steps, seed=seed,
+                           rank=data_block[0], world=data_block[1],
+                           lat_shard=lat_shard)
+    it = iter(loader(lat_block))
+    batch0 = next(it)                 # calibrates; training starts after
+    buffers = None
     if init_from:
         report(f"[train] parameters from {load_init(model, init_from)}")
-    else:
+    elif not domain or dist.get_rank() == 0:
+        if domain:
+            batch0 = next(iter(loader((0, 1))))
+        buffers = model.make_buffers()
         cond0 = torch.cat([batch0["aux"][:, 0], model.sample_noise(
             _generator(dev, 1), (batch0["state"].shape[0],))], dim=1)
         model.init_calibrated(_generator(dev, seed), batch0["state"], cond0,
                               buffers, calibration_rounds)
+    del batch0
     tr = trlib.EnsembleTrainer(model, tcfg,
                                fcn3cfg.channel_weights(cfg.n_levels), mesh)
+    if tr.domain is not None:
+        # this rank's slices of the plans only
+        buffers = tr.domain.make_buffers()
+        report(f"[train] domain decomposition: latitude over "
+               f"{tr.par.n_model} ranks, IO rows {tr.domain.io_block} of "
+               f"{cfg.nlat}, latent rows {tr.domain.lat_block} of "
+               f"{cfg.latent_nlat}")
+    elif buffers is None:
+        buffers = model.make_buffers()
     buffers.update(tr.make_loss_buffers())
     params = dict(model.named_parameters())
     report(f"[train] {sum(p.numel() for p in params.values()):,} "
@@ -183,8 +222,9 @@ def setup(config: str, stage: str, batch: int = 1,
 
 def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
     """``steps`` optimizer steps, one ``step`` line each; returns each
-    step's diagnostics as floats, with its ``seconds`` and the seconds
-    ``collective_s`` spent in collectives."""
+    step's diagnostics as floats, with its ``seconds``, the seconds
+    ``collective_s`` spent in collectives and the bytes ``halo_bytes``
+    its halo exchanges brought this rank."""
     dev = run.model.device
     history = []
     t0 = time.time()
@@ -197,7 +237,8 @@ def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
             GeneratorNoise(_generator(dev, 1000 + i)))
         vals = {k: float(v) for k, v in aux.items()}
         vals.update(seconds=time.time() - ts,
-                    collective_s=compat.timed_seconds())
+                    collective_s=compat.timed_seconds(),
+                    halo_bytes=compat.timed_bytes())
         history.append(vals)
         run.steps_done += 1
         report(f"step {i:4d} loss={vals['loss']:.5f} "
@@ -209,19 +250,30 @@ def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
 
 def dist_line(run: TrainRun, history: list[dict]) -> str:
     """This rank's ``[dist]`` line: seconds per step, the share in
-    collectives, CRPS launches, peak memory."""
+    collectives, its row blocks and halo bytes per step (domain) or its
+    members (ensemble), kernel launches, peak memory."""
     import torch.distributed as dist
     from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
     dev = run.model.device
+    tr = run.trainer
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
             if dev.type == "cuda" else "n/a")
-    members = run.trainer.tcfg.ensemble_size // run.trainer.par.n_ens
-    return (f"[dist] rank {dist.get_rank()}/{dist.get_world_size()} "
-            f"members={members}"
+    if tr.domain is not None:
+        where = (f"io_rows={tr.domain.io_block} "
+                 f"latent_rows={tr.domain.lat_block} halo_bytes="
+                 f"{[int(h['halo_bytes']) for h in history]}")
+    else:
+        where = f"members={tr.tcfg.ensemble_size // tr.par.n_model}"
+    return (f"[dist] rank {dist.get_rank()}/{dist.get_world_size()} {where}"
             f" step_s={[round(h['seconds'], 3) for h in history]} "
             f"collective_share="
             f"{[round(h['collective_s'] / h['seconds'], 3) for h in history]}"
-            f" crps_launches={crps_ops.launches} "
+            f" band_launches={disco_ops.launches} "
+            f"transpose_launches={disco_ops.transpose_launches} "
+            f"legendre_launches={legendre_ops.launches} "
+            f"crps_launches={crps_ops.launches} "
             f"crps_bwd_launches={crps_ops.bwd_launches} peak_mem_gb={peak}")
 
 
@@ -229,12 +281,13 @@ def train(config: str, stage: str, steps: int, batch: int = 1,
           ensemble: int | None = 2, rollout: int | None = None,
           ckpt_dir: str | None = None, seed: int = 0, device: str = "cuda",
           calibration_rounds: int = 4, report=print, mesh=None,
-          init_from: str | None = None, rank_report=None) -> list[dict]:
+          init_from: str | None = None, rank_report=None,
+          sharding_mode: str = "domain") -> list[dict]:
     """``setup``, ``run_steps`` and, with ``ckpt_dir``, a checkpoint of
     the parameters and optimizer state.  With ``mesh``, each rank's
     ``[dist]`` line goes to ``rank_report`` after the steps."""
     run = setup(config, stage, batch, ensemble, rollout, seed, device,
-                calibration_rounds, report, mesh, init_from)
+                calibration_rounds, report, mesh, init_from, sharding_mode)
     history = run_steps(run, steps, report)
     if mesh is not None and rank_report is not None:
         rank_report(dist_line(run, history))
@@ -299,7 +352,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
                      args.ensemble, args.rollout,
                      args.ckpt_dir if rank == 0 else None, args.seed,
                      args.device, report=print if rank == 0 else _quiet,
-                     mesh=mesh, init_from=args.init_from, rank_report=print)
+                     mesh=mesh, init_from=args.init_from, rank_report=print,
+                     sharding_mode=args.fcn3_sharding)
     finally:
         if not joined:
             dist.destroy_process_group()

@@ -31,6 +31,18 @@ mode="domain")`` says: replicated, broadcast from rank 0 at construction,
 so they and the Adam state stay identical on every rank.  Noise
 centering gathers every member's noise with a ``psum`` over the ensemble
 group.
+
+Domain decomposition (paper G.2, the JAX ``mode="domain"``): with a
+``DeviceMesh`` and no ``member_axes``, the mesh's model axis carries
+latitude.  Every rank rolls out all E members on its row block of the
+fields (``distributed.domain.DomainFCN3``), draws the whole (E, B) noise
+from the same ``NoiseSource`` and projects it onto its rows, and scores
+its points:
+the nodal term on its C x H_loc x W points with its rows' area weights,
+the spectral term on its block of degrees from Algorithm 1 at the IO
+grid, each through ``dist_crps`` on a group of itself (the CRPS kernel
+forward and backward) and summed over the latitude group.  Gradients
+are summed over the latitude group and averaged over the data group.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from repro_torch.core import crps as crpslib
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import noise as noiselib
 from repro_torch.core.sphere import sht as shtlib
-from repro_torch.distributed import compat, sharding
+from repro_torch.distributed import compat, domain, sharding
 from repro_torch.inference.engine import NoiseSource
 from repro_torch.optim import adam as adamlib
 
@@ -64,8 +76,13 @@ class TrainConfig:
     rollout_weights: tuple[float, ...] | None = None  # default: uniform
     # Ensemble parallelism (paper G.1): the mesh axes of the (E, B)
     # leading dims of the member states, e.g. ("model", "data"); each
-    # entry a mesh-axis name or None.  None: one process.
+    # entry a mesh-axis name or None.  None: one process, or with a mesh
+    # the domain decomposition over DOMAIN_AXES.
     member_axes: tuple | None = None
+
+
+#: the mesh axes of the domain decomposition: latitude, then the batch
+DOMAIN_AXES = (sharding.MP, sharding.DP)
 
 
 def make_optimizer(cfg: TrainConfig) -> adamlib.Adam:
@@ -76,53 +93,57 @@ def make_optimizer(cfg: TrainConfig) -> adamlib.Adam:
 
 
 @dataclasses.dataclass(frozen=True)
-class MemberParallel:
-    """The groups of ``TrainConfig.member_axes`` on a mesh: the ensemble
-    group (its size and this rank's index) and the data group."""
+class MeshGroups:
+    """The groups of a trainer's two mesh axes: the model group (the
+    ensemble with ``member_axes``, latitude in the domain decomposition;
+    its size and this rank's index) and the data group."""
 
-    ens_group: object
-    n_ens: int
-    ens_rank: int
+    model_group: object
+    n_model: int
+    model_rank: int
     data_group: object | None
     n_data: int
     data_rank: int
 
     @classmethod
-    def of(cls, member_axes: tuple, mesh) -> "MemberParallel":
-        """The groups of ``member_axes`` = (ens_axis[, data_axis]) on
-        ``mesh``, which they must cover: the gradient sum runs over the
-        whole world."""
+    def of(cls, axes: tuple, mesh) -> "MeshGroups":
+        """The groups of ``axes`` = (model_axis[, data_axis]) on ``mesh``,
+        which they must cover: the gradient sum runs over the whole
+        world."""
         import torch.distributed as dist
-        ens_axis, data_axis = (tuple(member_axes) + (None,))[:2]
-        if mesh is None or not isinstance(ens_axis, str):
-            raise ValueError(f"member_axes {member_axes} needs a mesh and "
-                             "an ensemble axis name")
+        model_axis, data_axis = (tuple(axes) + (None,))[:2]
+        if mesh is None or not isinstance(model_axis, str):
+            raise ValueError(f"mesh axes {axes} need a mesh and a model "
+                             "axis name")
         groups = {}
-        for axis in (ens_axis, data_axis):
+        for axis in (model_axis, data_axis):
             if axis is not None:
                 g = mesh.get_group(axis)
                 groups[axis] = (g, dist.get_world_size(g), dist.get_rank(g))
         dg, nd, dr = groups.get(data_axis, (None, 1, 0))
-        eg, ne, er = groups[ens_axis]
-        if ne * nd != dist.get_world_size():
-            raise ValueError(f"member_axes {member_axes} cover {ne * nd} of "
+        mg, nm, mr = groups[model_axis]
+        if nm * nd != dist.get_world_size():
+            raise ValueError(f"mesh axes {axes} cover {nm * nd} of "
                              f"{dist.get_world_size()} ranks; they must "
                              "cover the world")
-        return cls(eg, ne, er, dg, nd, dr)
+        return cls(mg, nm, mr, dg, nd, dr)
 
 
 def _flat_padded(x: torch.Tensor, lead: int, n: int) -> torch.Tensor:
     """``x`` with its dims after the first ``lead`` flattened and
     zero-padded to a multiple of ``n`` (zero points carry zero weight)."""
     x = x.reshape(tuple(x.shape[:lead]) + (-1,))
-    return torch.nn.functional.pad(x, (0, -x.shape[-1] % n))
+    pad = -x.shape[-1] % n
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 class EnsembleTrainer:
     """Train and eval steps for an FCN3 model; makes its parameters
     trainable.  With ``tcfg.member_axes``, ``mesh`` is the
-    ``DeviceMesh`` those axes name, and the parameters are broadcast
-    from rank 0 here."""
+    ``DeviceMesh`` those axes name (ensemble parallelism); with a
+    ``mesh`` alone, the domain decomposition over its ``DOMAIN_AXES``
+    (``self.domain``; construction is then collective).  On a mesh the
+    parameters are broadcast from rank 0 here."""
 
     def __init__(self, model: FCN3, tcfg: TrainConfig,
                  channel_weights: np.ndarray, mesh=None):
@@ -134,12 +155,14 @@ class EnsembleTrainer:
             np.asarray(channel_weights, np.float32)).to(dev)
         self.area_weights = torch.from_numpy(
             model.grid_in.area_weights_2d().astype(np.float32)).to(dev)
-        self.par = None
-        if tcfg.member_axes is not None:
-            self.par = MemberParallel.of(tcfg.member_axes, mesh)
-            if tcfg.ensemble_size % self.par.n_ens:
+        self.par = self.domain = None
+        if tcfg.member_axes is not None or mesh is not None:
+            self.par = MeshGroups.of(tcfg.member_axes or DOMAIN_AXES, mesh)
+            if tcfg.member_axes is None:
+                self.domain = domain.DomainFCN3(model, self.par.model_group)
+            elif tcfg.ensemble_size % self.par.n_model:
                 raise ValueError(f"ensemble of {tcfg.ensemble_size} does "
-                                 f"not split over {self.par.n_ens} ranks")
+                                 f"not split over {self.par.n_model} ranks")
             # the parameters' placement is the rules' (fcn3_param_specs,
             # mode="domain"): replicated, so rank 0's are broadcast
             params = dict(model.named_parameters())
@@ -152,12 +175,20 @@ class EnsembleTrainer:
 
     def make_loss_buffers(self) -> dict:
         """The loss's forward-SHT table at IO resolution (1.5 GB at
-        721x1440) and the noise process's tables."""
-        wpct, _ = self.model.in_sht.tables()
+        721x1440) and the noise process's tables; in the domain
+        decomposition ``loss_sht``, the table's ``domain_sht_tables``,
+        and the noise's inverse-SHT table on this rank's rows only."""
+        m = self.model
+        if self.domain is not None:
+            return {"loss_sht": domain.domain_sht_tables(
+                        m.in_sht, self.domain.io_blocks, m.device),
+                    "noise": m.noise.buffers(m.device,
+                                             self.domain.io_block)}
+        wpct, _ = m.in_sht.tables()
         return {
             "loss_wpct": torch.from_numpy(wpct.astype(np.float32)).to(
-                self.model.device),
-            "noise": self.model.noise_buffers(),
+                m.device),
+            "noise": m.noise_buffers(),
         }
 
     def loss_buffer_specs(self) -> dict:
@@ -172,12 +203,16 @@ class EnsembleTrainer:
 
     # ------------------------------------------------------------------
     def _members(self, z: torch.Tensor) -> torch.Tensor:
-        """This rank's block of (E, B_global, ...) member tensors."""
+        """This rank's block of (E, B_global, ...) member tensors: its
+        members (all of them in the domain decomposition) on its slice of
+        the data group's batch."""
         p = self.par
-        e = self.tcfg.ensemble_size // p.n_ens
         b = z.shape[1] // p.n_data
-        return z[p.ens_rank * e:(p.ens_rank + 1) * e,
-                 p.data_rank * b:(p.data_rank + 1) * b]
+        z = z[:, p.data_rank * b:(p.data_rank + 1) * b]
+        if self.domain is not None:
+            return z
+        e = self.tcfg.ensemble_size // p.n_model
+        return z[p.model_rank * e:(p.model_rank + 1) * e]
 
     def _centered(self, z: torch.Tensor) -> torch.Tensor:
         """``center_noise`` over all E members of this rank's block:
@@ -185,37 +220,56 @@ class EnsembleTrainer:
         p = self.par
         e_loc = z.shape[0]
         full = z.new_zeros((self.tcfg.ensemble_size,) + tuple(z.shape[1:]))
-        full[p.ens_rank * e_loc:(p.ens_rank + 1) * e_loc] = z
-        full = compat.psum(full, p.ens_group)
-        return noiselib.center_noise(full, 0)[p.ens_rank * e_loc:
-                                             (p.ens_rank + 1) * e_loc]
+        full[p.model_rank * e_loc:(p.model_rank + 1) * e_loc] = z
+        full = compat.psum(full, p.model_group)
+        return noiselib.center_noise(full, 0)[p.model_rank * e_loc:
+                                             (p.model_rank + 1) * e_loc]
 
-    def _dist_objective(self, ens: torch.Tensor, obs: torch.Tensor,
-                        wpct: torch.Tensor
+    def _mesh_objective(self, ens: torch.Tensor, obs: torch.Tensor,
+                        buffers: dict
                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """Eq. (48) of this rank's members (Eloc, B, C, H, W) against the
-        batch's truth (B, C, H, W) with ``dist_crps``, summed over the
-        ensemble group: ``fcn3_objective``'s value for the data group's
-        batch, on every rank of the ensemble group."""
+        """Eq. (48) through ``dist_crps``: ``fcn3_objective``'s value for
+        the data group's batch, on every rank of the model group.
+
+        Ensemble parallelism: this rank's members (Eloc, B, C, H, W)
+        against the batch's truth (B, C, H, W); both terms' points,
+        zero-padded to a multiple of the ranks, scored over the ensemble
+        group.  Domain decomposition: all members on this rank's rows
+        (E, B, C, H_loc, W) against the truth there; the nodal term on
+        its points with its rows' area weights, the spectral term on its
+        block of degrees (Algorithm 1 at the IO grid, ``loss_sht``), each
+        scored on a group of this rank alone, then summed over the
+        latitude group."""
         from repro_torch.distributed.dist_crps import dist_crps
-        t, g, r = self.tcfg, self.par.ens_group, self.par.n_ens
-        b = obs.shape[0]
+        t, d, sht = self.tcfg, self.domain, self.model.in_sht
+        w_lm = torch.from_numpy(crpslib.spectral_weights(
+            sht.lmax, sht.mmax).astype(np.float32)).to(ens.device)
+        if d is None:
+            g, n, area = self.par.model_group, self.par.n_model, \
+                self.area_weights
+            ce = shtlib.sht_forward(ens, buffers["loss_wpct"])
+            co = shtlib.sht_forward(obs, buffers["loss_wpct"])
+        else:
+            g, n, area = d.solo, 1, self.area_weights[slice(*d.io_block)]
+            # the members and the truth through one transform
+            c = domain.domain_sht_forward(torch.cat([ens, obs[None]]),
+                                          buffers["loss_sht"], d.group,
+                                          d.solo)      # (E+1,B,C,Lloc,M)
+            ce, co = c[:-1], c[-1]
+            w_lm = domain.degree_block(w_lm.T, c.shape[-2], d.group).T
         cw = self.channel_weights / self.channel_weights.sum()
-        w = (cw[:, None, None] * self.area_weights[None]) / b
-        nodal = dist_crps(_flat_padded(ens, 2, r), _flat_padded(obs, 1, r),
-                          _flat_padded(w, 0, r), g, t.fair_crps)
-        ce = shtlib.sht_forward(ens, wpct)                # (Eloc,B,C,L,M)
-        co = shtlib.sht_forward(obs, wpct)
-        l, m = ce.shape[-2:]
-        mult = np.concatenate([[1.0], np.full((m - 1,), 2.0)])
-        w_lm = shtlib.mode_mask(l, m) * mult[None, :]
-        w_lm = torch.from_numpy((w_lm / w_lm.sum()).astype(np.float32)).to(
-            ens.device)
-        ws = _flat_padded((cw[:, None, None] * w_lm[None]) / b, 0, r)
-        spec = sum(dist_crps(_flat_padded(part(ce), 2, r),
-                             _flat_padded(part(co), 1, r), ws, g,
-                             t.fair_crps)
+        b = obs.shape[0]
+
+        def score(e, o, w):
+            # per-point weight: channel weight x the term's weight / B
+            w = (cw[:, None, None] * w[None]) / b
+            return dist_crps(_flat_padded(e, 2, n), _flat_padded(o, 1, n),
+                             _flat_padded(w, 0, n), g, t.fair_crps)
+        nodal = score(ens, obs, area)
+        spec = sum(score(part(ce), part(co), w_lm)
                    for part in (torch.real, torch.imag))
+        if d is not None:
+            nodal, spec = compat.psum(torch.stack([nodal, spec]), d.group)
         return nodal + t.lambda_spectral * spec, {"nodal": nodal,
                                                   "spectral": spec}
 
@@ -224,11 +278,12 @@ class EnsembleTrainer:
         """batch: state (B,C,H,W); targets (B,T,C,H,W); aux (B,T,A,H,W).
 
         Returns the w_n-weighted objective over the T rollout steps and
-        the per-step ``nodal_{n}`` / ``spectral_{n}`` terms.  Ensemble-
-        parallel: ``batch`` is this rank's slice of the data group's
-        batch, and the values are those of the data group's batch.
+        the per-step ``nodal_{n}`` / ``spectral_{n}`` terms.  On a mesh
+        ``batch`` is this rank's slice of the data group's batch (in the
+        domain decomposition, on this rank's rows), and the values are
+        those of the data group's batch.
         """
-        m, t, p = self.model, self.tcfg, self.par
+        m, t, p, d = self.model, self.tcfg, self.par, self.domain
         e = t.ensemble_size
         steps = batch["targets"].shape[1]
         w_n = (np.asarray(t.rollout_weights, np.float32)
@@ -238,22 +293,25 @@ class EnsembleTrainer:
         state = batch["state"]
         b_all = state.shape[0] * (p.n_data if p else 1)
         z_hat = noise.initial(m, (e, b_all), nbufs)
-        e_loc = e // p.n_ens if p else e
+        e_loc = e // p.n_model if p and not d else e
         s = state.expand((e_loc,) + tuple(state.shape))
         total = torch.zeros((), dtype=torch.float32, device=state.device)
         aux_out: dict[str, torch.Tensor] = {}
         for n in range(steps):
+            # (E, B, 8, H, W); on this rank's rows in the domain
+            # decomposition (its noise table holds those rows only)
             z = m.noise.to_grid(self._members(z_hat) if p else z_hat,
-                                nbufs)                 # (E,B,8,H,W)
+                                nbufs)
             if t.noise_centering:
-                z = self._centered(z) if p else noiselib.center_noise(z, 0)
+                z = (self._centered(z) if p and not d
+                     else noiselib.center_noise(z, 0))
             aux_n = batch["aux"][:, n]                  # (B,A,H,W)
             cond = torch.cat([aux_n.expand((e_loc,) + tuple(aux_n.shape)),
                               z], dim=2)
-            s = m(buffers, s, cond)
+            s = (m if d is None else d)(buffers, s, cond)
             if p:
-                loss_n, aux = self._dist_objective(
-                    s, batch["targets"][:, n], buffers["loss_wpct"])
+                loss_n, aux = self._mesh_objective(
+                    s, batch["targets"][:, n], buffers)
             else:
                 loss_n, aux = crpslib.fcn3_objective(
                     s, batch["targets"][:, n], self.area_weights,
@@ -277,8 +335,9 @@ class EnsembleTrainer:
         loss = loss.detach()
         p = self.par
         if p is not None:
-            # sum over the ensemble group, mean over the data group: one
-            # all-reduce over the world, which the two groups cover
+            # sum over the model group (the ensemble or latitude), mean
+            # over the data group: one all-reduce over the world, which
+            # the two groups cover
             compat.all_reduce_(list(grads), None)
             grads = [g / p.n_data for g in grads]
             if p.data_group is not None:
@@ -303,7 +362,11 @@ class EnsembleTrainer:
     @torch.no_grad()
     def eval_step(self, buffers: dict, batch: dict, noise: NoiseSource,
                   n_members: int = 4) -> dict[str, torch.Tensor]:
-        """One-step fair CRPS and ensemble-mean RMSE of ``n_members``."""
+        """One-step fair CRPS and ensemble-mean RMSE of ``n_members``, in
+        one process (not in the domain decomposition)."""
+        if self.domain is not None:
+            raise NotImplementedError("eval_step runs the whole field in "
+                                      "one process, not on row blocks")
         m = self.model
         nbufs = buffers["noise"]
         state = batch["state"]

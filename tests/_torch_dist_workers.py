@@ -131,3 +131,74 @@ def launcher_rank(rank: int, world_size: int, argv: list) -> list:
     """``launch/train.py``'s CLI in a world its caller set up."""
     from repro_torch.launch import train
     return train.main(argv)
+
+
+def ragged_rank(rank: int, world_size: int, inputs: dict) -> dict:
+    """``all_to_all_v`` and ``halo_exchange`` on this rank's rows, with
+    the gradient of a fixed cotangent through each."""
+    from repro_torch.distributed import compat, domain
+    x = torch.from_numpy(inputs["x"][rank]).requires_grad_(True)
+    sizes = inputs["sizes"]
+    send = [int(sizes[rank, q]) for q in range(world_size)]
+    recv = [int(sizes[q, rank]) for q in range(world_size)]
+    rows = x[..., :sum(send), :]
+    compat.start_timing()
+    y = compat.all_to_all_v(rows, None, -2, send, recv)
+    received = compat.timed_bytes()
+    (gx,) = torch.autograd.grad(y, x, torch.from_numpy(
+        inputs["ct_a2av"][rank][..., :sum(recv), :]))
+    out = {"a2av": (_np(y), _np(gx)), "received": received}
+    halo = domain.Halo.of(inputs["need"], inputs["blocks"], rank)
+    lo, hi = inputs["blocks"][rank]
+    f = torch.from_numpy(inputs["field"][..., lo:hi, :]).requires_grad_(True)
+    h = domain.halo_exchange(f, halo, None)
+    (gf,) = torch.autograd.grad(h, f, torch.from_numpy(
+        inputs["ct_halo"][rank]))
+    out["halo"] = (_np(h), _np(gf))
+    return out
+
+
+def domain_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """The domain-decomposed ``fcn3_smoke`` step on a (data 1, model R)
+    mesh, from the given parameters: one forward of the given inputs on
+    this rank's rows; then, from the given batch and noise draws, the
+    loss, its terms and the reduced gradients, and the parameters after
+    one Adam step."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import compat
+    from repro_torch.inference import params as tparams
+    from repro_torch.inference.engine import InjectedNoise
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import trainer as ttr
+    mesh = make_mesh((1, world_size), ("data", "model"), "cpu")
+    model = FCN3(tcfgs.fcn3_smoke(), device="cpu")
+    tparams.load_into(model, setup["params"])
+    if rank:   # the trainer broadcasts rank 0's parameters
+        for p in model.parameters():
+            p.detach().mul_(0.5)
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(**setup["tcfg"]),
+                             setup["cw"], mesh=mesh)
+    d = tr.domain
+    lo, hi = d.io_block
+    bufs = dict(d.make_buffers(), **tr.make_loss_buffers())
+    with torch.no_grad():
+        fwd = d(bufs, torch.from_numpy(setup["state"][..., lo:hi, :]),
+                torch.from_numpy(setup["cond"][..., lo:hi, :]))
+    batch = {k: torch.from_numpy(v[..., lo:hi, :])
+             for k, v in setup["batch"].items()}
+
+    def noise():
+        return InjectedNoise(setup["z_hat0"], setup["etas"])
+
+    compat.start_timing()
+    loss, aux, grads = tr.loss_and_grads(bufs, batch, noise())
+    halo_bytes = compat.timed_bytes()
+    state = tr.optimizer.init(dict(model.named_parameters()))
+    tr.train_step(bufs, state, batch, noise())
+    return {"rows": (lo, hi), "latent_rows": d.lat_block,
+            "forward": _np(fwd), "loss": float(loss),
+            "aux": {k: float(v) for k, v in aux.items()},
+            "grads": {k: _np(v) for k, v in grads.items()},
+            "params": {k: _np(p) for k, p in model.named_parameters()},
+            "halo_bytes": halo_bytes, "jax_loaded": "jax" in sys.modules}

@@ -790,3 +790,108 @@ def test_cuda_dist_bodies_run_their_kernels_in_a_gloo_world(cuda):
     for r in res:
         assert r["legendre_launches"] > 0 and r["band_launches"] > 0, r
         assert r["sht"] <= REL_TOL and r["disco"] <= REL_TOL, r
+
+
+# ---------------------------------------------------------------------------
+# the domain-decomposed step: the band kernels on row-sliced bands, and a
+# gloo world of 2 ranks on one card against the single process
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3], ids=["R2", "R3"])
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+def test_cuda_band_kernels_on_a_row_sliced_band(cuda, pair, n):
+    from repro_torch.distributed import domain
+    from repro_torch.distributed.compat import row_block
+    tp = _plan(pair)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for r in range(n):
+        lo, hi = row_block(tp.grid_out.nlat, r, n)
+        need = domain.halo_rows(tp, lo, hi)
+        tb = {k: torch.from_numpy(v).to(cuda) for k, v in
+              domain.local_band_rows(tp, (lo, hi), need).items()}
+        taps = disco_ops.LiveTaps.of(tb)
+        x = torch.randn((11, len(need), pair[0][1]), generator=gen,
+                        device=cuda)
+        before = disco_ops.launches, disco_ops.transpose_launches
+        got = disco_ops.disco_band_contract(x, tb["psi_band"], tb["lat_idx"],
+                                            taps, tp.stride)
+        ref = disco_gather_band_contract_ref(x, tb["psi_band"],
+                                             tb["lat_idx"], tp.stride)
+        assert _rel_err(got, ref) <= REL_TOL
+        g = torch.randn(got.shape, generator=gen, device=cuda)
+        gx = disco_ops.disco_band_transpose(
+            g, tb["psi_band"], tb["lat_idx"], taps,
+            disco_ops.RowTaps.of(tb), len(need), tp.stride)
+        gref = disco_band_transpose_ref(g, tb["psi_band"], tb["lat_idx"],
+                                        len(need), tp.stride)
+        assert _rel_err(gx, gref) <= REL_TOL
+        assert (disco_ops.launches, disco_ops.transpose_launches) == (
+            before[0] + 1, before[1] + 1)
+
+
+def domain_step_rank(rank, world_size):
+    """Rank body: the domain-decomposed fcn3_smoke step's loss and reduced
+    gradients on a (data 1, model 2) mesh over gloo, from seeded
+    parameters and draws, with its kernel launches; rank 0 also takes the
+    single process's step on the whole field."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.data import era5_synthetic as tdata
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import set_precision
+    from repro_torch.train import trainer as ttr
+    set_precision()
+    dev = torch.device("cuda")
+    cfg = tcfgs.fcn3_smoke()
+    tcfg = ttr.TrainConfig(ensemble_size=2, rollout_steps=2, fair_crps=True)
+    cw = tcfgs.channel_weights(cfg.n_levels)
+    batch = next(iter(tdata.Loader(tdata.SyntheticERA5(cfg, device=dev),
+                                   global_batch=1, rollout=2)))
+
+    def model():
+        m = FCN3(cfg, device=dev)
+        m.init(torch.Generator(device=dev).manual_seed(0))
+        return m
+
+    def noise():
+        return GeneratorNoise(torch.Generator(device=dev).manual_seed(5))
+
+    mesh = make_mesh((1, world_size), ("data", "model"), "cuda")
+    tr = ttr.EnsembleTrainer(model(), tcfg, cw, mesh=mesh)
+    lo, hi = tr.domain.io_block
+    bufs = dict(tr.domain.make_buffers(), **tr.make_loss_buffers())
+    launches = (disco_ops.launches, disco_ops.transpose_launches,
+                legendre_ops.launches, crps_ops.launches,
+                crps_ops.bwd_launches)
+    loss, _, grads = tr.loss_and_grads(
+        bufs, {k: v[..., lo:hi, :] for k, v in batch.items()}, noise())
+    out = {"loss": float(loss),
+           "launches": [b - a for a, b in zip(launches, (
+               disco_ops.launches, disco_ops.transpose_launches,
+               legendre_ops.launches, crps_ops.launches,
+               crps_ops.bwd_launches))],
+           "grads": {k: g.cpu() for k, g in grads.items()}}
+    if rank == 0:
+        single = ttr.EnsembleTrainer(model(), tcfg, cw)
+        m = single.model
+        sl, _, sg = single.loss_and_grads(
+            dict(m.make_buffers(), **single.make_loss_buffers()), batch,
+            noise())
+        out["single"] = (float(sl), {k: g.cpu() for k, g in sg.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_domain_step_in_a_gloo_world(cuda):
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import build
+    build.build_all(("legendre", "disco_band", "disco_band_bwd", "crps"))
+    res = run_world(domain_step_rank, 2, timeout=300.0)
+    sl, sg = res[0]["single"]
+    for r in res:
+        assert min(r["launches"]) > 0, r["launches"]
+        assert abs(r["loss"] - sl) <= 1e-5 * abs(sl)
+        for k, g in r["grads"].items():
+            torch.testing.assert_close(g, sg[k], rtol=2e-3, atol=2e-4)

@@ -474,7 +474,8 @@ def test_every_rank_holds_the_same_gradients_and_parameters(trained):
 
 def test_launcher_trains_on_a_mesh_in_a_world_of_two():
     argv = ["--config", "smoke", "--device", "cpu", "--steps", "2",
-            "--mesh-model", "2", "--dist-backend", "gloo"]
+            "--fcn3-sharding", "ensemble", "--mesh-model", "2",
+            "--dist-backend", "gloo"]
     hist = run_world(workers.launcher_rank, 2, (argv,), timeout=TIMEOUT,
                      threads=1)
     assert [len(h) for h in hist] == [2, 2]
