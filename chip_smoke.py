@@ -14,7 +14,9 @@ non-zero exit code and no result line:
    every kernel launch counter set to 0 just before and read just after;
    every kernel must have launched, every score must be finite; the last
    (steady) lead runs under ``torch.profiler``: the device's busy share of
-   it and its kernels by device time (``[profile]`` lines);
+   it and its kernels by device time (``[profile]`` lines); its scores and
+   final members (host copies) and its parameters (a reference-format
+   checkpoint) are kept for phases 2d and 5b (e);
 2b. the engine's other paths on the same model (``[engine]`` lines), with
    both forecast kernels' counts and the plain-version guard set to 0
    just before and read just after: E1 two coalesced requests
@@ -26,6 +28,13 @@ non-zero exit code and no result line:
    fp32 finite scores) and one bf16 lead's GEMM kernels and product
    dtypes (``[profile]``); E3 bred init (4 members, ensemble transform):
    pairs centered on the analysis, the transform's draws orthonormal;
+2d. the WB2 evaluation CLI (``[evaluate]`` lines):
+   ``repro_torch.launch.evaluate`` at ``fcn3_full`` from [main]'s
+   parameters, 2 members x 2 leads x 2 initial conditions, with both
+   forecast kernels' counts and the plain-version guard set to 0 just
+   before and read just after: seconds per initial condition, peak,
+   launches (band and Legendre > 0), no plain version on a CUDA tensor,
+   every table entry finite (run after 2b, before 2c);
 2c. the forecast service at ``fcn3_full`` (``[service]`` lines), the
    forecast's model freed first, with both forecast kernels' counts and
    the plain-version guard set to 0 just before and read just after: the
@@ -84,9 +93,20 @@ non-zero exit code and no result line:
    at the largest planes (d1) launched them with, through the checks of
    phase 7 (times, bounds, the ``F.conv1d`` / ``F.conv_transpose1d``
    yardsticks, the plain version), the CRPS kernels at the points of
-   rank 0's loss terms, and the Legendre kernel on rank 0's padded
-   tables (the latent SHT's and the spectral loss's at the IO grid) at
-   the pencils (d1) gave it.  The plans reach the ranks through
+   rank 0's loss terms and of its eval step, and the Legendre kernel on
+   rank 0's padded tables (the latent SHT's and the spectral loss's at
+   the IO grid) at the pencils (d1) gave it; (d4) in (d1)'s ranks after
+   their steps, ``eval_step`` (2 members) on each rank's rows at the
+   initial parameters, against the training phase's single-process eval
+   step on the same batch and draws (``EVAL_RTOL``), with its launches;
+   (e) the engine's ``member_axes``: [main]'s scored forecast (its
+   parameters, sample, noise seed, 3 leads) over 2 ranks, one member
+   each (the +/- pair straddles), each lead's scores against [main]'s
+   and each rank's final member against [main]'s at the dispatch bar,
+   with per rank the seconds a lead, the share in collectives, the score
+   all-to-all's bytes, the peak and the launches (the CRPS forward on
+   both ranks), then the CRPS kernel against its plain version at rank
+   0's operand shape.  The plans reach the ranks through
    ``export_plan`` / ``install_plan`` payloads, not built again;
 6. the LM path: ``repro_torch.launch.lm`` at the full width of
    ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
@@ -111,7 +131,10 @@ non-zero exit code and no result line:
    operands of the prefill's first layer and the inter-chunk recurrence
    kernel on that layer's states; timings (CUDA
    events, median), the ``library_ms`` yardstick at every band shape
-   (``conv_transpose1d`` takes seconds a call: one timed call)
+   (``conv_transpose1d`` takes seconds a call: one timed call, at each
+   band's widest training shape only, the latent's 295 planes and the
+   decoder's 56: the narrower ones and (d3)'s row slices repeat the same
+   work)
    and the least time the card could take, in fp32 (``bound_ms``) and
    on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
 8. the ``kernels`` JSON line, then the result line.
@@ -121,6 +144,7 @@ Exits non-zero without CUDA, and in a directory without the repository.
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -199,6 +223,18 @@ DIST_LOSS_RTOL = 1e-5
 #: (d2) the domain step's forward at fcn3_small over 4 ranks (ragged IO
 #: rows 45/45/45/46 and latent rows 22/23/22/23), 2 samples
 DIST_SMALL_CONFIG, DIST_SMALL_RANKS = "small", 4
+#: (d4) the domain eval step in (d1)'s ranks at the initial parameters, 2
+#: members, its noise drawn from this seed; the training phase's single
+#: process runs the same eval on the same batch
+DOMAIN_EVAL_MEMBERS, DOMAIN_EVAL_SEED = 2, 2024
+#: the domain eval against the single process (tests/test_torch_train.py)
+EVAL_RTOL = 1e-4
+#: (e) the engine's member_axes: [main]'s scored forecast (its parameters,
+#: sample, noise seed, 2 members, 3 leads) over 2 ranks, one member each
+#: (the +/- pair straddles the ranks)
+DIST_ENGINE_RANKS = 2
+#: phase 2d: launch/evaluate.py at fcn3_full from [main]'s parameters
+EVAL_MEMBERS, EVAL_LEADS, EVAL_ICS = 2, 2, 2
 #: two values closer than this, relative, are counted as a near-tie
 #: (8 units in the last place of fp32)
 TIE_REL = 8 * 2.0 ** -23
@@ -435,9 +471,9 @@ def check_legendre(table, extents, shape, dtype, name) -> dict:
 
 
 def check_disco(ent, name, full: bool) -> dict:
-    """Banded DISCO kernel at one main-path shape: its time, and with
-    ``full`` (the largest batch of each geometry) the plain version's and
-    the ``conv1d`` yardstick's, and the kernel against the plain
+    """Banded DISCO kernel at one main-path shape: its time and the
+    ``conv1d`` yardstick's, and with ``full`` (the largest batch of each
+    geometry) the plain version's and the kernel against the plain
     version."""
     import torch
     import torch.nn.functional as F
@@ -471,27 +507,27 @@ def check_disco(ent, name, full: bool) -> dict:
         return F.conv1d(xp, wt, stride=stride, groups=h_out)
 
     lib_ms = cuda_ms(lib, reps=3)
-    # the plain version: one timed call (seconds at these shapes), whose
-    # output the kernel is held to at the largest batch of each geometry
-    refs = []
-    plain_ms = cuda_ms(lambda: refs.append(
-        disco_gather_band_contract_ref(x, psi, lat_idx, stride)), reps=1,
-        warmup=0)
-    ref = refs.pop()
     if full:
+        # the plain version: one timed call (seconds at these shapes),
+        # whose output the kernel is held to, at the largest batch of each
+        # geometry only (the narrower batches repeat its work)
+        refs = []
+        plain_ms = cuda_ms(lambda: refs.append(
+            disco_gather_band_contract_ref(x, psi, lat_idx, stride)),
+            reps=1, warmup=0)
+        ref = refs.pop()
         got = kernel()
         abs_err, rel_err = errors(got, ref)
         deterministic = torch.equal(got, kernel())
         del got
         lib_out = lib().reshape(b, h_out, k, w_out).permute(0, 2, 1, 3)
         lib_err = errors(lib_out, ref)[1]
-        del lib_out
-    del xp, ref
-    if full:
+        del lib_out, ref
         if not (rel_err <= REL_TOL and deterministic):
             raise AssertionError(f"disco {name}: kernel disagrees with its "
                                  f"plain version (rel {rel_err:.3e}) or is "
                                  f"not deterministic ({deterministic})")
+    del xp
     nnz = int((psi != 0).sum())
     flops_dense = 2.0 * k * h_out * s * d * w_out * b
     flops = 2.0 * nnz * w_out * b   # the taps this filter really has
@@ -505,17 +541,24 @@ def check_disco(ent, name, full: bool) -> dict:
     log(f"[kernel] disco {name} {row['shape']}: launches={ent['launches']} "
         f"ms={ms:.3f} bound_ms={row['bound_ms']:.3f} "
         f"bound_tc_ms={row['bound_tc_ms']:.3f} "
-        f"tflops={flops / ms / 1e9:.2f} conv1d_ms={lib_ms:.3f} "
-        f"plain_ms={plain_ms:.3f}"
-        + (f" abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
-           f"(conv1d rel_err {lib_err:.1e})" if full else ""))
+        f"tflops={flops / ms / 1e9:.2f} conv1d_ms={lib_ms:.3f}"
+        + (f" plain_ms={plain_ms:.3f} abs_err={abs_err:.3e} "
+           f"rel_err={rel_err:.3e} (conv1d rel_err {lib_err:.1e})"
+           if full else ""))
     return row
 
 
-def check_transpose(ent, name) -> dict:
+def check_transpose(ent, name, library: bool = True,
+                    band: dict | None = None) -> dict:
     """Band transpose kernel vs its plain version at one training shape,
-    its launches there, and the ``conv_transpose1d`` yardstick's time
-    (one call: it takes seconds, see PERF.md)."""
+    its launches there, and with ``library`` the ``conv_transpose1d``
+    yardstick's time (one call: it takes seconds, see PERF.md; timed once
+    per band, at its widest shape: the others repeat the same work).
+
+    ``band``: one dict per band, checked widest shape first.  The widest
+    keeps its g and the plain version's output there; a narrower shape
+    takes the first planes of both (the planes are independent), so the
+    plain version runs, and is timed, once per band."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
@@ -527,8 +570,12 @@ def check_transpose(ent, name) -> dict:
     b, k, h_out, w_out = shape
     _, _, s, d = psi.shape
     w_in = w_out * stride
-    g = torch.randn(shape, generator=torch.Generator(
-        device="cuda").manual_seed(13), device="cuda")
+    reuse = band is not None and "ref" in band
+    if reuse:
+        g = band["g"][:b].contiguous()
+    else:
+        g = torch.randn(shape, generator=torch.Generator(
+            device="cuda").manual_seed(13), device="cuda")
 
     def kernel():
         return ops.disco_band_transpose(g, psi, lat_idx, taps, lists, h_in,
@@ -538,10 +585,16 @@ def check_transpose(ent, name) -> dict:
         return disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
 
     got = kernel()
-    # the plain version: one timed call (seconds at these shapes)
-    refs = []
-    plain_ms = cuda_ms(lambda: refs.append(plain()), reps=1, warmup=0)
-    ref = refs.pop()
+    plain_ms = None
+    if reuse:
+        ref = band["ref"][:b]
+    else:
+        # the plain version: one timed call (seconds at these shapes)
+        refs = []
+        plain_ms = cuda_ms(lambda: refs.append(plain()), reps=1, warmup=0)
+        ref = refs.pop()
+        if band is not None:
+            band.update(g=g, ref=ref)
     abs_err, rel_err = errors(got, ref)
     deterministic = torch.equal(got, kernel())
     del got
@@ -557,19 +610,21 @@ def check_transpose(ent, name) -> dict:
         return F.conv_transpose1d(gl, wt, stride=stride, groups=h_out)
 
     try:
-        # one timed call (no warm-up: at the decoder a call takes 35-44 s,
-        # cuDNN's benchmark mode is off), its output checked
-        outs = []
-        lib_ms = cuda_ms(lambda: outs.append(lib()), reps=1, warmup=0)
-        gxp = outs.pop()
-        fold = gxp[..., :w_in].clone()
-        fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
-        del gxp
-        gxr = torch.zeros((b, h_in, w_in), device="cuda").index_add_(
-            1, lat_idx.reshape(-1).long(), fold.reshape(b, h_out * s, w_in))
-        del fold
-        lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
-        del gxr
+        if library:
+            # one timed call (no warm-up: at the decoder a call takes
+            # 35-44 s, cuDNN's benchmark mode is off), its output checked
+            outs = []
+            lib_ms = cuda_ms(lambda: outs.append(lib()), reps=1, warmup=0)
+            gxp = outs.pop()
+            fold = gxp[..., :w_in].clone()
+            fold[..., :gxp.shape[-1] - w_in] += gxp[..., w_in:]
+            del gxp
+            gxr = torch.zeros((b, h_in, w_in), device="cuda").index_add_(
+                1, lat_idx.reshape(-1).long(),
+                fold.reshape(b, h_out * s, w_in))
+            del fold
+            lib_err = errors(torch.roll(gxr, -(d // 2), dims=-1), ref)[1]
+            del gxr
     except RuntimeError as exc:  # the yardstick only; never in the port
         log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
     del gl, ref
@@ -589,10 +644,12 @@ def check_transpose(ent, name) -> dict:
                tflops=flops / ms / 1e9, dense_band_tflops=flops_dense / ms
                / 1e9, **bound(flops, nbytes))
     row["ms_over_bound"] = ms / row["bound_ms"]
+    plain_txt = "(the widest shape's)" if reuse else f"{plain_ms:.3f}"
     log(f"[kernel] transpose {name} {row['shape']}: "
         f"launches={ent['launches']} abs_err={abs_err:.3e} "
-        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"conv_transpose1d_ms={lib_ms} (rel_err {lib_err}) "
+        f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_txt} "
+        f"conv_transpose1d_ms={lib_ms if library else 'not-timed'} "
+        f"(rel_err {lib_err}) "
         f"bound_ms={row['bound_ms']:.3f} "
         f"ms/bound_ms={row['ms_over_bound']:.2f} "
         f"bound_tc_ms={row['bound_tc_ms']:.3f} "
@@ -1389,6 +1446,55 @@ def service_phase(report, config: str = "full", device: str = "cuda",
     return out
 
 
+def evaluate_phase(report, ckpt: str, guard) -> dict:
+    """Phase 2d: ``launch/evaluate.py`` at ``CONFIG`` from [main]'s
+    parameters (``ckpt``), with both forecast kernels' counts and the
+    plain guard set to 0 just before and read just after; its seconds,
+    the seconds of each initial condition (from its own lines), peak,
+    launches, plain calls on CUDA tensors, and whether every table entry
+    is finite."""
+    import re
+    import numpy as np
+    import torch
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import evaluate
+    ic_done = []
+
+    def rep(line: str) -> None:
+        line = line.strip()
+        if line:
+            report(line if line.startswith("[") else f"[evaluate] {line}")
+        m = re.match(r"\[evaluate\] ic \d+/\d+ \(([\d.]+)s\)", line)
+        if m:
+            ic_done.append(float(m.group(1)))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    disco_ops.reset_launches()
+    legendre_ops.reset_launches()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    t0 = time.time()
+    results = evaluate.main(
+        ["--config", CONFIG, "--ckpt", ckpt, "--members", str(EVAL_MEMBERS),
+         "--lead-steps", str(EVAL_LEADS), "--initial-conditions",
+         str(EVAL_ICS)], report=rep)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    return {"seconds": seconds, "setup_s": seconds - ic_done[-1],
+            "ic_s": [b - a for a, b in zip([0.0] + ic_done[:-1], ic_done)],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {"disco_band_contract": disco_ops.launches,
+                         "legendre_contract": legendre_ops.launches},
+            "plain": dict(guard.counts),
+            "finite": all(np.isfinite(np.asarray(v, np.float64)).all()
+                          for lead in results.values()
+                          for v in lead.values()),
+            "entries": sum(np.size(v) for lead in results.values()
+                           for v in lead.values())}
+
+
 def train_phase(report, keep: str | None = None, steps_done=None) -> dict:
     """The fcn3_full training path with fresh launch counts; returns the
     summary the ``[train]`` lines print.  ``steps_done()`` is called once
@@ -1450,9 +1556,10 @@ def _first_step_again(run, params: dict) -> dict:
     """The first training step's loss and gradients (to the host) again:
     the initial ``params`` loaded back, the loader's first training batch
     (its second: the first calibrates) and ``run_steps``' draws for step
-    0.  With the shares of near-ties (within TIE_REL of each other) of
-    the step's two members, and of member 0 and the truth: where the fair
-    CRPS's gradient takes the sign of a rounding error."""
+    0; before it, the eval step on the same parameters and batch ((d4)'s
+    reference).  With the shares of near-ties (within TIE_REL of each
+    other) of the step's two members, and of member 0 and the truth: where
+    the fair CRPS's gradient takes the sign of a rounding error."""
     import torch
     from repro_torch.core import crps as crpslib
     from repro_torch.inference.engine import GeneratorNoise
@@ -1462,6 +1569,15 @@ def _first_step_again(run, params: dict) -> dict:
     it = iter(run.batches)
     next(it)
     batch = next(it)
+    # (d4)'s single-process side: the eval step on the initial parameters
+    # and this batch, from DOMAIN_EVAL_SEED's draws
+    t0 = time.time()
+    gen = torch.Generator(device=run.model.device)
+    gen.manual_seed(DOMAIN_EVAL_SEED)
+    ev = run.trainer.eval_step(run.buffers, batch, GeneratorNoise(gen),
+                               n_members=DOMAIN_EVAL_MEMBERS)
+    ev = {k: float(v) for k, v in ev.items()}
+    eval_s = time.time() - t0
     gen = torch.Generator(device=run.model.device)
     gen.manual_seed(1000)
     objective, ties = crpslib.fcn3_objective, []
@@ -1482,7 +1598,8 @@ def _first_step_again(run, params: dict) -> dict:
     finally:
         crpslib.fcn3_objective = objective
     return {"loss": float(loss), "ties": ties[0],
-            "grads": {k: g.cpu() for k, g in grads.items()}}
+            "grads": {k: g.cpu() for k, g in grads.items()},
+            "eval": ev, "eval_s": eval_s}
 
 
 def _plan_payloads(names: tuple[str, ...], shts: tuple[str, ...],
@@ -1738,6 +1855,8 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
     def loss_and_grads(self, *args):
         loss, aux, grads = grads_of(self, *args)
         if "trainer" not in kept:
+            # the first step's buffers and batch, for (d4)
+            kept["buffers"], kept["batch"] = args[0], args[1]
             # rank 0's reduced gradients to the host (its first step's
             # time grows by the copy; a device copy would raise its peak)
             kept["trainer"] = self
@@ -1768,10 +1887,12 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
            # the CRPS kernels' operand shapes
            "crps": list(rec.crps.values())}
     rec.close()
-    guard.close()
     dom = kept["trainer"].domain
     if dom is not None:
         out["rows"] = (dom.io_block, dom.lat_block)
+        out["eval"] = _domain_eval(kept, argv[argv.index("--init-from") + 1],
+                                   guard)
+    guard.close()
     model = kept["trainer"].model
     out["params_equal"] = _replicas_equal(
         [p.detach() for p in model.parameters()])
@@ -1779,10 +1900,183 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
     return out
 
 
-def dist_phase(report, step0: dict, tmp: str) -> dict:
+def _domain_eval(kept: dict, init_from: str, guard) -> dict:
+    """(d4), on one rank of (d1) after its steps: the initial parameters
+    loaded back and ``eval_step`` (2 members, DOMAIN_EVAL_SEED's draws) on
+    the rank's rows of the first step's batch, with the launch counts and
+    the plain guard set to 0 just before and read just after; its values,
+    seconds, collective seconds, launches, plain calls on CUDA tensors,
+    peak and the CRPS kernel's operand shapes."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import train as train_mod
+    trainer = kept["trainer"]
+    train_mod.load_init(trainer.model, init_from)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DOMAIN_EVAL_SEED)
+    rec = Recorder()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    for mod in (crps_ops, disco_ops, legendre_ops):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compat.start_timing()
+    t0 = time.time()
+    ev = trainer.eval_step(kept["buffers"], kept["batch"], GeneratorNoise(gen),
+                           n_members=DOMAIN_EVAL_MEMBERS)
+    ev = {k: float(v) for k, v in ev.items()}
+    out = {"values": ev, "seconds": time.time() - t0,
+           "collective_s": compat.timed_seconds(),
+           "launches": {"disco_band_contract": disco_ops.launches,
+                        "legendre_contract": legendre_ops.launches,
+                        "crps_fused": crps_ops.launches},
+           "plain": dict(guard.counts),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "crps": list(rec.crps.values())}
+    rec.close()
+    return out
+
+
+def dist_engine_rank(rank: int, world_size: int, plans: str,
+                     ckpt: str) -> dict:
+    """Phase (e), on one rank: [main]'s scored forecast (its parameters
+    from ``ckpt``, its sample, noise seed and leads) through the engine
+    with ``member_axes=("model",)`` on a (1, R) mesh, this rank rolling
+    its block of the members, with every launch count and the plain guard
+    set to 0 just before the rollout and read just after; returns the
+    block, each lead's seconds and scores (host copies), the final
+    members, the collective seconds, the bytes the score all-to-alls
+    received, the peak, the launches, the plain calls on CUDA tensors and
+    the CRPS kernel's operand shapes."""
+    import torch
+    from repro_torch.distributed import compat
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              members_noise)
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    _install_payloads(plans)
+    t0 = time.time()
+    run = serve_mod.setup(CONFIG, device="cuda", ckpt=ckpt)
+    mesh = make_mesh((1, world_size), ("data", "model"), "cuda")
+    eng = ForecastEngine(run.model, EngineConfig(
+        members=MEMBERS, lead_chunk=1, member_axes=("model",)), mesh=mesh)
+    ds = run.ds
+    guard = PlainGuard()
+    rec = Recorder()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (crps_ops, disco_ops, legendre_ops):
+        mod.reset_launches()
+    compat.start_timing()
+    stamps, scores, final = [time.time()], [], None
+    for block in eng.stream(run.buffers, run.state0,
+                            lambda n: ds.aux_fields(6.0 * (n + 1)),
+                            members_noise(run.model, 7), steps=LEAD_STEPS,
+                            truth=lambda n: ds.state(run.sample, n + 1)):
+        scores.append({k: v.cpu() for k, v in block.scores.items()})
+        stamps.append(time.time())
+        if block.final_state is not None:
+            final = block.final_state.cpu()
+    torch.cuda.synchronize()
+    out = {"block": eng.block, "setup_s": setup_s,
+           "lead_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
+           "rollout_s": time.time() - stamps[0],
+           "collective_s": compat.timed_seconds(),
+           "a2a_bytes": compat.timed_bytes(), "scores": scores,
+           "final_state": final,
+           "launches": {"disco_band_contract": disco_ops.launches,
+                        "legendre_contract": legendre_ops.launches,
+                        "crps_fused": crps_ops.launches},
+           "plain": dict(guard.counts),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "crps": list(rec.crps.values())}
+    rec.close()
+    guard.close()
+    return out
+
+
+def _worst(got, want, rtol: float, atol: float) -> tuple[float, float]:
+    """Max |got - want| and the worst |diff| / (atol + rtol |want|)."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / (atol + rtol * want.abs())).max())
+
+
+def engine_dist_phase(report, forecast: dict, plans: str) -> dict:
+    """(e) the engine's ``member_axes``: [main]'s forecast over
+    DIST_ENGINE_RANKS ranks, each lead's scores held to [main]'s and each
+    rank's final members to [main]'s at the dispatch bar, then the CRPS
+    kernel against its plain version at rank 0's operand shapes; raises
+    on any failed check."""
+    import torch
+    from repro_torch.distributed.world import run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = run_world(dist_engine_rank, DIST_ENGINE_RANKS,
+                    (plans, forecast["ckpt"]), backend=DIST_BACKEND,
+                    timeout=900.0)
+    phase_s = time.time() - t0
+    worst: dict[str, tuple[float, float]] = {}
+
+    def note(name, got, want, rtol, atol):
+        err = _worst(got, want, rtol, atol)
+        old = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(old[0], err[0]), max(old[1], err[1]))
+
+    for i, r in enumerate(res):
+        lo, hi = r["block"]
+        share = r["collective_s"] / r["rollout_s"]
+        report(f"[dist] (e) rank {i}: members [{lo}, {hi}) of {MEMBERS}, "
+               f"setup_s={r['setup_s']:.1f} lead_s="
+               f"{[round(x, 3) for x in r['lead_s']]} rollout_s="
+               f"{r['rollout_s']:.3f} collective_s={r['collective_s']:.3f} "
+               f"(share {share:.3f}) score_a2a_bytes={r['a2a_bytes']} "
+               f"({r['a2a_bytes'] / LEAD_STEPS / 1e6:.1f} MB a lead) "
+               f"launches={r['launches']} plain_calls_on_cuda={r['plain']} "
+               f"peak_mem_gb={r['peak_gb']:.2f}")
+        for t, sc in enumerate(r["scores"]):
+            for name, v in sc.items():
+                atol = STATE_ATOL if name == "rank_hist" else SCORE_ATOL
+                note(name, v[0], forecast["scores"][name][t], SCORE_RTOL,
+                     atol)
+        note("state", r["final_state"], forecast["final_state"][lo:hi],
+             STATE_RTOL, STATE_ATOL)
+    report(f"[dist] (e) vs [main], every lead, max_abs_err (worst |diff| / "
+           f"(atol + rtol |ref|)): " + " ".join(
+               f"{k}={a:.3e} ({w:.3f})" for k, (a, w) in worst.items())
+           + f" (state rtol={STATE_RTOL} atol={STATE_ATOL}; scores "
+             f"rtol={SCORE_RTOL} atol={SCORE_ATOL}, rank_hist atol="
+             f"{STATE_ATOL}); phase {phase_s:.1f} s")
+    for i, r in enumerate(res):
+        if min(r["launches"].values()) <= 0 or any(r["plain"].values()):
+            raise AssertionError(f"(e) rank {i}: launches {r['launches']}, "
+                                 f"plain {r['plain']}")
+    if set(worst) != {"crps", "ens_rmse", "spread", "ssr", "rank_hist",
+                      "state"} or max(w for _, w in worst.values()) > 1.0:
+        raise AssertionError(f"(e) disagrees with [main]: {worst}")
+    rows = []
+    for ent in res[0]["crps"]:
+        rows += [dict(row, kernel="crps_fused", path="dist_engine")
+                 for row in check_crps(ent)]
+    return {"engine_s": phase_s, "engine": [
+        {k: v for k, v in r.items() if k not in ("scores", "final_state")}
+        for r in res], "engine_rows": rows}
+
+
+def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
     """(a) the selftest on the card, (b) Algorithms 1 and 2 at the
     fcn3_full latent, (c) ensemble-parallel training at fcn3_full against
-    the training phase's first step; raises on any failed check."""
+    the training phase's first step, (d) the domain decomposition, (e)
+    the engine's ``member_axes`` against ``forecast`` ([main]'s scores,
+    final members and parameters); raises on any failed check."""
     import torch
     from repro_torch.configs import fcn3 as fcn3cfg
     from repro_torch.distributed import selftest
@@ -1902,6 +2196,7 @@ def dist_phase(report, step0: dict, tmp: str) -> dict:
     out["train"] = [{k: v for k, v in r.items() if k != "grads"}
                     for r in res]
     out.update(domain_phase(report, step0, plans, argv))
+    out.update(engine_dist_phase(report, forecast, plans))
     return out
 
 
@@ -2051,6 +2346,27 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
                              f"{loss_rel:.3e}, gradient {worst:.3f}")
     out["domain"] = [{k: v for k, v in r.items() if k != "grads"}
                      for r in res]
+    want = step0["eval"]
+    for i, r in enumerate(res):
+        ev = r["eval"]
+        rel = max(abs(ev["values"][k] - v) / abs(v) for k, v in want.items())
+        report(f"[dist] (d4) rank {i} eval_step, {DOMAIN_EVAL_MEMBERS} "
+               f"members on its rows at the initial parameters: "
+               + " ".join(f"{k}={v:.7f}" for k, v in ev["values"].items())
+               + f" (one process: "
+               + " ".join(f"{k}={v:.7f}" for k, v in want.items())
+               + f"; worst rel {rel:.2e}, bar {EVAL_RTOL:g}) seconds="
+               f"{ev['seconds']:.3f} collective_s={ev['collective_s']:.3f} "
+               f"launches={ev['launches']} plain_calls_on_cuda="
+               f"{ev['plain']} peak_mem_gb={ev['peak_gb']:.2f}")
+        if min(ev["launches"].values()) <= 0 or any(ev["plain"].values()):
+            raise AssertionError(f"(d4) rank {i}: launches "
+                                 f"{ev['launches']}, plain {ev['plain']}")
+        if not rel <= EVAL_RTOL:
+            raise AssertionError(f"(d4) rank {i}: the domain eval step "
+                                 f"disagrees with one process: rel {rel:.3e}")
+    report(f"[dist] (d4) the single process's eval step took "
+           f"{step0['eval_s']:.3f} s")
 
     t0 = time.time()
     res = run_world(dist_small_rank, DIST_SMALL_RANKS, (),
@@ -2104,15 +2420,21 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
         torch.cuda.empty_cache()
         if bwd:    # the encoders' inputs take no gradient
             g = max(bwd, key=lambda g: g[0])
+            # no conv_transpose1d yardstick: the sliced rows repeat the
+            # whole band's work, timed in phase 7
             row = check_transpose(dict(ent, shape=g,
-                                       launches=sum(bwd.values())), what)
+                                       launches=sum(bwd.values())), what,
+                                  library=False)
             rows.append(dict(row, kernel="disco_band_transpose",
                              path="dist_domain"))
             torch.cuda.empty_cache()
         del bufs, ent
-    # the CRPS kernels at the points of rank 0's terms
+    # the CRPS kernels at the points of rank 0's terms, and of its eval
     for ent in out["domain"][0]["crps"]:
         rows += [dict(row, kernel="crps_fused", path="dist_domain")
+                 for row in check_crps(ent)]
+    for ent in out["domain"][0]["eval"]["crps"]:
+        rows += [dict(row, kernel="crps_fused", path="dist_domain_eval")
                  for row in check_crps(ent)]
     # the Legendre kernel on rank 0's tables (domain_sht_tables: rows
     # padded to a multiple of the ranks, zero past lmax) at the pencils
@@ -2185,6 +2507,11 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 log(f"[build] {name}: {ln.strip()}")
 
+    # the distributed phase's files: [main]'s parameters (for (e) and the
+    # evaluate phase), the training cell's, the plans handed to ranks
+    dist_tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    atexit.register(shutil.rmtree, dist_tmp, ignore_errors=True)
+
     # -- phase 2: the main path -------------------------------------------
     guard = PlainGuard()
     rec = Recorder()
@@ -2255,6 +2582,16 @@ def main() -> int:
     if any(guard.counts.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors in the "
                              f"forecast: {guard.counts}")
+    # kept for (e) and phase 2d: the scores and final members (host
+    # copies) and the parameters, in the reference checkpoint format
+    from repro_torch.train import checkpoint as ckptlib
+    forecast = {
+        "scores": {name: torch.cat([r.scores[name] for r in results]).cpu()
+                   for name in results[0].scores},
+        "final_state": final.cpu(),
+        "ckpt": ckptlib.save_checkpoint(
+            os.path.join(dist_tmp, "forecast"), 0,
+            dict(run.model.named_parameters()))}
     del results, final
 
     # -- phase 2b: the engine's other paths on the same model --------------
@@ -2328,14 +2665,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- phase 2d: the WB2 evaluation CLI from [main]'s parameters ---------
+    ev = evaluate_phase(log, forecast["ckpt"], guard)
+    log(f"[evaluate] config={CONFIG} members={EVAL_MEMBERS} leads="
+        f"{EVAL_LEADS} initial_conditions={EVAL_ICS}: seconds="
+        f"{ev['seconds']:.1f} setup_s={ev['setup_s']:.1f} ic_s="
+        f"{[round(x, 2) for x in ev['ic_s']]} peak_mem_gb="
+        f"{ev['peak_gb']:.2f} launches={ev['launches']} "
+        f"plain_calls_on_cuda={ev['plain']} entries={ev['entries']} "
+        f"finite={ev['finite']}")
+    if not ev["finite"] or min(ev["launches"].values()) <= 0 or any(
+            ev["plain"].values()):
+        raise AssertionError(f"evaluate: finite {ev['finite']}, launches "
+                             f"{ev['launches']}, plain {ev['plain']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- phase 2c: the forecast service (the forecast's model is gone) ------
     t0 = time.time()
     svc = service_phase(log, guard=guard)
     service_s = time.time() - t0
     service_launches = svc["launches"]
-    # later phases build their plans and load their libraries as before
-    # (the bundle's directory is gone; its libraries stay mapped)
-    _geometry_caches_cleared()
+    # later phases load their libraries as before (the bundle's directory
+    # is gone; its libraries stay mapped); the plans and tables the
+    # replica installed stay, the same a build makes: building them again
+    # took 15-23 s of the training phase's set-up on the card
     build.reset_registry()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2402,7 +2756,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rec = Recorder()
     guard.counts = dict.fromkeys(guard.counts, 0)
-    dist_tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     summary = train_phase(
         lambda line: log(line if line.startswith("[") else f"[train] {line}"),
         keep=dist_tmp, steps_done=train_rec.close)
@@ -2445,13 +2798,15 @@ def main() -> int:
 
     # -- phase 5b: distribution, every rank a process on the card ----------
     try:
-        dist = dist_phase(log, summary.pop("step0"), dist_tmp)
+        dist = dist_phase(log, summary.pop("step0"), dist_tmp, forecast)
     finally:
         shutil.rmtree(dist_tmp, ignore_errors=True)
     log(f"[dist] card: {card}; selftest {dist['selftest_s']:.1f} s, "
         f"Algorithms 1-2 {dist['geometry_s']:.1f} s, training "
         f"{dist['train_s']:.1f} s, domain training {dist['domain_s']:.1f} "
-        f"s, domain forward {dist['small_s']:.1f} s")
+        f"s, domain forward {dist['small_s']:.1f} s, engine over ranks "
+        f"{dist['engine_s']:.1f} s")
+    del forecast
     torch.cuda.empty_cache()
 
     # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
@@ -2572,11 +2927,21 @@ def main() -> int:
             row = check_disco(ent, disco_what(ent) + " engine", True)
             rows["disco_band_contract"].append(dict(row, path="engine"))
             torch.cuda.empty_cache()
-    for ent in train_rec.transpose.values():
+    # the conv_transpose1d yardstick and the plain version run at each
+    # band's widest shape only: the narrower ones repeat their work
+    # (PERF.md), and are held to the first planes of the plain output
+    bands: dict = {}
+    for ent in sorted(train_rec.transpose.values(),
+                      key=lambda e: (tuple(e["psi"].shape), e["stride"],
+                                     -e["shape"][0])):
         what = (f"{ent['psi'].shape[1]}x{ent['shape'][-1]}->{ent['h_in']}x"
                 f"{ent['shape'][-1] * ent['stride']}")
-        rows["disco_band_transpose"].append(check_transpose(ent, what))
+        band = bands.setdefault((tuple(ent["psi"].shape), ent["stride"]), {})
+        rows["disco_band_transpose"].append(check_transpose(
+            ent, what, library="ref" not in band, band=band))
         torch.cuda.empty_cache()
+    del bands
+    torch.cuda.empty_cache()
     if sum(r["launches"] for r in rows["disco_band_transpose"]) != summary[
             "launches"]["disco_band_transpose"]:
         raise AssertionError("the transpose's launches per shape do not add "
@@ -2589,7 +2954,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     # (d3): the band and CRPS kernels on a rank's row-sliced operands,
     # the Legendre kernel on its padded tables
-    for row in dist["domain_rows"]:
+    for row in dist["domain_rows"] + dist["engine_rows"]:
         rows[row["kernel"]].append(row)
 
     meta = {
@@ -2629,7 +2994,11 @@ def main() -> int:
                        name, 0),
                    "dist_train": dist["train"][0]["launches"].get(name, 0),
                    "dist_domain": dist["domain"][0]["launches"].get(name,
-                                                                    0)}
+                                                                    0),
+                   "evaluate": ev["launches"].get(name, 0),
+                   "dist_engine": dist["engine"][0]["launches"].get(name, 0),
+                   "dist_domain_eval": dist["domain"][0]["eval"][
+                       "launches"].get(name, 0)}
         ent = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,

@@ -25,7 +25,9 @@ Each takes a ``ProcessGroup`` where JAX takes a mesh-axis name:
   rank order, of ``recv_sizes`` rows; its gradient is the reverse
   exchange (the domain step's halo exchange rides on it);
 * ``row_block(h, rank, n)`` -- the rows of ``h`` that rank ``rank`` of
-  ``n`` holds, the loader's ragged split.
+  ``n`` holds, the loader's ragged split;
+* ``mesh_group(mesh, axes)`` -- the group over several mesh axes
+  together (a ``PartitionSpec`` entry naming a tuple of axes).
 
 Complex tensors cross every collective as ``torch.view_as_real`` (gloo
 and NCCL take no complex64).  Between ``start_timing()`` and
@@ -48,6 +50,8 @@ import torch.distributed as dist
 _timed: list | None = None
 #: the bytes ``all_to_all_v`` received since ``start_timing``
 _received = 0
+#: ``mesh_group``'s groups over several axes, by world, mesh and axes
+_mesh_groups: dict = {}
 
 
 def start_timing() -> None:
@@ -151,6 +155,36 @@ def row_block(h: int, rank: int, n: int) -> tuple[int, int]:
     (ragged where ``n`` does not divide ``h``: 721 rows over 2 ranks are
     360 and 361)."""
     return (h * rank) // n, (h * (rank + 1)) // n
+
+
+def mesh_group(mesh, axes: tuple[str, ...]):
+    """The process group over the mesh axes ``axes`` taken together,
+    holding this rank: one axis is the mesh's own group; axes that cover
+    the world are the default group; others are one new group per slice
+    of the remaining axes, made on every rank in the same order (so the
+    call is collective) and kept for later calls with the same world,
+    mesh and axes.  A rank's index in it is its place in the sorted
+    global ranks of its slice."""
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    if len(dims) == 1:
+        return mesh.get_group(axes[0])
+    ids = mesh.mesh
+    size = 1
+    for d in dims:
+        size *= ids.shape[d]
+    if size == dist.get_world_size():
+        return dist.group.WORLD
+    key = (dist.group.WORLD, tuple(ids.shape), tuple(ids.flatten().tolist()),
+           tuple(names), tuple(axes))
+    if key not in _mesh_groups:
+        rest = [d for d in range(ids.dim()) if d not in dims]
+        me = dist.get_rank()
+        for row in ids.permute(rest + dims).reshape(-1, size).tolist():
+            g = dist.new_group(row)
+            if me in row:
+                _mesh_groups[key] = g
+    return _mesh_groups[key]
 
 
 def _all_to_all_v(x: torch.Tensor, group, dim: int, send_sizes, recv_sizes

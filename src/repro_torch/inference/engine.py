@@ -51,9 +51,36 @@ adapted buffers and precision casts resident (``make_resident``), and
 never runs a rollout; ``mark_warm`` / ``is_warm`` keep the warmed
 (scored, chunk_len, batch) keys.
 
+Member sharding (paper G.1, ``EngineConfig.member_axes``, the JAX
+engine's ``_constrain``): with a ``DeviceMesh`` each rank of the group
+over those axes (several axes flattened onto the member dim,
+``compat.mesh_group``) rolls out its block of the members
+(``dist_crps.member_block``: whole +/- pairs where there are enough, so
+any E >= R splits, unevenly if need be).  Every rank draws the whole
+(E, ...) noise from the same ``NoiseSource``, so the draws equal one
+process's, and carries every member's coefficients; under centering a
+member's grid noise is its even partner's, negated for the odd one, so a
+rank transforms only the even members of the pairs it touches (one path:
+without ``member_axes`` the block is all E members, and the engine
+transforms ceil(E/2) members' noise a lead, not E).  A rank
+that holds the odd member of a pair that straddles ranks transforms its
+partner's coefficients in place of its own: one inverse SHT of
+``n_proc`` fields a lead, the count it would have spent on its own, and
+no collective.  Perturbed members are made whole-ensemble-equal the same
+way (``InitialConditionPerturbation.members(block=...)``).  The scores
+cross ranks each lead: one ragged all-to-all over the group gathers
+every member on the rank's block of the H*W points of each channel
+(``dist_crps.scatter_points``, Algorithm 3's step 1); the fair CRPS runs
+through the CRPS kernel there (``dist_crps_channels``), and the weighted
+squared error of the mean, the unbiased variance, the per-ring rank
+counts (contracted with the ring weights) and the spectra's member sums
+are psummed before any square root or division.  Every rank returns the
+same scores; ``final_state`` holds the rank's members and
+``final_noise`` every member's coefficients.  The collectives go through
+``distributed.compat`` and are timed there.
+
 Not ported: the JAX engine's ``lower/export/import_chunk`` (no program to
-lower or export), ``member_axes`` (ROADMAP A10), ``donate`` and
-``static_buffers`` (XLA-only).
+lower or export), ``donate`` and ``static_buffers`` (XLA-only).
 """
 
 from __future__ import annotations
@@ -71,7 +98,9 @@ import torch
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import legendre as leg
-from repro_torch.core.sphere import noise as noiselib
+from repro_torch.distributed import compat
+from repro_torch.distributed.dist_crps import (dist_crps_channels,
+                                               member_block, scatter_points)
 from repro_torch.evaluation import metrics
 from repro_torch.inference import perturbations as perturblib
 from repro_torch.kernels.config import KernelConfig
@@ -126,6 +155,11 @@ class EngineConfig:
                    model's own ``FCN3Config.kernels``, another config
                    re-homes the engine's model view (and its buffer
                    layout) on that path.
+    member_axes:   mesh axes of the leading ensemble dim (paper G.1), e.g.
+                   ("model",); several axes all shard the member dim.
+                   The engine then needs the ``mesh`` that names them
+                   (see the module docstring); None runs every member in
+                   this process.
     """
 
     members: int = 4
@@ -135,6 +169,7 @@ class EngineConfig:
     perturb: perturblib.PerturbationConfig = perturblib.PerturbationConfig()
     spectra: bool = False
     kernels: KernelConfig | None = None
+    member_axes: tuple | None = None
 
     def __post_init__(self):
         if self.members < 1:
@@ -146,6 +181,11 @@ class EngineConfig:
             raise ValueError(f"compute_dtype must be one of "
                              f"{tuple(COMPUTE_DTYPES)}, got "
                              f"{self.compute_dtype!r}")
+        if self.member_axes is not None and not (
+                isinstance(self.member_axes, tuple) and self.member_axes
+                and all(isinstance(a, str) for a in self.member_axes)):
+            raise ValueError(f"member_axes must be a non-empty tuple of mesh "
+                             f"axis names, got {self.member_axes!r}")
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -356,12 +396,17 @@ class ForecastEngine:
     Under the bf16 policy the model runs on a bf16 copy of its parameters
     through ``torch.func.functional_call``, which swaps them into the
     module for the call: one engine drives its model from one thread.
+
+    With ``cfg.member_axes``, ``mesh`` is the ``DeviceMesh`` they name
+    (construction is then collective over the world when several axes
+    need a group of their own); every rank of the group runs the same
+    calls, and ``diagnostics`` sees the rank's members.
     """
 
     def __init__(self, model: FCN3, cfg: EngineConfig,
                  diagnostics: Callable[[torch.Tensor], Any] | None = None,
                  perturbation: perturblib.InitialConditionPerturbation
-                 | None = None):
+                 | None = None, mesh=None):
         if cfg.kernels is not None and cfg.kernels != model.cfg.kernels:
             # a view on the other path: the same parameters and geometry
             # plans, another config (hence another buffer layout)
@@ -370,6 +415,21 @@ class ForecastEngine:
         self.model = model
         self.cfg = cfg
         self.diagnostics = diagnostics
+        #: the member group, this rank's members [lo, hi) and every
+        #: rank's member count (None: all members in this process)
+        self.group, self.block, self.counts = None, (0, cfg.members), None
+        if cfg.member_axes is not None:
+            if mesh is None:
+                raise ValueError(f"member_axes {cfg.member_axes} need the "
+                                 "mesh that names them")
+            self.group = compat.mesh_group(mesh, cfg.member_axes)
+            n = compat.axis_size(self.group)
+            blocks = [member_block(cfg.members, q, n) for q in range(n)]
+            self.block = blocks[compat.axis_index(self.group)]
+            self.counts = [hi - lo for lo, hi in blocks]
+        elif mesh is not None:
+            raise ValueError("a mesh without member_axes: the engine has "
+                             "no other placement")
         # the model's device with its index ("cuda" alone never equals a
         # tensor's device), to tell staged sources already on it
         self._device = model.device
@@ -619,19 +679,26 @@ class ForecastEngine:
                    aux0: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """(E, C, H, W) member states in the compute dtype and the lead-0
-        noise coefficients, from one (C, H, W) analysis state.
+        noise coefficients, from one (C, H, W) analysis state; with
+        ``member_axes`` the rank's members (E_loc, C, H, W) and every
+        member's coefficients.
 
         With an active perturbation the members are perturbed on the
         device; bred vectors also need ``buffers`` and ``aux0`` (the
         frozen conditioning fields of the breeding rollouts, which run the
-        control dynamics in fp32 with zero noise channels).
+        control dynamics in fp32 with zero noise channels).  A rank makes
+        the members a whole ensemble would hold in its block; bred
+        vectors cost it the control's rollout plus one per draw its
+        members take (every draw under the ensemble transform, which
+        mixes them).
         """
         e, m = self.cfg.members, self.model
+        lo, hi = self.block
         z_hat = noise.initial(m, (e,), self.noise_buffers)
         s0 = torch.as_tensor(state0).to(m.device).float()
         pc = self.cfg.perturb
         if not pc.active:
-            s = s0.expand((e,) + tuple(s0.shape))
+            s = s0.expand((hi - lo,) + tuple(s0.shape))
             return s.to(self.cfg.tdtype).contiguous(), z_hat
         step_fn = None
         if pc.kind == "bred":
@@ -649,20 +716,37 @@ class ForecastEngine:
         # sampler shares that SHT
         sht_buffers = self.noise_buffers if pert.sht is m.in_sht else None
         s = pert.members(noise.perturbation_draws(), s0, e, step_fn,
-                         sht_buffers=sht_buffers)
+                         sht_buffers=sht_buffers,
+                         block=self.block)
         return s.to(self.cfg.tdtype), z_hat
 
     def noise_fields(self, z_hat: torch.Tensor) -> torch.Tensor:
         """Grid-space conditioning noise as the step sees it, centered over
-        the member dim (the fourth from the end)."""
-        z = self.model.noise.to_grid(z_hat, self.noise_buffers)
-        return noiselib.center_noise(z, -4) if self.cfg.centered else z
+        the member dim (the fourth from the end): this engine's block of
+        members (all of them without ``member_axes``) from every member's
+        coefficients, as ``center_noise`` of the whole ensemble's fields
+        would give them."""
+        to_grid, nb = self.model.noise.to_grid, self.noise_buffers
+        lo, hi = self.block
+        if not self.cfg.centered:
+            return to_grid(z_hat[..., lo:hi, :, :, :], nb)
+        # member j takes the field of pair j // 2's even member, negated
+        # when j is odd
+        p0 = lo // 2
+        z = to_grid(z_hat[..., 2 * p0:hi:2, :, :, :], nb)
+        j = torch.arange(lo, hi, device=z.device)
+        sign = (1 - 2 * (j % 2)).to(z.dtype)
+        return z.index_select(-4, j // 2 - p0) * sign.reshape(-1, 1, 1, 1)
 
     def scores(self, sf: torch.Tensor, truth: torch.Tensor | None
                ) -> dict[str, torch.Tensor]:
         """One lead's in-loop reductions of one request's fp32 members
         (E, C, H, W): the five scores when truth is given, and the spectra
-        with ``spectra=True``; each per channel."""
+        with ``spectra=True``; each per channel.  With ``member_axes``
+        ``sf`` is the rank's members and the scores are the whole
+        ensemble's (``_group_scores``)."""
+        if self.group is not None:
+            return self._group_scores(sf, truth)
         aw = self.area_weights
         out = {}
         if truth is not None:
@@ -676,6 +760,57 @@ class ForecastEngine:
         if self.cfg.spectra:
             out["spectrum"] = metrics.ensemble_spectrum(sf,
                                                         self.spectral_wpct)
+            if truth is not None:
+                out["spectrum_truth"] = metrics.angular_psd(
+                    truth, self.spectral_wpct)
+        return out
+
+    def _group_scores(self, sf: torch.Tensor, truth: torch.Tensor | None
+                      ) -> dict[str, torch.Tensor]:
+        """``scores`` of the whole ensemble from this rank's members
+        (E_loc, C, H, W), the same on every rank of the member group.
+
+        Every member is gathered on this rank's block of the H*W points
+        of each channel (one ragged all-to-all); the fair CRPS is the
+        CRPS kernel's there, and the weighted squared error of the
+        ensemble mean, the unbiased variance and the per-ring rank counts
+        (rings are point index // W, and a block may end mid-ring) are
+        summed over the group before the square roots; the spectra are
+        the members' sums, summed over the group and divided by E."""
+        g, e, aw = self.group, self.cfg.members, self.area_weights
+        c, h, w = sf.shape[1:]
+        parts, out = [], {}
+        if truth is not None:
+            ens, (lo, hi) = scatter_points(sf.reshape(sf.shape[0], c, h * w),
+                                           g, self.counts)
+            obs = truth.reshape(c, h * w)[:, lo:hi]
+            wts = aw.reshape(-1)[lo:hi]
+            den = aw.sum()
+            out["crps"] = dist_crps_channels(ens, obs, wts, g) / den
+            rank = (ens < obs[None]).sum(dim=0)                # (C, S_r)
+            r0, nr = lo // w, (hi - 1) // w - lo // w + 1
+            ring = torch.arange(lo, hi, device=sf.device) // w - r0
+            seg = rank + (e + 1) * (ring[None] + nr * torch.arange(
+                c, device=sf.device)[:, None])
+            counts = torch.bincount(seg.reshape(-1),
+                                    minlength=c * nr * (e + 1))
+            parts += [((ens.mean(dim=0) - obs) ** 2 * wts).sum(dim=-1),
+                      (torch.var(ens, dim=0, correction=1) * wts).sum(dim=-1),
+                      metrics.ring_contract(counts.reshape(c, nr, e + 1),
+                                            aw[r0:r0 + nr]).reshape(-1)]
+        if self.cfg.spectra:
+            spec = metrics.angular_psd(sf, self.spectral_wpct).sum(dim=0)
+            parts.append(spec.reshape(-1))
+        sums = compat.psum(torch.cat(parts), g) if parts else None
+        if truth is not None:
+            sq, var, rh = sums[:c], sums[c:2 * c], sums[2 * c:c * (e + 3)]
+            out["ens_rmse"] = torch.sqrt(sq / den)
+            out["spread"] = torch.sqrt(var / den)
+            out["ssr"] = ((e + 1.0) / e) ** 0.5 * out["spread"] \
+                / out["ens_rmse"]
+            out["rank_hist"] = rh.reshape(c, e + 1)
+        if self.cfg.spectra:
+            out["spectrum"] = sums[-spec.numel():].reshape(spec.shape) / e
             if truth is not None:
                 out["spectrum_truth"] = metrics.angular_psd(
                     truth, self.spectral_wpct)

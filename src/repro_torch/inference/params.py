@@ -88,12 +88,14 @@ def load_into(model, flat: dict[str, np.ndarray]) -> None:
 
 @torch.no_grad()
 def load_params(model, ds, buffers: dict, state0: torch.Tensor,
-                ckpt: str | None = None, rounds: int = 4) -> None:
+                ckpt: str | None = None, rounds: int = 4,
+                seed: int = 0) -> None:
     """Checkpoint restore, or deterministic calibrated init.
 
     Without a checkpoint: calibrated init on ``state0`` with fixed
-    generators (seed 0 for the weights, seed 1 for the conditioning noise
-    sample), so the same (config, state0, device) gives the same params.
+    generators (``seed`` for the weights, seed 1 for the conditioning
+    noise sample), so the same (config, state0, device, seed) gives the
+    same params.
     """
     if ckpt:
         load_into(model, load_arrays_npz(ckpt))
@@ -104,5 +106,5 @@ def load_params(model, ds, buffers: dict, state0: torch.Tensor,
     cond0 = torch.cat([ds.aux_fields(0.0)[None],
                        model.sample_noise(g_noise, (1,))], dim=1)
     g_init = torch.Generator(device=dev)
-    g_init.manual_seed(0)
+    g_init.manual_seed(seed)
     model.init_calibrated(g_init, state0[None], cond0, buffers, rounds)

@@ -206,23 +206,22 @@ class InitialConditionPerturbation:
     def _n_draws(self, members: int) -> int:
         return (members + 1) // 2 if self.cfg.antithetic else members
 
-    def _expand(self, p: torch.Tensor, members: int) -> torch.Tensor:
-        if self.cfg.antithetic:
-            return noiselib.antithetic_expand(p, members, dim=0)
-        return p
-
     def _channel_scale(self, n_channels: int) -> torch.Tensor:
         return self.cfg.amplitude * self.channel_std.expand((n_channels,))
 
     # ------------------------------------------------------------------
     def obs_vectors(self, draws: PerturbationDraws, n: int, n_channels: int,
-                    sht_buffers: dict | None = None) -> torch.Tensor:
+                    sht_buffers: dict | None = None,
+                    take: tuple[int, int] | None = None) -> torch.Tensor:
         """(n, C, H, W) independent obs-error fields: unit pointwise
         variance by the sigma_l normalization, scaled per channel to
-        ``amplitude * channel_std``."""
+        ``amplitude * channel_std``.  ``take`` = (lo, hi): all n draws
+        are drawn, and only draws lo..hi-1 made into fields."""
         b = sht_buffers if sht_buffers is not None else self.buffers
         c = draws.coeffs((n, n_channels), self.sigma_l, self.sht.lmax,
                          self.sht.mmax)
+        if take is not None:
+            c = c[take[0]:take[1]]
         fields = shtlib.sht_inverse(c, b["pct"], self.sht.grid.nlon)
         return fields * self._channel_scale(n_channels)[:, None, None]
 
@@ -253,7 +252,8 @@ class InitialConditionPerturbation:
 
     def bred_vectors(self, draws: PerturbationDraws, state0: torch.Tensor,
                      step_fn: Callable[[torch.Tensor], torch.Tensor], n: int,
-                     sht_buffers: dict | None = None) -> torch.Tensor:
+                     sht_buffers: dict | None = None,
+                     take: tuple[int, int] | None = None) -> torch.Tensor:
         """(n, C, H, W) bred vectors grown by cycled short rollouts.
 
         Seeded from obs-error draws rescaled to the target amplitude; each
@@ -261,10 +261,12 @@ class InitialConditionPerturbation:
         ``bred_steps`` model steps, takes the difference (orthogonalized
         under ``ensemble_transform``) and rescales it per channel back to
         ``amplitude * channel_std``.  ``step_fn`` takes one state (C, H,
-        W) or a batch (n, C, H, W).
+        W) or a batch (n, C, H, W).  ``take`` = (lo, hi) breeds draws
+        lo..hi-1 only (each grows on its own without the ensemble
+        transform, which mixes every draw and so needs all of them).
         """
         nc = state0.shape[-3]
-        p = self._rescale(self.obs_vectors(draws, n, nc, sht_buffers))
+        p = self._rescale(self.obs_vectors(draws, n, nc, sht_buffers, take))
         ctrl = state0
         for _ in range(self.cfg.bred_cycles):
             pert = ctrl + p
@@ -281,18 +283,39 @@ class InitialConditionPerturbation:
     def members(self, draws: PerturbationDraws, state0: torch.Tensor,
                 members: int,
                 step_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
-                sht_buffers: dict | None = None) -> torch.Tensor:
+                sht_buffers: dict | None = None,
+                block: tuple[int, int] | None = None) -> torch.Tensor:
         """(E, C, H, W) perturbed members around ``state0``; "bred" needs
         ``step_fn`` (one step of the control dynamics).  With antithetic
-        centering each +/- pair's mean is the control analysis."""
+        centering each +/- pair's mean is the control analysis.
+
+        ``block`` = (lo, hi): members lo..hi-1 of the E only, as the
+        whole ensemble holds them (a rank's block under the engine's
+        ``member_axes``): every draw is drawn, only the draws those
+        members take are made into fields (all of them for bred vectors
+        under the ensemble transform)."""
+        lo, hi = block if block is not None else (0, members)
         if not self.cfg.active:
-            return state0.expand((members,) + tuple(state0.shape))
+            return state0.expand((hi - lo,) + tuple(state0.shape))
         k = self._n_draws(members)
+        pair = 2 if self.cfg.antithetic else 1
+        take = (lo // pair, (hi - 1) // pair + 1)
+        if self.cfg.kind == "bred" and self.cfg.ensemble_transform:
+            take = (0, k)
         if self.cfg.kind == "obs":
-            p = self.obs_vectors(draws, k, state0.shape[-3], sht_buffers)
+            p = self.obs_vectors(draws, k, state0.shape[-3], sht_buffers,
+                                 take)
         else:
             if step_fn is None:
                 raise ValueError(
                     "bred perturbations need a step_fn (model dynamics)")
-            p = self.bred_vectors(draws, state0, step_fn, k, sht_buffers)
-        return state0 + self._expand(p, members)
+            p = self.bred_vectors(draws, state0, step_fn, k, sht_buffers,
+                                  take)
+        if not self.cfg.antithetic:
+            return state0 + p[lo - take[0]:hi - take[0]]
+        # member j is +/- draw j // 2 (the sign of its slot's parity), as
+        # antithetic_expand places it (a trailing unpaired member gets +)
+        j = torch.arange(lo, hi)
+        sign = (1.0 - 2.0 * (j % 2)).to(p.device, p.dtype)
+        return state0 + p.index_select(0, (j // 2 - take[0]).to(p.device)) \
+            * sign.reshape(-1, 1, 1, 1)

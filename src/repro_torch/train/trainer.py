@@ -43,6 +43,10 @@ the spectral term on its block of degrees from Algorithm 1 at the IO
 grid, each through ``dist_crps`` on a group of itself (the CRPS kernel
 forward and backward) and summed over the latitude group.  Gradients
 are summed over the latitude group and averaged over the data group.
+``eval_step`` (the JAX ``make_eval_step``) runs the same way on the
+rank's rows: the nodal CRPS through ``dist_crps``, the ensemble-mean
+RMSE's squared errors summed over the latitude group before the square
+root.
 """
 
 from __future__ import annotations
@@ -362,28 +366,49 @@ class EnsembleTrainer:
     @torch.no_grad()
     def eval_step(self, buffers: dict, batch: dict, noise: NoiseSource,
                   n_members: int = 4) -> dict[str, torch.Tensor]:
-        """One-step fair CRPS and ensemble-mean RMSE of ``n_members``, in
-        one process (not in the domain decomposition)."""
-        if self.domain is not None:
-            raise NotImplementedError("eval_step runs the whole field in "
-                                      "one process, not on row blocks")
-        m = self.model
+        """One-step fair CRPS (the batch mean of the nodal CRPS) and
+        ensemble-mean RMSE (the mean over batch and channels) of
+        ``n_members``.
+
+        In the domain decomposition, on this rank's rows: the whole
+        (n_members, B) noise drawn and projected on the rows,
+        ``DomainFCN3``'s forward, the nodal CRPS through ``dist_crps`` on
+        a group of this rank alone over its points with its rows' area
+        weights, and the per-(b, c) weighted squared errors of the
+        ensemble mean; both summed over the latitude group (the RMSE's
+        before its square root), then averaged over the data group: the
+        values of the data group's batch."""
+        m, d, p = self.model, self.domain, self.par
+        fwd, area = m, self.area_weights
+        if d is not None:
+            fwd, area = d, area[slice(*d.io_block)]
         nbufs = buffers["noise"]
-        state = batch["state"]
-        z_hat = noise.initial(m, (n_members,) + tuple(state.shape[:1]),
+        state = batch["state"]                      # (B, C, H_loc, W)
+        b, c = state.shape[:2]
+        z_hat = noise.initial(m, (n_members, b * (p.n_data if d else 1)),
                               nbufs)
-        z = m.noise.to_grid(z_hat, nbufs)
+        z = m.noise.to_grid(self._members(z_hat) if d else z_hat, nbufs)
         aux_n = batch["aux"][:, 0]
         cond = torch.cat(
             [aux_n.expand((n_members,) + tuple(aux_n.shape)), z], dim=2)
-        pred = m(buffers, state.expand((n_members,) + tuple(state.shape)),
-                 cond)
+        pred = fwd(buffers, state.expand((n_members,) + tuple(state.shape)),
+                   cond)
         tgt = batch["targets"][:, 0]
-        nodal = crpslib.nodal_crps_loss(pred, tgt, self.area_weights,
-                                        fair=True)
-        rmse_em = torch.sqrt(torch.einsum(
-            "bchw,hw->bc", (pred.mean(dim=0) - tgt) ** 2, self.area_weights))
-        return {"crps": nodal.mean(), "rmse_ens_mean": rmse_em.mean()}
+        sq = torch.einsum("bchw,hw->bc", (pred.mean(dim=0) - tgt) ** 2, area)
+        if d is None:
+            nodal = crpslib.nodal_crps_loss(pred, tgt, area, fair=True)
+            return {"crps": nodal.mean(), "rmse_ens_mean": sq.sqrt().mean()}
+        from repro_torch.distributed.dist_crps import dist_crps
+        # the nodal CRPS per point, weighted by area / (B C): its sum over
+        # every rank's points is the mean over (b, c) of eq. (50)
+        crps = dist_crps(pred.reshape(pred.shape[:3] + (-1,)),
+                         tgt.reshape(tgt.shape[:2] + (-1,)),
+                         area.reshape(-1) / (b * c), d.solo, fair=True)
+        sums = compat.psum(torch.cat([crps[None], sq.reshape(-1)]), d.group)
+        out = torch.stack([sums[0], torch.sqrt(sums[1:]).mean()])
+        if p.data_group is not None:
+            out = compat.psum(out, p.data_group) / p.n_data
+        return {"crps": out[0], "rmse_ens_mean": out[1]}
 
 
 def estimate_wdt(samples: torch.Tensor) -> np.ndarray:

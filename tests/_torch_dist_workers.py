@@ -187,6 +187,9 @@ def domain_rank(rank: int, world_size: int, setup: dict) -> dict:
                 torch.from_numpy(setup["cond"][..., lo:hi, :]))
     batch = {k: torch.from_numpy(v[..., lo:hi, :])
              for k, v in setup["batch"].items()}
+    # the eval step on the initial parameters, from its own draws
+    ev = tr.eval_step(bufs, batch, InjectedNoise(setup["eval_z_hat0"], []),
+                      n_members=setup["eval_members"])
 
     def noise():
         return InjectedNoise(setup["z_hat0"], setup["etas"])
@@ -201,4 +204,105 @@ def domain_rank(rank: int, world_size: int, setup: dict) -> dict:
             "aux": {k: float(v) for k, v in aux.items()},
             "grads": {k: _np(v) for k, v in grads.items()},
             "params": {k: _np(p) for k, p in model.named_parameters()},
-            "halo_bytes": halo_bytes, "jax_loaded": "jax" in sys.modules}
+            "halo_bytes": halo_bytes, "jax_loaded": "jax" in sys.modules,
+            "eval": {k: float(v) for k, v in ev.items()}}
+
+
+def domain_eval_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """The domain-decomposed ``fcn3_smoke`` eval step on a (data, model)
+    mesh of ``setup["mesh"]``: this rank's slice of the global batch on
+    its latitude rows, from the given parameters and noise draws."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.inference import params as tparams
+    from repro_torch.inference.engine import InjectedNoise
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import trainer as ttr
+    mesh = make_mesh(setup["mesh"], ("data", "model"), "cpu")
+    model = FCN3(tcfgs.fcn3_smoke(), device="cpu")
+    tparams.load_into(model, setup["params"])
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(**setup["tcfg"]),
+                             setup["cw"], mesh=mesh)
+    lo, hi = tr.domain.io_block
+    bufs = dict(tr.domain.make_buffers(), **tr.make_loss_buffers())
+    d, n = mesh.get_local_rank("data"), setup["mesh"][0]
+    b = setup["batch"]["state"].shape[0] // n
+    batch = {k: torch.from_numpy(v[d * b:(d + 1) * b, ..., lo:hi, :])
+             for k, v in setup["batch"].items()}
+    ev = tr.eval_step(bufs, batch, InjectedNoise(setup["eval_z_hat0"], []),
+                      n_members=setup["eval_members"])
+    return {"rows": (lo, hi), "eval": {k: float(v) for k, v in ev.items()},
+            "jax_loaded": "jax" in sys.modules}
+
+
+def engine_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """The forecast engine with ``member_axes`` on this rank's members of
+    each case in ``setup["cases"]`` (its mesh, axes, members, engine
+    options, requests with the reference's draws), from the given
+    parameters; per case the rank's member block, its scores, final
+    state and noise, and the bytes its score all-to-alls received."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import compat
+    from repro_torch.inference import params as tparams
+    from repro_torch.inference import perturbations as tpert
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              InjectedNoise)
+    from repro_torch.launch.mesh import make_mesh
+    model = FCN3(tcfgs.fcn3_smoke(), device="cpu")
+    tparams.load_into(model, setup["params"])
+    bufs = model.make_buffers()
+    meshes, out = {}, {}
+    for name, case in setup["cases"].items():
+        shape, names = case["mesh"]
+        if (shape, names) not in meshes:
+            meshes[shape, names] = make_mesh(shape, names, "cpu")
+        eng = ForecastEngine(model, EngineConfig(
+            members=case["members"], lead_chunk=2,
+            spectra=case.get("spectra", False),
+            perturb=tpert.PerturbationConfig(**case.get("perturb", {})),
+            member_axes=case["axes"]), mesh=meshes[shape, names])
+        reqs = case["requests"]
+        noises = [InjectedNoise(r["z_hat0"], r["etas"], r["perturb"])
+                  for r in reqs]
+        compat.start_timing()
+        res = eng.forecast_batched(
+            bufs, [r["state0"] for r in reqs], [setup["aux"]] * len(reqs),
+            noises, truths=[r["truth"] for r in reqs])
+        out[name] = {"block": eng.block, "received": compat.timed_bytes(),
+                     "same_group": compat.mesh_group(
+                         meshes[shape, names], case["axes"]) is eng.group,
+                     "results": [{"scores": {k: _np(v) for k, v in
+                                             x.scores.items()},
+                                  "final_state": _np(x.final_state),
+                                  "final_noise": _np(x.final_noise)}
+                                 for x in res]}
+    out["jax_loaded"] = "jax" in sys.modules
+    return out
+
+
+def crps_channels_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """``scatter_points`` and ``dist_crps_channels`` on the card: this
+    rank's member block of a seeded (E, C, S) ensemble, the CRPS kernel
+    on its points; with the plain version's per-channel sums over the
+    whole field on the host, and the kernel's launches."""
+    from repro_torch.distributed import dist_crps
+    from repro_torch.kernels.crps import ops
+    from repro_torch.kernels.crps.ref import crps_fused_ref
+    e, c, s = setup["shape"]
+    blocks = [dist_crps.member_block(e, q, world_size)
+              for q in range(world_size)]
+    gen = torch.Generator().manual_seed(0)
+    ens = torch.randn((e, c, s), generator=gen)
+    obs = torch.randn((c, s), generator=gen)
+    w = torch.rand((s,), generator=gen)
+    lo, hi = blocks[rank]
+    pts, (a, b) = dist_crps.scatter_points(
+        ens[lo:hi].cuda(), None, [q - p for p, q in blocks])
+    ops.reset_launches()
+    got = dist_crps.dist_crps_channels(pts, obs[:, a:b].cuda(),
+                                       w[a:b].cuda(), None)
+    torch.cuda.synchronize()
+    want = (crps_fused_ref(ens.reshape(e, -1), obs.reshape(-1), True)
+            .reshape(c, s) * w).sum(dim=-1)
+    return {"got": _np(got), "want": _np(want), "launches": ops.launches}

@@ -7,6 +7,7 @@ runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -350,6 +351,25 @@ def test_cuda_crps_kernels(cuda, e, n, fair):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grad, crps_fused_bwd_ref(g, ens, obs, fair),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,ranks", [(2, 2), (3, 2), (4, 4)],
+                         ids=["E2-R2", "E3-R2", "E4-R4"])
+def test_cuda_dist_crps_channels_kernel(cuda, e, ranks):
+    # the engine's scores across ranks: members gathered on each rank's
+    # ragged block of points, the CRPS kernel there, per-channel sums
+    # psummed; against the plain version over the whole field
+    import _torch_dist_workers as workers
+    from repro_torch.distributed.world import run_world
+    from repro_torch.kernels import build
+    build.load_library("crps")     # built once, before the ranks load it
+    res = run_world(workers.crps_channels_rank, ranks,
+                    ({"shape": (e, 3, 1001)},), timeout=300.0)
+    for r in res:
+        assert r["launches"] == 1
+        err = np.abs(r["got"] - r["want"]).max()
+        assert err <= 1e-4 * np.abs(r["want"]).max(), err
 
 
 @pytest.mark.cuda

@@ -19,7 +19,9 @@ ranks 8 / 8 / 8 / 9 (the JAX loader's ``(h * i) // n``).
   forward against ``FCN3.apply`` (rtol 1e-4, atol 1e-5), the loss and its
   terms against the JAX ``rollout_loss`` with the reference's draws
   (rtol 1e-5), the gradients (rtol 2e-3, atol 2e-4), the parameters
-  bitwise equal on every rank after an Adam step;
+  bitwise equal on every rank after an Adam step, and the eval step
+  against the JAX ``make_eval_step`` (rtol 1e-4, the bar of
+  ``tests/test_torch_train.py``), also on a 2 x 2 data x model mesh;
 * the launcher's ``--fcn3-sharding domain`` on 2 ranks, and ``channel``
   refused.
 """
@@ -47,6 +49,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import train as tlaunch
 
 TIMEOUT = 120.0
+EVAL_MEMBERS = 3
 TCFG = dict(ensemble_size=2, rollout_steps=2, fair_crps=True,
             noise_centering=True)
 
@@ -272,9 +275,17 @@ def ref():
         params, bufs, {k: jnp.asarray(v) for k, v in jb.items()}, key)
     flat = {k: np.asarray(v)
             for k, v in jckpt._flatten_with_paths(params).items()}
+    # the eval step, on the same batch from draws of its own
+    ekey = jax.random.PRNGKey(4)
+    ez0 = np.array(model.noise.init_state(ekey, (EVAL_MEMBERS, 1), nb))
+    ev = jax.jit(jtrainer.make_eval_step(bufs, n_members=EVAL_MEMBERS))(
+        params, {k: jnp.asarray(v) for k, v in jb.items()}, ekey)
     setup = {"params": flat, "cw": cw, "batch": jb, "z_hat0": z0,
-             "etas": etas, "tcfg": TCFG, "state": state, "cond": cond}
+             "etas": etas, "tcfg": TCFG, "state": state, "cond": cond,
+             "eval_z_hat0": ez0, "eval_members": EVAL_MEMBERS}
     return {"setup": setup, "forward": fwd, "loss": float(jl),
+            "eval": {k: float(v) for k, v in ev.items()},
+            "jtrainer": jtrainer, "bufs": bufs, "params": params,
             "aux": {k: float(v) for k, v in jaux.items()},
             "grads": {k.replace("/", "."): np.asarray(v)
                       for k, v in jckpt._flatten_with_paths(jg).items()}}
@@ -319,6 +330,39 @@ def test_gradients_match_jax(ref, world):
         for k, want in ref["grads"].items():
             np.testing.assert_allclose(r["grads"][k], want, rtol=2e-3,
                                        atol=2e-4, err_msg=k)
+
+
+def test_eval_step_matches_jax(ref, world):
+    _, res = world
+    for r in res:
+        for k, want in ref["eval"].items():
+            np.testing.assert_allclose(r["eval"][k], want, rtol=1e-4,
+                                       err_msg=k)
+
+
+def test_eval_step_on_a_data_by_model_mesh_matches_jax(ref):
+    # two samples over the data axis, latitude over the model axis
+    cfg = jcfgs.fcn3_smoke()
+    jb = next(iter(jdata.Loader(jdata.SyntheticERA5(cfg), global_batch=2,
+                                rollout=1)))
+    jb = {k: np.array(v) for k, v in jb.items()}
+    key = jax.random.PRNGKey(5)
+    nb = ref["bufs"]["noise"]
+    model = ref["jtrainer"].model
+    z0 = np.array(model.noise.init_state(key, (EVAL_MEMBERS, 2), nb))
+    want = jax.jit(ref["jtrainer"].make_eval_step(
+        ref["bufs"], n_members=EVAL_MEMBERS))(
+        ref["params"], {k: jnp.asarray(v) for k, v in jb.items()}, key)
+    setup = dict(ref["setup"], batch=jb, eval_z_hat0=z0, mesh=(2, 2))
+    res = run_world(workers.domain_eval_rank, 4, (setup,), timeout=TIMEOUT,
+                    threads=1)
+    assert [r["rows"] for r in res] == [row_block(33, i % 2, 2)
+                                        for i in range(4)]
+    for r in res:
+        assert not r["jax_loaded"]
+        for k in ("crps", "rmse_ens_mean"):
+            np.testing.assert_allclose(r["eval"][k], float(want[k]),
+                                       rtol=1e-4, err_msg=k)
 
 
 def test_every_rank_holds_the_same_parameters_after_a_step(ref, world):

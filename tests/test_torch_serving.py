@@ -25,6 +25,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import jax
 import numpy as np
@@ -317,7 +318,14 @@ class TestHTTP:
 
     def test_metrics_parse_and_agree_with_stats(self, server):
         c = ForecastClient(port=server.server_address[1], timeout=WAIT_S)
+        before = c.stats()["served"]
         list(c.stream(SPEC))
+        # the scheduler counts a batch served when it returns, just after
+        # the stream's last event: read both once the count has risen
+        deadline = time.monotonic() + WAIT_S
+        while c.stats()["served"] <= before:
+            assert time.monotonic() < deadline, "the served count never rose"
+            time.sleep(0.01)
         stats = c.stats()
         parsed = parse_prometheus(c.metrics())
 
