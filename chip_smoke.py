@@ -17,6 +17,22 @@ non-zero exit code and no result line:
    it and its kernels by device time (``[profile]`` lines); its scores and
    final members (host copies) and its parameters (a reference-format
    checkpoint) are kept for phases 2d and 5b (e);
+2a. the kernel tiles on this card (``[tune]`` lines): every tunable
+   family (``kernels/autotune.py``: the Legendre contraction, the band
+   contraction and its transpose, CRPS, the SSD step) swept through
+   ``launch/tune.py``'s ``run`` into a temporary ``TuningCache``, at
+   ``model_op_shapes`` of [main]'s model (2 members) and the LM
+   prefill's SSD shape, ``TUNE_CANDIDATES`` tiles each (the committed
+   one among them), every variant library built first, all at once;
+   each family's line gives its shapes, candidates, ``default_us``,
+   ``best_us``, the winning dims and its library's ptxas registers and
+   spills; every candidate is held to the plain version on the sweep's
+   operands at ``REL_TOL`` (the transpose to the committed kernel; phase
+   7 holds its winner to the plain output), ``best_us <= default_us``,
+   and the same sweep again must sweep nothing; then [main]'s forecast
+   once more through ``RequestSpec.engine_config`` with the cache
+   installed (the tuned libraries), held to [main]'s states and scores
+   at the dispatch bar, its seconds per lead beside [main]'s;
 2b. the engine's other paths on the same model (``[engine]`` lines), with
    both forecast kernels' counts and the plain-version guard set to 0
    just before and read just after: E1 two coalesced requests
@@ -40,7 +56,9 @@ non-zero exit code and no result line:
    the plain-version guard set to 0 just before and read just after: the
    geometry plans built from empty caches (``plans_build_s``); a
    warm-start bundle packed for 2 members x 2 leads (chunks of 2) at
-   batch 1 and 2; a readonly replica booted from it in this process as a
+   batch 1 and 2 with [tune]'s cache installed (its entries under
+   ``tunings/``, the winners' libraries in ``blobs/``); a readonly
+   replica booted from it, its tunings installed, in this process as a
    fresh one would (plan caches emptied, loaded libraries forgotten):
    no nvcc run, the libraries loaded from the bundle; behind the port's
    HTTP service, R1 alone and then R2 with R3 (other samples and seeds)
@@ -137,7 +155,9 @@ non-zero exit code and no result line:
    work)
    and the least time the card could take, in fp32 (``bound_ms``) and
    on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
-8. the ``kernels`` JSON line, then the result line.
+8. the ``kernels`` JSON line (each entry with [tune]'s ``tuned_dims``,
+   ``tuned_ms`` and ``default_ms`` at ``tuned_at``, null for the
+   recurrence, whose tile is not tuned), then the result line.
 
 Exits non-zero without CUDA, and in a directory without the repository.
 """
@@ -240,6 +260,17 @@ EVAL_MEMBERS, EVAL_LEADS, EVAL_ICS = 2, 2, 2
 TIE_REL = 8 * 2.0 ** -23
 #: CRPS kernel vs plain: relative error (a handful of fp32 terms)
 CRPS_REL_TOL = 1e-5
+#: [tune]: every tunable kernel family swept at fcn3_full's
+#: model_op_shapes (2 members) and the LM prefill's SSD shape, at most
+#: this many tiles each (the committed one among them; all libraries
+#: built in parallel), each tile's time the median of TUNE_ITERS calls
+#: after one warm-up
+TUNE_CANDIDATES, TUNE_ITERS = 4, 5
+#: the family each kernel of the kernels line launches with its tile
+TUNE_FAMILY = {"legendre_contract": "legendre",
+               "disco_band_contract": "disco",
+               "disco_band_transpose": "disco_bwd", "crps_fused": "crps",
+               "ssd_intra_chunk": "ssd"}
 #: the LM path: mamba2-130m at its published widths; prefill_32k with its
 #: global batch cut 32 -> 2 (logits 2 x 32768 x 50432 fp32 = 13.2 GB);
 #: decode_32k's batch of 128 for 32 steps from an empty cache
@@ -315,16 +346,17 @@ class Recorder:
             (ssd_ops, "ssd_intra_chunk"))]
         orig = {name: fn for _, name, fn in self._saved}
 
-        def disco(x, psi_band, lat_idx, taps, stride=1):
+        def disco(x, psi_band, lat_idx, taps, stride=1, blocks=None):
             key = (tuple(psi_band.shape), stride, tuple(x.shape))
             ent = self.disco.setdefault(key, {
                 "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
                 "stride": stride, "shape": tuple(x.shape), "launches": 0})
             ent["launches"] += 1
             return orig["disco_band_contract"](x, psi_band, lat_idx, taps,
-                                               stride)
+                                               stride, blocks)
 
-        def transpose(g, psi_band, lat_idx, taps, rows, h_in, stride=1):
+        def transpose(g, psi_band, lat_idx, taps, rows, h_in, stride=1,
+                      blocks=None):
             key = (tuple(psi_band.shape), stride, tuple(g.shape))
             ent = self.transpose.setdefault(key, {
                 "psi": psi_band, "lat_idx": lat_idx, "taps": taps,
@@ -332,9 +364,9 @@ class Recorder:
                 "shape": tuple(g.shape), "launches": 0})
             ent["launches"] += 1
             return orig["disco_band_transpose"](g, psi_band, lat_idx, taps,
-                                                rows, h_in, stride)
+                                                rows, h_in, stride, blocks)
 
-        def legendre(x, table, extents):
+        def legendre(x, table, extents, blocks=None):
             key = (tuple(table.shape), table.stride())
             ent = self.legendre.setdefault(key, {"table": table, "b": 0,
                                                  "extents": extents,
@@ -342,22 +374,22 @@ class Recorder:
                                                  "dtype": x.dtype})
             if x.shape[0] > ent["b"]:
                 ent["b"], ent["shape"] = x.shape[0], tuple(x.shape)
-            return orig["legendre_contract"](x, table, extents)
+            return orig["legendre_contract"](x, table, extents, blocks)
 
-        def crps(ens, obs, fair=False):
+        def crps(ens, obs, fair=False, blocks=None):
             self.crps.setdefault((tuple(ens.shape), fair),
                                  {"shape": tuple(ens.shape), "fair": fair})
-            return orig["crps_fused"](ens, obs, fair)
+            return orig["crps_fused"](ens, obs, fair, blocks)
 
-        def crps_bwd(g, ens, obs, fair=False):
+        def crps_bwd(g, ens, obs, fair=False, blocks=None):
             self.crps.setdefault((tuple(ens.shape), fair),
                                  {"shape": tuple(ens.shape), "fair": fair})
-            return orig["crps_fused_bwd"](g, ens, obs, fair)
+            return orig["crps_fused_bwd"](g, ens, obs, fair, blocks)
 
-        def ssd(x, da_cs, b_mat, c_mat):
+        def ssd(x, da_cs, b_mat, c_mat, blocks=None):
             if self.ssd is None:   # the operands of the first call
                 self.ssd = (x, da_cs, b_mat, c_mat)
-            return orig["ssd_intra_chunk"](x, da_cs, b_mat, c_mat)
+            return orig["ssd_intra_chunk"](x, da_cs, b_mat, c_mat, blocks)
 
         wrappers = {"disco_band_contract": disco,
                     "disco_band_transpose": transpose,
@@ -549,7 +581,7 @@ def check_disco(ent, name, full: bool) -> dict:
 
 
 def check_transpose(ent, name, library: bool = True,
-                    band: dict | None = None) -> dict:
+                    band: dict | None = None, tuned=None) -> dict:
     """Band transpose kernel vs its plain version at one training shape,
     its launches there, and with ``library`` the ``conv_transpose1d``
     yardstick's time (one call: it takes seconds, see PERF.md; timed once
@@ -558,7 +590,9 @@ def check_transpose(ent, name, library: bool = True,
     ``band``: one dict per band, checked widest shape first.  The widest
     keeps its g and the plain version's output there; a narrower shape
     takes the first planes of both (the planes are independent), so the
-    plain version runs, and is timed, once per band."""
+    plain version runs, and is timed, once per band.  ``tuned``: the
+    winning tile of [tune] at this shape (a ``BlockConfig``), held to the
+    same plain output."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
@@ -598,6 +632,10 @@ def check_transpose(ent, name, library: bool = True,
     abs_err, rel_err = errors(got, ref)
     deterministic = torch.equal(got, kernel())
     del got
+    tuned_err = None
+    if tuned is not None:
+        tuned_err = errors(ops.disco_band_transpose(
+            g, psi, lat_idx, taps, lists, h_in, stride, tuned), ref)[1]
     ms = cuda_ms(kernel, reps=5)
     lib_ms = lib_err = None
     # the grouped conv1d of check_disco, transposed: one conv_transpose1d
@@ -644,6 +682,13 @@ def check_transpose(ent, name, library: bool = True,
                tflops=flops / ms / 1e9, dense_band_tflops=flops_dense / ms
                / 1e9, **bound(flops, nbytes))
     row["ms_over_bound"] = ms / row["bound_ms"]
+    if tuned is not None:
+        row["tuned_rel_err"] = tuned_err
+        log(f"[kernel] transpose {name}: the tuned tile {dict(tuned.dims)} "
+            f"vs plain rel_err={tuned_err:.3e} (bar {REL_TOL})")
+        if not tuned_err <= REL_TOL:
+            raise AssertionError(f"transpose {name}: the tuned tile "
+                                 f"disagrees with plain (rel {tuned_err})")
     plain_txt = "(the widest shape's)" if reuse else f"{plain_ms:.3f}"
     log(f"[kernel] transpose {name} {row['shape']}: "
         f"launches={ent['launches']} abs_err={abs_err:.3e} "
@@ -1246,7 +1291,7 @@ def service_phase(report, config: str = "full", device: str = "cuda",
     import numpy as np
     import torch
     from repro_torch.inference.engine import ForecastEngine, members_noise
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
     from repro_torch.kernels.disco import ops as disco_ops
     from repro_torch.kernels.legendre import ops as legendre_ops
     from repro_torch.serving import bundle as bundlelib
@@ -1287,6 +1332,13 @@ def service_phase(report, config: str = "full", device: str = "cuda",
         out["pack_s"] = time.time() - t0
         manifest = bundlelib.WarmStartBundle.load(path).manifest
         files = manifest["files"]
+        out["tunings"] = len(manifest["tunings"])
+        # the libraries in blobs/: the manifest names a variant's defines
+        listed = {lib["file"]: (lib["name"],
+                                tuple(tuple(d) for d in lib["defines"]))
+                  for lib in manifest["libraries"]}
+        packed = [listed.get(f, (Path(f).name[3:].rpartition("-")[0], ()))
+                  for f in sorted(files) if f.startswith("blobs/")]
         out["bundle"] = {
             kind: (len([f for f in files if f.startswith(kind)]),
                    sum(v["bytes"] for f, v in files.items()
@@ -1310,10 +1362,9 @@ def service_phase(report, config: str = "full", device: str = "cuda",
         out["nvcc_during_boot"] = build.nvcc_runs - nvcc_before
         out["boot_launches"], out["boot_plain"] = counts()
         reset_counts()
-        out["libraries"] = {name: Path(build.library_path(name)).parent
-                            == Path(path, "blobs")
-                            for name in build.SOURCES
-                            if build.is_loaded(name)}
+        out["libraries"] = {build.label(*lib): build.is_loaded(*lib) and (
+            Path(build.library_path(*lib)).parent == Path(path, "blobs"))
+            for lib in packed}
         try:
             srv = ForecastService(scheduler=sched).make_server(
                 "127.0.0.1", 0)
@@ -1353,7 +1404,16 @@ def service_phase(report, config: str = "full", device: str = "cuda",
         out["info"] = sched.bundle_info
     out["stats"] = stats
     out["served"] = served
+    out["blocks"] = (specs[0].engine_config().kernels.blocks
+                     if specs[0].engine_config().kernels else ())
     # -- checks -------------------------------------------------------------
+    active = autotune.active_tuning_cache()
+    if active is not None and (out["info"]["tunings"] != out["tunings"]
+                               or active.stats()["entries"]
+                               != out["tunings"]):
+        raise AssertionError(f"the bundle packed {out['tunings']} tunings, "
+                             f"the replica installed "
+                             f"{out['info']['tunings']}")
     if out["nvcc_during_boot"]:
         raise AssertionError(f"nvcc ran {out['nvcc_during_boot']} time(s) "
                              "during the bundle boot")
@@ -2470,6 +2530,166 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
     return out
 
 
+def ptxas_summary(text: str) -> str:
+    """Registers and spill stores of the kernels in an ``nvcc -Xptxas -v``
+    log: one value per kernel, in its order, or their range for more
+    than four (the CRPS source compiles one kernel per member count)."""
+    import re
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", text)]
+    if len(regs) > 4:
+        return (f"{len(regs)} kernels: registers={min(regs)}..{max(regs)}"
+                f" spill_stores={min(spills)}..{max(spills)}")
+    return (f"registers={'/'.join(map(str, regs))} "
+            f"spill_stores={'/'.join(map(str, spills))}")
+
+
+def tune_phase(report, model, tuning_dir: str) -> dict:
+    """[tune]: every tunable family swept through ``launch/tune.py``'s
+    ``run`` into the ``TuningCache`` at ``tuning_dir``: at ``model``'s
+    ``model_op_shapes`` (``MEMBERS`` members) and the LM prefill's SSD
+    shape, ``TUNE_CANDIDATES`` tiles each, their libraries built first,
+    all at once.  Every candidate is then held to the plain version on
+    the sweep's own operands at ``REL_TOL`` (the transpose to the
+    committed kernel: its plain version takes ~10 s at this shape, and
+    phase 7 holds the committed kernel, and the winner, to it); the same
+    sweep again must sweep nothing.  Returns per family the winner,
+    its times and its check, and the phase's seconds."""
+    import torch
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.kernels import autotune, build
+    from repro_torch.launch import tune as tune_mod
+    t_phase = time.time()
+    shapes = autotune.model_op_shapes(model, members=MEMBERS)
+    shapes.update(autotune.lm_op_shapes(get_arch(LM_ARCH),
+                                        LM_PREFILL_BATCH, 32768))
+    libs = [autotune.library_for(op, d) for op, sh in shapes.items()
+            for d in autotune.candidates(op, sh, TUNE_CANDIDATES)]
+    nvcc_before = build.nvcc_runs
+    t0 = time.time()
+    build.build_all(libs)
+    build_s = time.time() - t0
+    report(f"[tune] built {build.nvcc_runs - nvcc_before} variant "
+           f"libraries of {len(libs)} candidates in {build_s:.1f}s "
+           f"(one nvcc each, in parallel)")
+    cache = autotune.TuningCache(tuning_dir)
+    runners = {op: autotune.OpRunner(op, sh) for op, sh in shapes.items()}
+    t0 = time.time()
+    entries = tune_mod.run(shapes, cache, max_candidates=TUNE_CANDIDATES,
+                           iters=TUNE_ITERS, runners=runners,
+                           out=lambda ln: report(f"[tune] {ln}"))
+    sweep_s = time.time() - t0
+    out: dict = {}
+    for entry in entries:
+        op, runner = entry["op"], runners[entry["op"]]
+        # the reference: the plain version on the sweep's operands (the
+        # transpose: the committed kernel, see above)
+        ref = runner(None)() if op == "disco_bwd" else runner.plain()
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        worst = 0.0
+        for cand in entry["candidates"]:
+            got = runner(autotune.blocks_of(op, cand["dims"]))()
+            gots = got if isinstance(got, tuple) else (got,)
+            worst = max([worst] + [errors(g, r)[1]
+                                   for g, r in zip(gots, refs)])
+            del got, gots
+        del ref, refs
+        torch.cuda.empty_cache()
+        name, defines = autotune.library_for(op, entry["dims"])
+        blocks = autotune.blocks_of(op, entry["dims"])
+        ptxas = ptxas_summary(build.build_logs.get(
+            (name, build.normalize_defines(defines)), ""))
+        out[op] = {"shapes": tuple(shapes[op]), "dims": entry["dims"],
+                   "blocks": blocks, "candidates": len(entry["candidates"]),
+                   "default_ms": entry["default_us"] / 1e3,
+                   "tuned_ms": entry["best_us"] / 1e3, "max_rel_err": worst,
+                   "library": build.label(name, defines), "ptxas": ptxas}
+        report(f"[tune] {op} shapes={'x'.join(map(str, shapes[op]))} "
+               f"candidates={len(entry['candidates'])} default_us="
+               f"{entry['default_us']:.1f} best_us={entry['best_us']:.1f} "
+               f"best/default={entry['best_us'] / entry['default_us']:.3f} "
+               f"dims={autotune.format_blocks(op, entry['dims'])} "
+               f"({'committed' if blocks is None else 'variant'} "
+               f"{build.label(name, defines)}; ptxas {ptxas}) "
+               f"max_rel_err vs "
+               f"{'the committed kernel' if op == 'disco_bwd' else 'plain'}"
+               f" over every candidate={worst:.2e} (bar {REL_TOL})")
+        if not (worst <= REL_TOL
+                and entry["best_us"] <= entry["default_us"]):
+            raise AssertionError(f"[tune] {op}: a candidate disagrees "
+                                 f"(rel {worst:.3e}) or best > default")
+    del runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same sweep again: every entry from the cache
+    again = tune_mod.run(shapes, cache, max_candidates=TUNE_CANDIDATES,
+                         iters=TUNE_ITERS,
+                         out=lambda ln: report(f"[tune] again: {ln}"))
+    if any(e["swept"] for e in again):
+        raise AssertionError("[tune] the second sweep swept again")
+    return {"families": out, "build_s": build_s, "sweep_s": sweep_s,
+            "variants": len(set(libs)), "stats": cache.stats(),
+            "phase_s": time.time() - t_phase}
+
+
+def tuned_lead(run, forecast: dict, tuning_dir: str) -> dict:
+    """[main]'s forecast again (its model, sample, noise seed, members and
+    leads) with the tuning cache at ``tuning_dir`` installed, through
+    ``RequestSpec.engine_config``: the engine launches the tuned
+    libraries.  Held to [main]'s states and scores at the dispatch bar;
+    returns its seconds per lead, its launches, its blocks and the worst
+    differences."""
+    import numpy as np
+    import torch
+    from repro_torch.inference.engine import ForecastEngine, members_noise
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.serving.spec import RequestSpec
+    previous = autotune.install_tuning_cache(tuning_dir)
+    try:
+        cfg = RequestSpec(config=CONFIG, members=MEMBERS,
+                          lead_steps=LEAD_STEPS,
+                          lead_chunk=1).engine_config()
+    finally:
+        autotune.install_tuning_cache(previous)
+    model, ds = run.model, run.ds
+    eng = ForecastEngine(model, cfg)
+    disco_ops.reset_launches()
+    legendre_ops.reset_launches()
+    torch.cuda.synchronize()
+    stamps = [time.time()]
+    results = []
+    for block in eng.stream(run.buffers, run.state0,
+                            lambda n: ds.aux_fields(6.0 * (n + 1)),
+                            members_noise(model, 7), steps=LEAD_STEPS,
+                            truth=lambda n: ds.state(run.sample, n + 1)):
+        results.append(block)
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+    out = {"lead_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
+           "launches": {"disco_band_contract": disco_ops.launches,
+                        "legendre_contract": legendre_ops.launches},
+           "blocks": cfg.kernels.blocks if cfg.kernels else (),
+           "libraries": [build.label(*lib)
+                         for lib in eng.kernel_libraries()]}
+    worst = {}
+    final = results[-1].final_state.cpu().numpy()
+    want = forecast["final_state"].numpy()
+    np.testing.assert_allclose(final, want, rtol=STATE_RTOL, atol=STATE_ATOL)
+    worst["state"] = float(np.abs(final - want).max())
+    for name, v in forecast["scores"].items():
+        got = torch.cat([r.scores[name] for r in results]).cpu().numpy()
+        atol = STATE_ATOL if name == "rank_hist" else SCORE_ATOL
+        np.testing.assert_allclose(got, v.numpy(), rtol=SCORE_RTOL,
+                                   atol=atol, err_msg=name)
+        worst[name] = float(np.abs(got - v.numpy()).max())
+    out["worst"] = worst
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"the tuned lead launched {out['launches']}")
+    return out
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     # the [dist] phase puts two ranks of 30-34 GB beside this process on
@@ -2502,10 +2722,10 @@ def main() -> int:
     build.build_all()
     log(f"[build] {len(build.SOURCES)} kernels built in "
         f"{time.time() - t0:.1f}s (sm_90a)")
-    for name, text in build.build_logs.items():
+    for key, text in build.build_logs.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
-                log(f"[build] {name}: {ln.strip()}")
+                log(f"[build] {build.label(*key)}: {ln.strip()}")
 
     # the distributed phase's files: [main]'s parameters (for (e) and the
     # evaluate phase), the training cell's, the plans handed to ranks
@@ -2593,6 +2813,32 @@ def main() -> int:
             os.path.join(dist_tmp, "forecast"), 0,
             dict(run.model.named_parameters()))}
     del results, final
+
+    # -- phase 2a: the kernel tiles tuned on this card, a tuned lead -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuning_dir = os.path.join(dist_tmp, "tuning")
+    t0 = time.time()
+    tuned = tune_phase(log, run.model, tuning_dir)
+    lead = tuned_lead(run, forecast, tuning_dir)
+    tune_s = time.time() - t0
+    log(f"[tune] tuned lead: {MEMBERS} members x {LEAD_STEPS} leads of "
+        f"[main]'s forecast through RequestSpec.engine_config with the "
+        f"cache installed; blocks={list(lead['blocks'])} libraries="
+        f"{lead['libraries']} per_lead_s="
+        f"{[round(x, 3) for x in lead['lead_s']]} against [main]'s "
+        f"{[round(x, 3) for x in lead_s]} (its last profiled); launches="
+        f"{lead['launches']}; vs [main] max_abs_err: "
+        + " ".join(f"{k}={v:.3e}" for k, v in lead["worst"].items())
+        + f" (state rtol={STATE_RTOL} atol={STATE_ATOL}; scores "
+          f"rtol={SCORE_RTOL} atol={SCORE_ATOL})")
+    log(f"[tune] card: {card}; phase_s={tune_s:.1f} (sweeps and checks "
+        f"{tuned['phase_s']:.1f} s: the build {tuned['build_s']:.1f} s, "
+        f"the first sweep {tuned['sweep_s']:.1f} s; the tuned lead the "
+        f"rest) cache={tuned['stats']}")
+    del lead
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 2b: the engine's other paths on the same model --------------
     gc.collect()
@@ -2682,8 +2928,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 2c: the forecast service (the forecast's model is gone) ------
+    # packed with [tune]'s cache installed: the replica boots with its
+    # tunings and their libraries
+    from repro_torch.kernels import autotune
     t0 = time.time()
-    svc = service_phase(log, guard=guard)
+    autotune.install_tuning_cache(tuning_dir)
+    try:
+        svc = service_phase(log, guard=guard)
+    finally:
+        autotune.install_tuning_cache(None)
     service_s = time.time() - t0
     service_launches = svc["launches"]
     # later phases load their libraries as before (the bundle's directory
@@ -2699,16 +2952,18 @@ def main() -> int:
     log(f"[service] card: {card}")
     log(f"[service] bundle for {dict(SERVICE_SPEC, config='full')} at "
         f"batch 1 and 2: {n_plans} plans {plan_bytes / 1e9:.3f} GB, "
-        f"{n_libs} kernel libraries {lib_bytes / 1e6:.3f} MB; "
-        f"plans_build_s={svc['plans_build_s']:.2f} "
-        f"pack_s={svc['pack_s']:.1f}")
+        f"{n_libs} kernel libraries {lib_bytes / 1e6:.3f} MB, "
+        f"{svc['tunings']} tunings; plans_build_s={svc['plans_build_s']:.2f}"
+        f" pack_s={svc['pack_s']:.1f}")
     log(f"[service] readonly replica boot: boot_s={svc['boot_s']:.1f} "
         f"(programs={info['programs']} disk_hits={info['disk_hits']} "
         f"warm_s={info['boot_s']}) plans_install_s="
         f"{info['plans_install_s']} against plans_build_s="
         f"{svc['plans_build_s']:.2f}; nvcc runs during boot="
         f"{svc['nvcc_during_boot']}; {info['libraries']} libraries "
-        f"loaded from the bundle: {svc['libraries']}")
+        f"loaded from the bundle: {svc['libraries']}; {info['tunings']} "
+        f"tunings installed; the served engine's blocks: "
+        f"{list(svc['blocks'])}")
     for tag, res in zip(("R1 alone", "R2 coalesced", "R3 coalesced"),
                         svc["served"]):
         t = res.timing
@@ -2929,7 +3184,13 @@ def main() -> int:
             torch.cuda.empty_cache()
     # the conv_transpose1d yardstick and the plain version run at each
     # band's widest shape only: the narrower ones repeat their work
-    # (PERF.md), and are held to the first planes of the plain output
+    # (PERF.md), and are held to the first planes of the plain output;
+    # [tune]'s winner for the transpose, where it is not the committed
+    # tile, is held to that plain output at its shape
+    bwd_tuned = tuned["families"]["disco_bwd"]
+    if bwd_tuned["blocks"] is None:
+        bwd_tuned = None
+    tb, th, ts, _, tk, td, tstride = tuned["families"]["disco_bwd"]["shapes"]
     bands: dict = {}
     for ent in sorted(train_rec.transpose.values(),
                       key=lambda e: (tuple(e["psi"].shape), e["stride"],
@@ -2938,7 +3199,10 @@ def main() -> int:
                 f"{ent['shape'][-1] * ent['stride']}")
         band = bands.setdefault((tuple(ent["psi"].shape), ent["stride"]), {})
         rows["disco_band_transpose"].append(check_transpose(
-            ent, what, library="ref" not in band, band=band))
+            ent, what, library="ref" not in band, band=band,
+            tuned=bwd_tuned["blocks"] if bwd_tuned and (
+                ent["shape"][0], *ent["psi"].shape, ent["stride"]) == (
+                tb, tk, th, ts, td, tstride) else None))
         torch.cuda.empty_cache()
     del bands
     torch.cuda.empty_cache()
@@ -3018,6 +3282,13 @@ def main() -> int:
             "bound_tc_ms": top["bound_tc_ms"],
             "library_ms": top["library_ms"], "at": top["shape"],
             "shapes": rows[name]}
+        # [tune]'s winner and the committed tile at the tuned shape (the
+        # CRPS family: one forward and one backward call)
+        fam = tuned["families"].get(TUNE_FAMILY.get(name))
+        ent.update(tuned_dims=fam and fam["dims"],
+                   tuned_ms=fam and fam["tuned_ms"],
+                   default_ms=fam and fam["default_ms"],
+                   tuned_at=fam and "x".join(map(str, fam["shapes"])))
         bwd = [r for r in rows[name]
                if r["what"] == "backward" and r.get("path") is None]
         if bwd:

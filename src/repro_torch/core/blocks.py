@@ -109,7 +109,7 @@ class Block(nn.Module):
         cond = cond.expand(x.shape[:-3] + cond.shape[-3:])
         h = torch.cat([x, cond], dim=-3)
         if self.spec.kind == "local":
-            h = self.conv(h, buffers, stride=1)
+            h = self.conv(h, buffers, stride=1, kernels=kernels)
         else:
             h = self.conv(h, buffers, nlon=x.shape[-1], kernels=kernels)
         return self.mix(x, h)

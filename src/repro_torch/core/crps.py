@@ -72,15 +72,16 @@ def crps_sorted(ens: torch.Tensor, obs: torch.Tensor, dim: int = 0
 # ---------------------------------------------------------------------------
 
 def nodal_crps_loss(ens: torch.Tensor, obs: torch.Tensor,
-                    area_weights: torch.Tensor, fair: bool = False
-                    ) -> torch.Tensor:
+                    area_weights: torch.Tensor, fair: bool = False,
+                    blocks=None) -> torch.Tensor:
     """Spatially averaged pointwise CRPS, eq. (50), through the kernel.
 
     ens: (E, ..., C, H, W); obs: (..., C, H, W); area_weights: (H, W)
-    normalized quadrature weights.  Returns (..., C).
+    normalized quadrature weights.  Returns (..., C).  ``blocks``: the
+    CRPS kernels' ``BlockConfig`` (None: the committed tile).
     """
     from repro_torch.kernels.crps import ops as crps_ops
-    pt = crps_ops.crps_pointwise(ens, obs, fair)          # (..., C, H, W)
+    pt = crps_ops.crps_pointwise(ens, obs, fair, blocks)  # (..., C, H, W)
     return torch.einsum("...chw,hw->...c", pt, area_weights.to(pt.dtype))
 
 

@@ -286,10 +286,11 @@ class FCN3(nn.Module):
         # (..., L, A, H, W): shared encoder applied per level.
         atmos = state[..., : nl * na, :, :].reshape(b + (nl, na) + hw)
         surface = state[..., nl * na:, :, :]
-        za = self.enc_atmos(atmos, buffers["enc"], stride)
+        kc = cfg.kernels
+        za = self.enc_atmos(atmos, buffers["enc"], stride, kernels=kc)
         za = za.reshape(b + (nl * cfg.atmos_embed,) + za.shape[-2:])
-        zs = self.enc_surface(surface, buffers["enc"], stride)
-        zc = self.enc_cond(cond_in, buffers["enc"], stride)
+        zs = self.enc_surface(surface, buffers["enc"], stride, kernels=kc)
+        zc = self.enc_cond(cond_in, buffers["enc"], stride, kernels=kc)
         return torch.cat([za, zs], dim=-3), zc
 
     def _decode(self, buffers: dict, latent: torch.Tensor) -> torch.Tensor:
@@ -307,9 +308,10 @@ class FCN3(nn.Module):
             b + (nl, cfg.atmos_embed) + hw)
         surf_lat = up[..., nl * cfg.atmos_embed:, :, :]
         del up
-        ua = self.dec_atmos(atmos_lat, buffers["dec"], 1)
+        kc = cfg.kernels
+        ua = self.dec_atmos(atmos_lat, buffers["dec"], 1, kernels=kc)
         ua = ua.reshape(b + (nl * cfg.n_atmos,) + ua.shape[-2:])
-        us = self.dec_surface(surf_lat, buffers["dec"], 1)
+        us = self.dec_surface(surf_lat, buffers["dec"], 1, kernels=kc)
         return torch.cat([ua, us], dim=-3)
 
     def forward(self, buffers: dict, state: torch.Tensor,

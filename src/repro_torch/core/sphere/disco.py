@@ -506,12 +506,15 @@ def disco_conv(x: torch.Tensor, psi: torch.Tensor, lat_idx: torch.Tensor,
     return fft_correlate(_gather_band(x, lat_idx), psi, stride)
 
 
-def contract(x: torch.Tensor, buffers: dict, stride: int) -> torch.Tensor:
+def contract(x: torch.Tensor, buffers: dict, stride: int,
+             kernels: KernelConfig | None = None) -> torch.Tensor:
     """Raw contraction routed by buffer layout: banded buffers take the
-    kernel path, full-psi buffers the FFT reference."""
+    kernel path (at ``kernels``' tiles), full-psi buffers the FFT
+    reference."""
     if "psi_band" in buffers:
         from repro_torch.kernels import dispatch
-        return dispatch.disco_conv_banded_buffers(x, buffers, stride)
+        return dispatch.disco_conv_banded_buffers(x, buffers, stride,
+                                                  kernels)
     return disco_conv(x, buffers["psi"], buffers["lat_idx"], stride)
 
 
@@ -538,10 +541,11 @@ class DiscoConv(nn.Module):
         init_disco_conv(self.weight, self.bias, generator, self.gain)
 
     def forward(self, x: torch.Tensor, buffers: dict, stride: int,
-                chunk_bytes: int = Z_CHUNK_BYTES) -> torch.Tensor:
+                chunk_bytes: int = Z_CHUNK_BYTES,
+                kernels: KernelConfig | None = None) -> torch.Tensor:
         """``apply_disco_conv`` with this module's weight and bias."""
         return apply_disco_conv(self.weight, self.bias, x, buffers, stride,
-                                self.groups, chunk_bytes)
+                                self.groups, chunk_bytes, kernels)
 
 
 def randn_like_param(p: torch.Tensor, generator: torch.Generator
@@ -564,16 +568,16 @@ def init_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
 
 
 def _contract_merge(eq: str, x: torch.Tensor, w: torch.Tensor,
-                    buffers: dict, stride: int, zshape: tuple[int, ...]
-                    ) -> torch.Tensor:
-    z = contract(x, buffers, stride)
+                    buffers: dict, stride: int, zshape: tuple[int, ...],
+                    kernels: KernelConfig | None = None) -> torch.Tensor:
+    z = contract(x, buffers, stride, kernels)
     return torch.einsum(eq, z.reshape(zshape + z.shape[-3:]), w)
 
 
 def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
                      x: torch.Tensor, buffers: dict, stride: int,
-                     groups: int = 1, chunk_bytes: int = Z_CHUNK_BYTES
-                     ) -> torch.Tensor:
+                     groups: int = 1, chunk_bytes: int = Z_CHUNK_BYTES,
+                     kernels: KernelConfig | None = None) -> torch.Tensor:
     """x: (..., C_in, H_in, W_in) -> (..., C_out, H_out, W_out).
 
     The leading planes are contracted in chunks whose raw output
@@ -585,7 +589,8 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
     With gradients on, each chunk's contraction and merge run under
     ``torch.utils.checkpoint``: autograd keeps only the chunk's input and
     recomputes its contraction in backward (the kept contractions would
-    be 18.6 GB per member at the fcn3_full decoder).
+    be 18.6 GB per member at the fcn3_full decoder).  ``kernels``: the
+    tiles of the band kernels (banded buffers only).
     """
     c_out, cpg, k = weight.shape
     lead = x.shape[:-3]
@@ -601,8 +606,8 @@ def apply_disco_conv(weight: torch.Tensor, bias: torch.Tensor | None,
     def merged(eq, xc, wc, zshape=()):
         if track:
             return checkpoint(_contract_merge, eq, xc, wc, buffers, stride,
-                              zshape, use_reentrant=False)
-        return _contract_merge(eq, xc, wc, buffers, stride, zshape)
+                              zshape, kernels, use_reentrant=False)
+        return _contract_merge(eq, xc, wc, buffers, stride, zshape, kernels)
 
     y = torch.empty((n, c_out, h_out, w_out), dtype=torch.float32,
                     device=x.device)

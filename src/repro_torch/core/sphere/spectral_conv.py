@@ -85,7 +85,8 @@ class SpectralFilter(nn.Module):
         kernel = (kernels or KernelConfig()).sht == "kernel"
         wpct, pct = sht_buffers["wpct"], sht_buffers["pct"]
         if kernel:
-            c = dispatch.sht_forward(x, wpct, sht_buffers["wpct_ext"])
+            c = dispatch.sht_forward(x, wpct, sht_buffers["wpct_ext"],
+                                     kernels)
         else:
             c = shtlib.sht_forward(x, wpct)                # (..., C, L, M)
         if lmax_keep is not None and lmax_keep < c.shape[-2]:
@@ -93,5 +94,6 @@ class SpectralFilter(nn.Module):
                                         (0, 0, 0, c.shape[-2] - lmax_keep))
         y = self.apply_weights(c)
         if kernel:
-            return dispatch.sht_inverse(y, pct, nlon, sht_buffers["pct_ext"])
+            return dispatch.sht_inverse(y, pct, nlon, sht_buffers["pct_ext"],
+                                        kernels)
         return shtlib.sht_inverse(y, pct, nlon)

@@ -26,10 +26,18 @@
 
 #include <cuda_runtime.h>
 
+// Threads per block: a build may override it (-DTUNE_THREADS=512: the
+// autotuner's variants, kernels/autotune.py).
+#ifndef TUNE_THREADS
+#define TUNE_THREADS 256
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = TUNE_THREADS;
 constexpr int E_MAX = 16;  // MAX_MEMBERS in kernels/crps/ops.py
+static_assert(THREADS >= 32 && THREADS <= 1024 && THREADS % 32 == 0,
+              "whole warps, at most 1024 threads a block");
 
 __device__ __forceinline__ float sgnf(float x) {
     return (float)((x > 0.f) - (x < 0.f));
@@ -109,6 +117,13 @@ int dispatch(const float* g, const float* ens, const float* obs, float* out,
 }
 
 }  // namespace
+
+// The compiled constants: THREADS, E_MAX; returns how many it wrote.
+extern "C" int crps_constants(int* out) {
+    out[0] = THREADS;
+    out[1] = E_MAX;
+    return 2;
+}
 
 // ens (E, N), obs (N,), out (N,), all contiguous fp32.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for E

@@ -58,17 +58,41 @@
 
 #include "tf32x3.cuh"
 
+// The tile constants a build may override (-DTUNE_CH=64 ...: the
+// autotuner's variants, kernels/autotune.py); without -D flags they are
+// the values above.
+#ifndef TUNE_TBP
+#define TUNE_TBP 16
+#endif
+#ifndef TUNE_CH
+#define TUNE_CH 128
+#endif
+#ifndef TUNE_STAGES
+#define TUNE_STAGES 3
+#endif
+#ifndef TUNE_MIN_BLOCKS
+#define TUNE_MIN_BLOCKS 2
+#endif
+
 namespace {
 
 constexpr int TW = 128;   // output longitudes per block: 8 warps x 16 rows
-constexpr int TBP = 16;   // input planes per block
+constexpr int TBP = TUNE_TBP;   // input planes per block
 constexpr int TAP = 8;    // taps per mma step; spans are padded to it
-constexpr int CH = 128;   // taps per staged piece of a slice
+constexpr int CH = TUNE_CH;     // taps per staged piece of a slice
 constexpr int THREADS = 256;
-constexpr int STAGES = 3;
-constexpr int MIN_BLOCKS = 2;
+constexpr int STAGES = TUNE_STAGES;
+constexpr int MIN_BLOCKS = TUNE_MIN_BLOCKS;
 static_assert(THREADS % TBP == 0 && TBP % 2 == 0,
               "whole threads per plane window; planes in pairs");
+static_assert(TW == 16 * (THREADS / 32), "8 warps of the mma's 16 rows");
+static_assert(CH >= TAP && CH % TAP == 0, "whole mma steps per piece");
+static_assert(STAGES >= 2, "a ring of at least two pieces");
+// registers a thread may take at MIN_BLOCKS blocks an SM: the 4 * TBP
+// accumulators and about 48 for fragments and addresses must fit
+static_assert(MIN_BLOCKS >= 1 &&
+                  65536 / (THREADS * MIN_BLOCKS) >= 4 * TBP + 48,
+              "the accumulators fit the register budget");
 
 struct Params {
     const float* x;
@@ -95,6 +119,10 @@ __host__ __device__ constexpr int window_floats(int stride) {
 __host__ __device__ constexpr int stage_floats(int stride) {
     return CH * 8 + TBP * window_floats(stride);
 }
+
+// the ring at the compiled strides fits a block's 227 KB
+static_assert(sizeof(float) * STAGES * stage_floats(2) <= 232448,
+              "the ring fits a block's shared memory at stride 2");
 
 // The slices are staged and contracted in pieces of at most CH taps: piece
 // pc of slice e holds its taps [pc * CH, min((pc + 1) * CH, span)).
@@ -273,6 +301,19 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// The compiled tile: TW, TBP, CH, STAGES, MIN_BLOCKS, THREADS; returns how
+// many it wrote (the wrapper reads its grid limits from here).
+extern "C" int disco_band_constants(int* out) {
+    const int v[] = {TW, TBP, CH, STAGES, MIN_BLOCKS, THREADS};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 6;
+}
+
+// Dynamic shared memory one block takes at `stride`, in bytes.
+extern "C" long long disco_band_smem_bytes(int stride) {
+    return (long long)sizeof(float) * STAGES * stage_floats(stride);
+}
 
 // x (B, H_in, W_in), lat_idx (H_out, S), the live taps tap_ptr (H_out + 1),
 // tap_ent (E, 4), tap_psi (T, 8), row_order (H_out), out (B, K, H_out,

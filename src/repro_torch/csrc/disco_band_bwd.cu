@@ -94,17 +94,36 @@
 
 #include "tf32x3.cuh"
 
+// The tile constants a build may override (-DTUNE_CH=32 ...: the
+// autotuner's variants, kernels/autotune.py); without -D flags they are
+// the values above.
+#ifndef TUNE_CH
+#define TUNE_CH 64
+#endif
+#ifndef TUNE_STAGES
+#define TUNE_STAGES 3
+#endif
+#ifndef TUNE_MIN_BLOCKS
+#define TUNE_MIN_BLOCKS 3
+#endif
+
 namespace {
 
 constexpr int TV = 256;     // input longitudes per block
 constexpr int VW = 32;      // input longitudes per warp
 constexpr int TBP = 16;     // planes per block: the mma's 16 rows
-constexpr int CH = 64;      // taps per staged piece of a slice
+constexpr int CH = TUNE_CH;       // taps per staged piece of a slice
 constexpr int THREADS = 256;
-constexpr int STAGES = 3;
-constexpr int MIN_BLOCKS = 3;
+constexpr int STAGES = TUNE_STAGES;
+constexpr int MIN_BLOCKS = TUNE_MIN_BLOCKS;
 static_assert(TV == VW * (THREADS / 32), "the warps tile the longitudes");
 static_assert(THREADS % TBP == 0, "whole threads per plane window");
+static_assert(CH >= 8 && CH % 8 == 0, "whole u-blocks of 8 taps per piece");
+static_assert(STAGES >= 2, "a ring of at least two units");
+// registers a thread may take at MIN_BLOCKS blocks an SM: below 64 the
+// fragments of a piece's deltas no longer fit at stride 1
+static_assert(MIN_BLOCKS >= 1 && 65536 / (THREADS * MIN_BLOCKS) >= 64,
+              "the fragments fit the register budget");
 
 struct Params {
     const float* g;
@@ -151,6 +170,11 @@ constexpr int WIN_ANY = ((TV + 8 * DM_ANY + 3 + 3) / 4 | 1) * 4;
 __host__ __device__ constexpr int stage_floats_any(int s) {
     return psi_floats(s) + TBP * WIN_ANY;
 }
+
+// the ring at the compiled strides fits a block's 227 KB
+static_assert(sizeof(float) * STAGES * stage_floats(1) <= 232448 &&
+                  sizeof(float) * STAGES * stage_floats(2) <= 232448,
+              "the ring fits a block's shared memory");
 
 // The stride: compiled in, or read from p on the generic path.
 template <int S>
@@ -389,6 +413,20 @@ int launch(const Params& p, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// The compiled tile: TV, TBP, CH, STAGES, MIN_BLOCKS, THREADS, DM_ANY;
+// returns how many it wrote (the wrapper reads its grid limits here).
+extern "C" int disco_band_bwd_constants(int* out) {
+    const int v[] = {TV, TBP, CH, STAGES, MIN_BLOCKS, THREADS, DM_ANY};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    return 7;
+}
+
+// Dynamic shared memory one block takes at `stride` (>= 1), in bytes.
+extern "C" long long disco_band_bwd_smem_bytes(int stride) {
+    return (long long)sizeof(float) * STAGES *
+           (stride <= 2 ? stage_floats(stride) : stage_floats_any(stride));
+}
 
 // g (B, K, H_out, W_out); the live taps tap_ent (E, 4), tap_psi (T, 8);
 // their lists by input row in_ptr (H_in + 1), in_ent (E, 2), in_order

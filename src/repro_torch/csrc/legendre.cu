@@ -64,18 +64,40 @@
 
 #include "tf32x3.cuh"
 
+// The tile constants a build may override (-DTUNE_TB=64 ...: the
+// autotuner's variants, kernels/autotune.py); without -D flags they are
+// the values above, tuned by hand on the H100.
+#ifndef TUNE_TB
+#define TUNE_TB 32
+#endif
+#ifndef TUNE_TN
+#define TUNE_TN 64
+#endif
+#ifndef TUNE_TK
+#define TUNE_TK 16
+#endif
+#ifndef TUNE_STAGES
+#define TUNE_STAGES 2
+#endif
+
 namespace {
 
-constexpr int TJ = 8;    // j per block (adjacent in memory)
-constexpr int TB = 32;   // output rows (b) per block
-constexpr int TN = 64;   // output columns (n) per block
-constexpr int TK = 16;   // contraction depth per stage
-constexpr int STAGES = 2;
+constexpr int TJ = 8;          // j per block (adjacent in memory)
+constexpr int TB = TUNE_TB;    // output rows (b) per block
+constexpr int TN = TUNE_TN;    // output columns (n) per block
+constexpr int TK = TUNE_TK;    // contraction depth per stage
+constexpr int STAGES = TUNE_STAGES;
 constexpr int NT = 4;    // n8 tiles per warp
 // warps: 2 halves of j x TB / 16 row groups x TN / (8 NT) column groups
 constexpr int WB = TB / 16, WN = TN / (8 * NT);
 constexpr int THREADS = 64 * WB * WN;
 constexpr int MIN_BLOCKS = THREADS <= 256 ? 2 : 1;
+static_assert(TB >= 16 && TB % 16 == 0, "row groups of the mma's 16 rows");
+static_assert(TN >= 8 * NT && TN % (8 * NT) == 0,
+              "column groups of NT n8 tiles");
+static_assert(TK >= 8 && TK % 8 == 0, "whole k8 steps of the mma per slab");
+static_assert(STAGES >= 2, "a ring of at least two slabs");
+static_assert(THREADS <= 1024, "threads per block");
 
 struct Params {
     const float* x;
@@ -92,6 +114,11 @@ template <int CSHIFT>
 __host__ __device__ constexpr int stage_floats() {
     return TK * TB * TJ + TK * TN * (TJ >> CSHIFT);
 }
+
+// shared memory of one block, the ring of STAGES slabs (the real path's
+// is the larger); a block has at most 227 KB
+static_assert(sizeof(float) * STAGES * stage_floats<0>() <= 232448,
+              "the ring fits a block's shared memory");
 
 __device__ __forceinline__ float pick(const float4& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -117,6 +144,8 @@ static_assert((THREADS / 2) % TB == 0 && (TK * TB * 2) % THREADS == 0,
               "x copies: whole rows per pass");
 static_assert((THREADS / 2) % TN == 0 && (TK * TN) % THREADS == 0,
               "table copies: whole rows per pass");
+static_assert(PX >= 1 && THREADS % TN == 0 && TK * TN >= THREADS,
+              "every thread copies x and (real and complex) table rows");
 template <int TCH>
 struct Copies {
     static constexpr int PT = TK * TN * TCH / THREADS;
@@ -379,6 +408,17 @@ int launch(const Params& p, cudaStream_t stream) {
 bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
 
 }  // namespace
+
+// The compiled tile: TJ, TB, TN, TK, STAGES, THREADS and the dynamic
+// shared memory of a block for real and for complex x, in bytes; returns
+// how many it wrote (the wrapper reads its grid limits from here).
+extern "C" int legendre_constants(int* out) {
+    const int v[] = {TJ, TB, TN, TK, STAGES, THREADS,
+                     (int)(sizeof(float) * STAGES * stage_floats<0>()),
+                     (int)(sizeof(float) * STAGES * stage_floats<1>())};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 8;
+}
 
 // x: (B, K, J) floats at strides (sxb, sxk, 1); t: (K, N, J >> cshift)
 // floats at strides (stk, stn, 1); ext: (2, 2, J >> cshift) int32; out:

@@ -71,18 +71,28 @@
 
 #include "tf32x3.cuh"
 
+// The tile constants a build may override (-DTUNE_HEADS_PER_BLOCK=12 ...:
+// the autotuner's variants, kernels/autotune.py); without -D flags they
+// are the values below.
+#ifndef TUNE_THREADS
+#define TUNE_THREADS 512
+#endif
+#ifndef TUNE_HEADS_PER_BLOCK
+#define TUNE_HEADS_PER_BLOCK 24
+#endif
+
 namespace {
 
 constexpr int L_MAX = 128;    // chunk length; L_MAX in kernels/ssd/ops.py
 constexpr int P_MAX = 64;     // head dim
 constexpr int N_MAX = 128;    // state dim
-constexpr int THREADS = 512;
+constexpr int THREADS = TUNE_THREADS;
 constexpr int Y_WARPS = 8;    // warps 0..7: y; the others: the state
 constexpr int S_WARPS = THREADS / 32 - Y_WARPS;
 // a state warp's columns: one half of P times N_MAX / (S_WARPS / 2) of N
 constexpr int S_NW = N_MAX / (S_WARPS / 2);
 constexpr int S_NT = S_NW / 8;    // its n-tiles of 8
-constexpr int HEADS_PER_BLOCK = 24;
+constexpr int HEADS_PER_BLOCK = TUNE_HEADS_PER_BLOCK;
 constexpr int B_LD = N_MAX + 4;   // row pitch of B: 132 = 4 (mod 32)
 constexpr int X_LD = P_MAX + 4;   // row pitch of X and of C's halves: 68
 // one slot: a head's X [L_MAX][X_LD] and its cs [L_MAX]
@@ -96,6 +106,10 @@ constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
 static_assert(Y_WARPS == 8 && S_WARPS % 2 == 0 && S_NW % 8 == 0,
               "y: 4 pairs of l-tiles x 2 halves of P; the state: 2 halves of "
               "P x whole n-tiles");
+static_assert(THREADS % 32 == 0 && THREADS <= 1024 && THREADS / 32 >= 16,
+              "whole warps, C B^T takes warps 0-15; at most 1024 threads");
+static_assert(N_MAX % (S_WARPS / 2) == 0, "the state warps tile N");
+static_assert(HEADS_PER_BLOCK >= 1, "at least one head a block");
 static_assert(SMEM_BYTES <= 232448, "one block an SM");
 static_assert(L_MAX * X_LD + L_MAX <= SLOT, "C's halves fit a slot");
 
@@ -424,6 +438,16 @@ ssd_intra_chunk_kernel(const Params p) {
 }
 
 }  // namespace
+
+// The compiled constants: L_MAX, P_MAX, N_MAX, THREADS, HEADS_PER_BLOCK
+// and the dynamic shared memory of a block in bytes; returns how many it
+// wrote.
+extern "C" int ssd_constants(int* out) {
+    const int v[] = {L_MAX, P_MAX, N_MAX, THREADS, HEADS_PER_BLOCK,
+                     (int)SMEM_BYTES};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 6;
+}
 
 // x (BC, L, H, P), da_cs (BC, L, H), b_mat and c_mat (BC, L, G, N) ->
 // y (BC, L, H, P), st (BC, H, P, N); all contiguous fp32.  Takes

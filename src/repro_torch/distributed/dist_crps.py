@@ -27,12 +27,13 @@ import math
 from repro_torch.distributed.compat import (all_to_all, all_to_all_v,
                                             axis_index, axis_size, psum,
                                             row_block)
+from repro_torch.kernels.config import BlockConfig
 from repro_torch.kernels.crps import ops as crps_ops
 
 
 def dist_crps(ens_local: torch.Tensor, obs_local: torch.Tensor,
-              weights_local: torch.Tensor, group, fair: bool = False
-              ) -> torch.Tensor:
+              weights_local: torch.Tensor, group, fair: bool = False,
+              blocks: BlockConfig | None = None) -> torch.Tensor:
     """Rank-local body of the distributed nodal CRPS.
 
     ens_local: (Eloc, ..., S) this rank's members over the flattened
@@ -41,7 +42,8 @@ def dist_crps(ens_local: torch.Tensor, obs_local: torch.Tensor,
     weights_local: (S,) quadrature weights of the block, normalized over
       all ranks and points.
     Returns the weighted CRPS summed over the points and the ``...``
-    dims, the same scalar on every rank of ``group``.
+    dims, the same scalar on every rank of ``group``.  ``blocks``: the
+    CRPS kernels' tile (None: the committed one).
     """
     n_e = axis_size(group)
     s = ens_local.shape[-1]
@@ -56,7 +58,7 @@ def dist_crps(ens_local: torch.Tensor, obs_local: torch.Tensor,
     obs = obs_local[..., lo:lo + s_sub]
     w = weights_local[lo:lo + s_sub]
     # 2) the CRPS kernel over the whole ensemble
-    pt = crps_ops.crps_pointwise(ens, obs, fair)
+    pt = crps_ops.crps_pointwise(ens, obs, fair, blocks)
     part = (pt * w.to(pt.dtype)).sum()
     # 3) the quadrature sum over the group
     return psum(part, group)
@@ -107,8 +109,8 @@ def scatter_points(ens_local: torch.Tensor, group, counts
 
 
 def dist_crps_channels(ens: torch.Tensor, obs: torch.Tensor,
-                       weights: torch.Tensor, group, fair: bool = True
-                       ) -> torch.Tensor:
+                       weights: torch.Tensor, group, fair: bool = True,
+                       blocks: BlockConfig | None = None) -> torch.Tensor:
     """Steps 2-3 of Algorithm 3, per channel: the CRPS kernel scores
     this rank's points over the whole ensemble, and a ``psum`` sums the
     weighted points of every rank.
@@ -116,7 +118,7 @@ def dist_crps_channels(ens: torch.Tensor, obs: torch.Tensor,
     ens: (E, ..., S_r) every member on this rank's points (from
     ``scatter_points``); obs: (..., S_r) the truth there; weights: (S_r,)
     their quadrature weights.  Returns (...), the same on every rank of
-    ``group``.
+    ``group``.  ``blocks``: the CRPS kernel's tile.
     """
-    pt = crps_ops.crps_pointwise(ens, obs, fair)
+    pt = crps_ops.crps_pointwise(ens, obs, fair, blocks)
     return psum((pt * weights.to(pt.dtype)).sum(dim=-1), group)

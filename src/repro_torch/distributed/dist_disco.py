@@ -28,6 +28,7 @@ from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import fourier
 from repro_torch.distributed.compat import all_to_all, psum_scatter
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.config import KernelConfig
 
 
 def local_psi_blocks(plan: discolib.DiscoPlan, n_lat_ranks: int
@@ -95,20 +96,23 @@ def _dense_contract(x: torch.Tensor, psi_local: torch.Tensor, stride: int
 
 
 def dist_disco_conv(x: torch.Tensor, local: dict | torch.Tensor,
-                    stride: int, lat_group, lon_group) -> torch.Tensor:
+                    stride: int, lat_group, lon_group,
+                    kernels: KernelConfig | None = None) -> torch.Tensor:
     """Rank-local body of the distributed DISCO contraction.
 
     x: (..., C, Hloc_in, Wloc) this rank's input block.  ``local``: this
     latitude rank's ``local_band_buffers`` or its dense psi slab
     (K, H_out, Hloc_in, W_in) from ``local_psi_blocks``.  Returns
-    (..., C, K, Hloc_out, Wloc_out), this rank's output block.
+    (..., C, K, Hloc_out, Wloc_out), this rank's output block.  The
+    band kernels launch at ``kernels``' tiles.
     """
     nd = x.dim()
     # 1) gather longitudes, scatter channels
     xt = all_to_all(x, lon_group, nd - 3, nd - 1)       # (.., Cw, loc, W)
     # 2) contract this rank's input rows -> partial sums, every H_out
     if isinstance(local, dict):
-        partial = dispatch.disco_conv_banded_buffers(xt, local, stride)
+        partial = dispatch.disco_conv_banded_buffers(xt, local, stride,
+                                                     kernels)
     else:
         partial = _dense_contract(xt, local, stride)   # (.., Cw, K, H, W')
     # 3) sum over the latitude ranks' rows, scatter the output rows

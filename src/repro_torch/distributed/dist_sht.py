@@ -32,6 +32,7 @@ from repro_torch.core.sphere import fourier
 from repro_torch.core.sphere import sht as shtlib
 from repro_torch.distributed.compat import all_to_all, axis_size
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.config import KernelConfig
 
 
 def order_block(mmax: int, n_lon_ranks: int, lon_rank: int
@@ -62,13 +63,15 @@ def local_sht_buffers(sht: shtlib.SHT, m0: int, m1: int,
 
 
 def dist_sht_forward(x: torch.Tensor, local: dict, mmax: int,
-                     lat_group, lon_group) -> torch.Tensor:
+                     lat_group, lon_group,
+                     kernels: KernelConfig | None = None) -> torch.Tensor:
     """Rank-local body of the forward SHT.
 
     x: (..., C, Hloc, Wloc) this rank's block of the real signal;
     ``local``: ``local_sht_buffers`` of this rank's order block.  Returns
     (..., C, Lloc, Mloc) complex64, this rank's block of coefficients
     (degrees over the latitude group, orders over the longitude group).
+    The Legendre kernel launches at ``kernels``' tile.
     """
     nd = x.dim()
     w_total = x.shape[-1] * axis_size(lon_group)
@@ -81,24 +84,27 @@ def dist_sht_forward(x: torch.Tensor, local: dict, mmax: int,
     # 4) gather latitudes, scatter channels (pencil 2)
     xf = all_to_all(xf, lat_group, nd - 3, nd - 2)      # (.., Ch, H, Mloc)
     # 5) the Legendre kernel on this rank's orders
-    c = dispatch.legendre(xf, local["wpct"], local["wpct_ext"])
+    c = dispatch.legendre(xf, local["wpct"], local["wpct_ext"], kernels)
     # 6) scatter degrees, gather channels back
     return all_to_all(c, lat_group, nd - 2, nd - 3)     # (.., C, Lloc, Mloc)
 
 
 def dist_sht_inverse(c: torch.Tensor, local: dict, nlon: int,
-                     lat_group, lon_group) -> torch.Tensor:
+                     lat_group, lon_group,
+                     kernels: KernelConfig | None = None) -> torch.Tensor:
     """Rank-local body of the inverse SHT.
 
     c: (..., C, Lloc, Mloc) complex; ``local``: ``local_sht_buffers`` of
-    this rank's order block.  Returns (..., C, Hloc, Wloc) float32.
+    this rank's order block.  Returns (..., C, Hloc, Wloc) float32.  The
+    Legendre kernel launches at ``kernels``' tile.
     """
     nd = c.dim()
     # 1) gather degrees, scatter channels
     ct = all_to_all(c, lat_group, nd - 3, nd - 2)       # (.., Ch, L, Mloc)
     # 2) the Legendre kernel over degrees (the transposed table)
     s = dispatch.legendre(ct, local["pct"].permute(1, 0, 2),
-                          dispatch.transposed_extents(local["pct_ext"]))
+                          dispatch.transposed_extents(local["pct_ext"]),
+                          kernels)
     # 3) scatter latitudes, gather channels
     s = all_to_all(s, lat_group, nd - 2, nd - 3)        # (.., C, Hloc, Mloc)
     # 4) gather orders, scatter channels

@@ -45,6 +45,7 @@ from repro_torch.core.sphere import sht as shtlib
 from repro_torch.distributed import dist_sht
 from repro_torch.distributed.compat import (all_to_all_v, axis_index,
                                             axis_size, row_block)
+from repro_torch.kernels.config import KernelConfig
 
 
 # ---------------------------------------------------------------------------
@@ -168,12 +169,15 @@ def halo_exchange(x: torch.Tensor, halo: Halo, group) -> torch.Tensor:
 
 
 def domain_disco(conv: discolib.DiscoConv, x: torch.Tensor, buffers: dict,
-                 stride: int, halo: Halo, group) -> torch.Tensor:
+                 stride: int, halo: Halo, group,
+                 kernels: KernelConfig | None = None) -> torch.Tensor:
     """``conv`` on this rank's output rows: the halo exchange of its
-    input block x (..., C_in, H_loc, W), then the band kernel on the
-    sliced band (``buffers``: ``local_band_rows``' tensors) and the
-    module's merge with its own weights."""
-    return conv(halo_exchange(x, halo, group), buffers, stride)
+    input block x (..., C_in, H_loc, W), then the band kernel (at
+    ``kernels``' tile) on the sliced band (``buffers``:
+    ``local_band_rows``' tensors) and the module's merge with its own
+    weights."""
+    return conv(halo_exchange(x, halo, group), buffers, stride,
+                kernels=kernels)
 
 
 def domain_upsample(resample, x: torch.Tensor, halo: Halo, rows: np.ndarray,
@@ -220,8 +224,8 @@ def _channels(x: torch.Tensor, n: int) -> tuple[torch.Tensor, int]:
     return F.pad(x, (0, 0, 0, 0, 0, -c % n)), c
 
 
-def domain_sht_forward(x: torch.Tensor, tables: dict, group, solo
-                       ) -> torch.Tensor:
+def domain_sht_forward(x: torch.Tensor, tables: dict, group, solo,
+                       kernels: KernelConfig | None = None) -> torch.Tensor:
     """Forward SHT of this rank's rows x (..., H_loc, W): Algorithm 1
     (``dist_sht_forward``) with ``solo``, a group of this rank alone, for
     longitude.  Returns (..., Lp / R, M) complex64, this rank's block of
@@ -231,17 +235,18 @@ def domain_sht_forward(x: torch.Tensor, tables: dict, group, solo
     lead = x.shape[:-2]
     xr, c = _channels(F.pad(x, (0, 0, 0, hp - x.shape[-2])), n)
     out = dist_sht.dist_sht_forward(xr, tables, tables["wpct"].shape[2],
-                                    group, solo)
+                                    group, solo, kernels)
     return out[:c].reshape(lead + tuple(out.shape[-2:]))
 
 
 def domain_sht_inverse(c: torch.Tensor, tables: dict, nlon: int, rows: int,
-                       group, solo) -> torch.Tensor:
+                       group, solo, kernels: KernelConfig | None = None
+                       ) -> torch.Tensor:
     """Inverse SHT of this rank's block of degrees c (..., Lp / R, M)
     onto its ``rows`` rows: (..., rows, nlon) float32."""
     lead = c.shape[:-2]
     cr, k = _channels(c, axis_size(group))
-    u = dist_sht.dist_sht_inverse(cr, tables, nlon, group, solo)
+    u = dist_sht.dist_sht_inverse(cr, tables, nlon, group, solo, kernels)
     return u[:k, :rows].reshape(lead + (rows, nlon))
 
 
@@ -253,16 +258,17 @@ def degree_block(w: torch.Tensor, lloc: int, group) -> torch.Tensor:
     return w[..., r * lloc:(r + 1) * lloc]
 
 
-def domain_spectral(filt, x: torch.Tensor, tables: dict, group, solo
-                    ) -> torch.Tensor:
+def domain_spectral(filt, x: torch.Tensor, tables: dict, group, solo,
+                    kernels: KernelConfig | None = None) -> torch.Tensor:
     """A ``SpectralFilter`` (FCN3's global blocks) on this rank's rows x
     (..., C_in, H_loc, W): the forward SHT, the filter's
-    ``apply_weights`` on the rank's degrees, the inverse SHT."""
-    c = domain_sht_forward(x, tables, group, solo)       # (.., C, Lloc, M)
-    lloc = c.shape[-2]
+    ``apply_weights`` on the rank's degrees, the inverse SHT (the
+    Legendre kernel at ``kernels``' tile)."""
+    c = domain_sht_forward(x, tables, group, solo, kernels)
+    lloc = c.shape[-2]                                    # (.., C, Lloc, M)
     y = filt.apply_weights(c, lambda w: degree_block(w, lloc, group))
     return domain_sht_inverse(y, tables, x.shape[-1], x.shape[-2], group,
-                              solo)
+                              solo, kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -324,9 +330,10 @@ class DomainFCN3:
         h = torch.cat([x, cond], dim=-3)
         if block.spec.kind == "local":
             h = domain_disco(block.conv, h, buf, 1, self.halos["latent"],
-                             self.group)
+                             self.group, self.model.cfg.kernels)
         else:
-            h = domain_spectral(block.conv, h, buf, self.group, self.solo)
+            h = domain_spectral(block.conv, h, buf, self.group, self.solo,
+                                self.model.cfg.kernels)
         return block.mix(x, h)
 
     def __call__(self, buffers: dict, state: torch.Tensor,

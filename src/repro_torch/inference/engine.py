@@ -103,7 +103,7 @@ from repro_torch.distributed.dist_crps import (dist_crps_channels,
                                                member_block, scatter_points)
 from repro_torch.evaluation import metrics
 from repro_torch.inference import perturbations as perturblib
-from repro_torch.kernels.config import KernelConfig
+from repro_torch.kernels.config import KernelConfig, library_of
 
 #: salt that seeds the perturbation draws' generator apart from the noise
 #: process's (the JAX engine's ``fold_in`` salt)
@@ -541,17 +541,10 @@ class ForecastEngine:
         return self._wpct
 
     # -- serving hooks ---------------------------------------------------
-    def kernel_libraries(self) -> tuple[str, ...]:
-        """The kernel libraries (``kernels.build`` names) the step launches
-        on this engine's device: the Legendre kernel on the SHT path
-        "kernel", the band contraction on the DISCO path "kernel"; none
-        on the CPU, where the wrappers run their plain versions."""
-        if self.model.device.type != "cuda":
-            return ()
-        kc = self.model.cfg.kernels
-        return tuple(name for name, on in (("legendre", kc.sht == "kernel"),
-                                           ("disco_band",
-                                            kc.disco == "kernel")) if on)
+    def kernel_libraries(self) -> tuple[tuple[str, tuple], ...]:
+        """``kernel_libraries`` of this engine's model (its config's
+        kernel paths and tiles)."""
+        return kernel_libraries(self.model)
 
     def make_resident(self, buffers: dict) -> None:
         """Set up everything the step reads besides the caller's own
@@ -786,7 +779,9 @@ class ForecastEngine:
             obs = truth.reshape(c, h * w)[:, lo:hi]
             wts = aw.reshape(-1)[lo:hi]
             den = aw.sum()
-            out["crps"] = dist_crps_channels(ens, obs, wts, g) / den
+            out["crps"] = dist_crps_channels(
+                ens, obs, wts, g,
+                blocks=self.model.cfg.kernels.blocks_for("crps")) / den
             rank = (ens < obs[None]).sum(dim=0)                # (C, S_r)
             r0, nr = lo // w, (hi - 1) // w - lo // w + 1
             ring = torch.arange(lo, hi, device=sf.device) // w - r0
@@ -1069,6 +1064,20 @@ class ForecastEngine:
             for parts, res in zip(per_request, block):
                 parts.append(res)
         return [_concat_results(parts) for parts in per_request]
+
+
+def kernel_libraries(model: FCN3) -> tuple[tuple[str, tuple], ...]:
+    """The kernel libraries a forecast step of ``model`` launches on its
+    device, as ``kernels.build`` ``(name, defines)`` pairs: the Legendre
+    kernel on the SHT path "kernel", the band contraction on the DISCO
+    path "kernel", each at its ``KernelConfig.blocks`` tile; none on the
+    CPU, where the wrappers run their plain versions."""
+    if model.device.type != "cuda":
+        return ()
+    kc = model.cfg.kernels
+    return tuple(library_of(op, kc.blocks_for(op))
+                 for op, on in (("legendre", kc.sht == "kernel"),
+                                ("disco", kc.disco == "kernel")) if on)
 
 
 def members_noise(model: FCN3, seed: int) -> GeneratorNoise:

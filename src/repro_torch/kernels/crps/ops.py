@@ -5,6 +5,8 @@ On CPU tensors each wrapper computes its plain version (``ref.py``); on
 CUDA tensors it launches its kernel or raises.  ``crps_pointwise`` is the
 counterpart of the JAX package's ``crps_pointwise_pallas``; the nodal
 average of ``nodal_crps_pallas`` is ``core.crps.nodal_crps_loss``.
+``blocks`` (a ``BlockConfig`` of family "crps") picks the library built
+with another block size; both kernels of that library launch with it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.crps.ref import (crps_coeff, crps_fused_bwd_ref,
                                           crps_fused_ref)
 
@@ -31,8 +34,8 @@ def reset_launches() -> None:
     launches = bwd_launches = 0
 
 
-def _lib():
-    lib = build.load_library("crps")
+def _lib(blocks: BlockConfig | None = None):
+    lib = build.load_library(*library_of("crps", blocks))
     fwd, bwd = lib.crps_fwd_launch, lib.crps_bwd_launch
     fwd.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                              ctypes.c_float, ctypes.c_void_p])
@@ -65,9 +68,10 @@ def _check(ens: torch.Tensor, obs: torch.Tensor,
             raise ValueError(f"crps_fused: {name} must be contiguous")
 
 
-def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
-               ) -> torch.Tensor:
-    """Pointwise ensemble CRPS: ens (E, N), obs (N,) -> (N,) float32."""
+def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False,
+               blocks: BlockConfig | None = None) -> torch.Tensor:
+    """Pointwise ensemble CRPS: ens (E, N), obs (N,) -> (N,) float32;
+    ``blocks``: the tile to launch (None: the committed one)."""
     global launches
     if ens.device.type == "cpu" and obs.device.type == "cpu":
         return crps_fused_ref(ens, obs, fair)
@@ -76,7 +80,7 @@ def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
     out = torch.empty((n,), dtype=torch.float32, device=ens.device)
     if n == 0:
         return out
-    fwd, _ = _lib()
+    fwd, _ = _lib(blocks)
     stream = torch.cuda.current_stream(ens.device).cuda_stream
     err = fwd(ens.data_ptr(), obs.data_ptr(), out.data_ptr(), e, n,
               crps_coeff(e, fair), stream)
@@ -86,7 +90,8 @@ def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
 
 
 def crps_fused_bwd(g: torch.Tensor, ens: torch.Tensor, obs: torch.Tensor,
-                   fair: bool = False) -> torch.Tensor:
+                   fair: bool = False, blocks: BlockConfig | None = None
+                   ) -> torch.Tensor:
     """Gradient of ``sum(g * crps_fused(ens, obs))`` w.r.t. ens: (E, N)."""
     global bwd_launches
     if all(t.device.type == "cpu" for t in (g, ens, obs)):
@@ -96,7 +101,7 @@ def crps_fused_bwd(g: torch.Tensor, ens: torch.Tensor, obs: torch.Tensor,
     grad = torch.empty((e, n), dtype=torch.float32, device=ens.device)
     if n == 0:
         return grad
-    _, bwd = _lib()
+    _, bwd = _lib(blocks)
     stream = torch.cuda.current_stream(ens.device).cuda_stream
     err = bwd(g.data_ptr(), ens.data_ptr(), obs.data_ptr(), grad.data_ptr(),
               e, n, crps_coeff(e, fair), stream)
@@ -110,29 +115,31 @@ class _CRPS(torch.autograd.Function):
     observations get no gradient (they are data)."""
 
     @staticmethod
-    def forward(ctx, ens, obs, fair):
+    def forward(ctx, ens, obs, fair, blocks=None):
         ctx.save_for_backward(ens, obs)
-        ctx.fair = fair
-        return crps_fused(ens, obs, fair)
+        ctx.fair, ctx.blocks = fair, blocks
+        return crps_fused(ens, obs, fair, blocks)
 
     @staticmethod
     def backward(ctx, g):
         ens, obs = ctx.saved_tensors
         grad = None
         if ctx.needs_input_grad[0]:
-            grad = crps_fused_bwd(g.contiguous(), ens, obs, ctx.fair)
-        return grad, None, None
+            grad = crps_fused_bwd(g.contiguous(), ens, obs, ctx.fair,
+                                  ctx.blocks)
+        return grad, None, None, None
 
 
-def crps_pointwise(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False
-                   ) -> torch.Tensor:
+def crps_pointwise(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False,
+                   blocks: BlockConfig | None = None) -> torch.Tensor:
     """Drop-in for ``core.crps.crps_ensemble`` with the ensemble on dim 0.
 
     ens: (E, ...); obs: (...) -> (...) float32, through the kernels in
-    both directions.
+    both directions, at the tile ``blocks`` (None: the committed one).
     """
     e = ens.shape[0]
     flat = ens.float().reshape(e, -1).contiguous()
-    out = _CRPS.apply(flat, obs.float().reshape(-1).contiguous(), fair)
+    out = _CRPS.apply(flat, obs.float().reshape(-1).contiguous(), fair,
+                      blocks)
     return out.reshape(obs.shape)
 

@@ -4,7 +4,10 @@ contraction (``csrc/disco_band.cu``) and its transpose, the gradient in x
 
 On CPU tensors each computes its plain version
 (``ref.disco_gather_band_contract_ref``, ``ref.disco_band_transpose_ref``);
-on CUDA tensors it launches its kernel or raises.
+on CUDA tensors it launches its kernel or raises.  ``blocks`` (a
+``BlockConfig`` of family "disco" or "disco_bwd") picks the library of
+another tile; the grid and the shared memory a launch needs come from
+that library's own exports (``*_constants``, ``*_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.disco.ref import (disco_band_transpose_ref,
                                            disco_gather_band_contract_ref)
 
@@ -23,17 +27,18 @@ launches = 0
 transpose_launches = 0
 #: shared memory one block may use on the H100
 _MAX_SMEM = 227 * 1024
-#: the transpose kernel's tile (``csrc/disco_band_bwd.cu``): input
-#: longitudes per block, planes per block, pipeline stages, taps per
-#: staged piece of a slice; strides 1 and 2 are compiled in, any larger
-#: stride takes the generic path, whose blocks hold one residue class of
-#: the input longitudes and at most _TDM_ANY + 1 Toeplitz offsets
-_TV, _TBP, _TSTAGES, _TCH = 256, 16, 3, 64
-_TDM_ANY = 3
-#: the forward kernel's tile (``csrc/disco_band.cu``): output longitudes
-#: per block (8 warps x the mma's 16 rows), planes per block, pipeline
-#: stages, and taps per staged piece of a slice
-_FW, _FBP, _FSTAGES, _FCH = 128, 16, 3, 128
+#: what ``disco_band_constants`` (``csrc/disco_band.cu``) exports, in
+#: order: output longitudes per block (8 warps x the mma's 16 rows),
+#: planes per block, taps per staged piece of a slice, pipeline stages,
+#: blocks an SM and threads a block
+CONSTANTS = ("TW", "TBP", "CH", "STAGES", "MIN_BLOCKS", "THREADS")
+#: what ``disco_band_bwd_constants`` (``csrc/disco_band_bwd.cu``)
+#: exports: input longitudes and planes per block, taps per piece,
+#: stages, blocks an SM, threads, and the Toeplitz offsets (less one)
+#: of the generic path's blocks (a stride above 2: one residue class of
+#: the input longitudes each)
+TRANSPOSE_CONSTANTS = ("TV", "TBP", "CH", "STAGES", "MIN_BLOCKS", "THREADS",
+                       "DM_ANY")
 
 
 class LiveTaps(NamedTuple):
@@ -74,21 +79,24 @@ def reset_launches() -> None:
     launches = transpose_launches = 0
 
 
-def _lib():
-    lib = build.load_library("disco_band")
-    fn = lib.disco_band_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+def _launcher(op: str, blocks: BlockConfig | None, entry: str,
+              n_int: int, fields: tuple[str, ...]):
+    """The launcher ``entry`` of the library of ``op`` at ``blocks``, its
+    constants and its shared-memory function (bytes at a stride)."""
+    name, defines = library_of(op, blocks)
+    lib = build.load_library(name, defines)
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    return fn, build.constants(name, defines, fields), smem
 
 
-def smem_bytes(stride: int) -> int:
-    """Dynamic shared memory one block of the forward kernel uses: per
-    stage, a piece of at most _FCH taps of one slice, its packed psi and
-    each plane's window (``stage_floats`` in ``csrc/disco_band.cu``)."""
-    window = -(-((_FW - 1) * stride + _FCH + 3) // 4) * 4
-    return 4 * _FSTAGES * (_FCH * 8 + _FBP * window)
+def _lib(blocks: BlockConfig | None = None):
+    return _launcher("disco", blocks, "disco_band_launch", 8, CONSTANTS)
 
 
 def _check_tensors(what: str, ref: torch.Tensor, named) -> None:
@@ -102,7 +110,7 @@ def _check_tensors(what: str, ref: torch.Tensor, named) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _check(x, psi_band, lat_idx, taps, stride) -> None:
+def _check(x, psi_band, lat_idx, taps, stride, tile, smem) -> None:
     if x.dim() != 3 or psi_band.dim() != 4 or lat_idx.dim() != 2:
         raise ValueError(
             f"disco_band_contract wants x (B,H_in,W_in), psi_band "
@@ -127,9 +135,9 @@ def _check(x, psi_band, lat_idx, taps, stride) -> None:
             f"{tuple(psi_band.shape)} (see band_live_taps)")
     if stride < 1 or x.shape[-1] % stride:
         raise ValueError(f"stride {stride} must divide W_in={x.shape[-1]}")
-    if smem_bytes(stride) > _MAX_SMEM:
+    if smem(stride) > _MAX_SMEM:
         raise ValueError(f"stride {stride} needs more shared memory than a "
-                         "block has")
+                         f"block has at the tile {tile}")
     _check_tensors("disco_band_contract", x,
                    (("x", x, torch.float32),
                     ("psi_band", psi_band, torch.float32),
@@ -138,15 +146,16 @@ def _check(x, psi_band, lat_idx, taps, stride) -> None:
                     ("taps.ent", taps.ent, torch.int32),
                     ("taps.psi", taps.psi, torch.float32),
                     ("taps.order", taps.order, torch.int32)))
-    blocks = (h_out * -(-x.shape[-1] // stride // _FW)
-              * -(-x.shape[0] // _FBP))
+    blocks = (h_out * -(-x.shape[-1] // stride // tile["TW"])
+              * -(-x.shape[0] // tile["TBP"]))
     if blocks >= 2 ** 31:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
 
 
 def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
                         lat_idx: torch.Tensor, taps: LiveTaps,
-                        stride: int = 1) -> torch.Tensor:
+                        stride: int = 1, blocks: BlockConfig | None = None
+                        ) -> torch.Tensor:
     """Roll + latitude gather + banded contraction in one kernel.
 
     x: (B, H_in, W_in) float32; psi_band: (K, H_out, S, D) float32;
@@ -154,19 +163,20 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
     (``band_live_taps``), which the kernel contracts instead of the
     dense band -> (B, K, H_out, W_in // stride) float32.  See
     ``ref.disco_gather_band_contract_ref`` for the exact function; the
-    plain version reads psi_band and ignores ``taps``.
+    plain version reads psi_band and ignores ``taps`` and ``blocks`` (the
+    tile to launch; None: the committed one).
     """
     global launches
     if all(t.device.type == "cpu" for t in (x, psi_band, lat_idx)):
         return disco_gather_band_contract_ref(x, psi_band, lat_idx, stride)
-    _check(x, psi_band, lat_idx, taps, stride)
+    fn, tile, smem = _lib(blocks)
+    _check(x, psi_band, lat_idx, taps, stride, tile, smem)
     b, h_in, w_in = x.shape
     k, h_out, s, d = psi_band.shape
     out = torch.empty((b, k, h_out, w_in // stride), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), lat_idx.data_ptr(), taps.ptr.data_ptr(),
              taps.ent.data_ptr(), taps.psi.data_ptr(), taps.order.data_ptr(),
@@ -176,29 +186,13 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
     return out
 
 
-def _bwd_lib():
-    lib = build.load_library("disco_band_bwd")
-    fn = lib.disco_band_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _bwd_lib(blocks: BlockConfig | None = None):
+    return _launcher("disco_bwd", blocks, "disco_band_bwd_launch", 7,
+                     TRANSPOSE_CONSTANTS)
 
 
-def transpose_smem_bytes(stride: int) -> int:
-    """Dynamic shared memory one block of the transpose kernel uses: per
-    stage, one basis function's taps of a piece with their zero margins
-    and each plane's g window (``stage_floats`` and ``stage_floats_any``
-    in ``csrc/disco_band_bwd.cu``)."""
-    if stride <= 2:
-        deltas = (_TCH + 9 * stride - 2) // (8 * stride)
-        window = ((_TV // stride + 8 * deltas + 6) // 4 | 1) * 4
-    else:
-        window = ((_TV + 8 * _TDM_ANY + 6) // 4 | 1) * 4
-    return 4 * _TSTAGES * (_TCH + 32 * stride + _TBP * window)
-
-
-def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
+def _check_transpose(g, psi_band, taps, rows, h_in, stride, tile,
+                     smem) -> None:
     if g.dim() != 4 or psi_band.dim() != 4:
         raise ValueError(f"disco_band_transpose wants g (B,K,H_out,W_out) "
                          f"and psi_band (K,H_out,S,D), got {tuple(g.shape)}, "
@@ -227,9 +221,9 @@ def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
     if stride < 1:
         raise ValueError(f"the transpose kernel takes a stride >= 1, got "
                          f"{stride}")
-    if transpose_smem_bytes(stride) > _MAX_SMEM:
+    if smem(stride) > _MAX_SMEM:
         raise ValueError(f"stride {stride} needs more shared memory than a "
-                         "block has")
+                         f"block has at the tile {tile}")
     _check_tensors("disco_band_transpose", g,
                    (("g", g, torch.float32),
                     ("psi_band", psi_band, torch.float32),
@@ -240,16 +234,17 @@ def _check_transpose(g, psi_band, taps, rows, h_in, stride) -> None:
                     ("rows.order", rows.order, torch.int32)))
     # plane tiles x input rows x longitude tiles (above stride 2, TV
     # longitudes of one residue class)
-    tiles = (-(-w_out * stride // _TV) if stride <= 2
-             else stride * -(-w_out // _TV))
-    if -(-b // _TBP) * h_in * tiles >= 2 ** 31:
+    tv = tile["TV"]
+    tiles = (-(-w_out * stride // tv) if stride <= 2
+             else stride * -(-w_out // tv))
+    if -(-b // tile["TBP"]) * h_in * tiles >= 2 ** 31:
         raise ValueError(f"shape {tuple(g.shape)} exceeds the kernel's grid")
 
 
 def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
                          lat_idx: torch.Tensor, taps: LiveTaps,
-                         rows: RowTaps, h_in: int, stride: int = 1
-                         ) -> torch.Tensor:
+                         rows: RowTaps, h_in: int, stride: int = 1,
+                         blocks: BlockConfig | None = None) -> torch.Tensor:
     """Gradient of ``disco_band_contract`` in x, in one kernel.
 
     g: (B, K, H_out, W_out) float32 -> (B, h_in, W_out * stride) float32.
@@ -257,19 +252,20 @@ def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
     same slices grouped by input row (``band_row_taps``); the kernel
     reads those two and the shapes of psi_band, the plain version
     ``ref.disco_band_transpose_ref`` reads psi_band and ``lat_idx``.
-    Deterministic: every output is written once.
+    Deterministic: every output is written once.  ``blocks``: the tile
+    (family "disco_bwd") to launch; None: the committed one.
     """
     global transpose_launches
     if all(t.device.type == "cpu" for t in (g, psi_band, lat_idx)):
         return disco_band_transpose_ref(g, psi_band, lat_idx, h_in, stride)
-    _check_transpose(g, psi_band, taps, rows, h_in, stride)
+    fn, tile, smem = _bwd_lib(blocks)
+    _check_transpose(g, psi_band, taps, rows, h_in, stride, tile, smem)
     b, k, h_out, w_out = g.shape
     d = psi_band.shape[-1]
     gx = torch.empty((b, h_in, w_out * stride), dtype=torch.float32,
                      device=g.device)
     if gx.numel() == 0:
         return gx
-    fn = _bwd_lib()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(g.data_ptr(), rows.ptr.data_ptr(), rows.ent.data_ptr(),
              rows.order.data_ptr(), taps.ent.data_ptr(), taps.psi.data_ptr(),

@@ -11,6 +11,9 @@ their lists by input row) are constants: neither backward returns a
 gradient for them.  The wrappers themselves decide CPU (plain version) versus CUDA
 (kernel launch) by where the tensors lie.  The SSD kernel has no
 backward yet (ROADMAP A13): ``ssd_chunked`` serves the prefill only.
+Each entry point takes the caller's ``KernelConfig`` and launches every
+kernel at its ``blocks`` tile (the backwards too: each autograd function
+keeps the tile of its forward).
 """
 
 from __future__ import annotations
@@ -29,20 +32,25 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import ssm as ssmlib
 
 
+def _blocks(kernels: KernelConfig | None, op: str):
+    return kernels.blocks_for(op) if kernels is not None else None
+
+
 class _Legendre(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, table, extents):
+    def forward(ctx, x, table, extents, blocks=None):
         ctx.save_for_backward(table, extents)
-        return legendre_ops.legendre_contract(x, table, extents)
+        ctx.blocks = blocks
+        return legendre_ops.legendre_contract(x, table, extents, blocks)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         table, extents = ctx.saved_tensors
         return legendre_ops.legendre_contract(
             g.contiguous(), table.transpose(0, 1),
-            transposed_extents(extents)), None, None
+            transposed_extents(extents), ctx.blocks), None, None, None
 
 
 def transposed_extents(extents: torch.Tensor) -> torch.Tensor:
@@ -52,11 +60,12 @@ def transposed_extents(extents: torch.Tensor) -> torch.Tensor:
 
 class _BandContract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, psi_band, lat_idx, taps, rows, stride):
+    def forward(ctx, x, psi_band, lat_idx, taps, rows, stride, kernels=None):
         ctx.save_for_backward(psi_band, lat_idx, *taps, *rows)
         ctx.stride, ctx.h_in = stride, x.shape[1]
+        ctx.bwd_blocks = _blocks(kernels, "disco_bwd")
         return disco_ops.disco_band_contract(x, psi_band, lat_idx, taps,
-                                             stride)
+                                             stride, _blocks(kernels, "disco"))
 
     @staticmethod
     def backward(ctx, g):
@@ -67,8 +76,8 @@ class _BandContract(torch.autograd.Function):
             gx = disco_ops.disco_band_transpose(
                 g.contiguous(), psi_band, lat_idx,
                 disco_ops.LiveTaps(*lists[:n]), disco_ops.RowTaps(*lists[n:]),
-                ctx.h_in, ctx.stride)
-        return gx, None, None, None, None, None
+                ctx.h_in, ctx.stride, ctx.bwd_blocks)
+        return gx, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -81,36 +90,39 @@ def _batched(c: torch.Tensor) -> torch.Tensor:
     return c if c.stride(-1) == 1 else c.contiguous()
 
 
-def legendre(c: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
-             ) -> torch.Tensor:
+def legendre(c: torch.Tensor, table: torch.Tensor, extents: torch.Tensor,
+             kernels: KernelConfig | None = None) -> torch.Tensor:
     """The Legendre step on the kernel, differentiable in ``c``:
     (..., K, M) complex -> (..., N, M) complex64 with table (K, N, M)
     float32 (a strided view will do) and its ``extents``.  Real and
-    imaginary parts share one launch, read in place."""
+    imaginary parts share one launch, read in place; the launches take
+    ``kernels``' "legendre" tile."""
     n, m = table.shape[1:]
-    out = _Legendre.apply(_batched(c), table, extents)
+    out = _Legendre.apply(_batched(c), table, extents,
+                          _blocks(kernels, "legendre"))
     return out.reshape(c.shape[:-2] + (n, m))
 
 
-def sht_forward(x: torch.Tensor, wpct: torch.Tensor, wpct_ext: torch.Tensor
-                ) -> torch.Tensor:
+def sht_forward(x: torch.Tensor, wpct: torch.Tensor, wpct_ext: torch.Tensor,
+                kernels: KernelConfig | None = None) -> torch.Tensor:
     """Forward SHT, (..., H, W) -> (..., L, M) complex64; ``wpct_ext`` is
     ``sht.order_extents(wpct)``.  The kernel takes fp32 operands: a bf16
     table (the bf16 policy) is widened here, as the reference's dispatch
     does."""
     w = x.shape[-1]
     xf = fourier.rfft(x.float())[..., :wpct.shape[2]] * (2.0 * math.pi / w)
-    return legendre(xf, wpct.float(), wpct_ext)
+    return legendre(xf, wpct.float(), wpct_ext, kernels)
 
 
 def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
-                pct_ext: torch.Tensor) -> torch.Tensor:
+                pct_ext: torch.Tensor, kernels: KernelConfig | None = None
+                ) -> torch.Tensor:
     """Inverse SHT, (..., L, M) complex -> (..., H, nlon) real;
     ``pct_ext`` is ``sht.order_extents(pct)``; a bf16 table is widened to
     fp32 for the kernel."""
     # contract over degree: table (L, H, M), a transposed view of pct
     spec = legendre(c, pct.float().permute(1, 0, 2),
-                    transposed_extents(pct_ext))
+                    transposed_extents(pct_ext), kernels)
     return fourier.irfft(shtlib.pad_orders(spec, nlon), nlon) * nlon
 
 
@@ -118,7 +130,8 @@ def sht_inverse(c: torch.Tensor, pct: torch.Tensor, nlon: int,
 # Banded DISCO
 # ---------------------------------------------------------------------------
 
-def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
+def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int,
+                              kernels: KernelConfig | None = None
                               ) -> torch.Tensor:
     """Banded-buffer DISCO contraction: band kernel + FFT wrap rows.
 
@@ -129,7 +142,8 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     (``core.sphere.disco.band_live_taps``), its transpose over the same
     taps grouped by input row (``band_row_taps``); the near-pole wrap
     rows (zero in the band) are recomputed by the exact FFT correlation
-    and scattered back in.
+    and scattered back in.  The band kernel and its transpose launch at
+    ``kernels``' "disco" and "disco_bwd" tiles.
     """
     # the kernels take fp32 operands: under the bf16 policy psi and the
     # live taps' packed psi arrive bf16-rounded and are widened here, as
@@ -142,7 +156,7 @@ def disco_conv_banded_buffers(x: torch.Tensor, buffers: dict, stride: int
     xb = x.reshape((-1, h_in, w_in)).float().contiguous()
     out = _BandContract.apply(xb, psi_band, lat_idx,
                               taps._replace(psi=taps.psi.float()),
-                              disco_ops.RowTaps.of(buffers), stride)
+                              disco_ops.RowTaps.of(buffers), stride, kernels)
     wrap_rows = buffers["wrap_rows"]
     if wrap_rows.numel():
         rows = lat_idx.index_select(0, wrap_rows)          # (Hw, S)
@@ -165,5 +179,6 @@ def ssd_chunked(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
     (``models.ssm.ssd_chunked``).  Same contract as both."""
     if kernels.ssd == "kernel":
         return ssd_ops.ssd_chunked_kernel(x, da, b_mat, c_mat, chunk,
-                                          initial_state)
+                                          initial_state,
+                                          kernels.blocks_for("ssd"))
     return ssmlib.ssd_chunked(x, da, b_mat, c_mat, chunk, initial_state)

@@ -7,6 +7,8 @@ complex ``x`` is read as interleaved floats, and a table may be a strided
 view (the inverse SHT passes ``pct`` transposed).  The kernel contracts
 each order only inside the extents it is given
 (``core.sphere.sht.order_extents`` of the table, passed explicitly).
+``blocks`` (a ``BlockConfig`` of family "legendre") picks the library of
+another tile; the grid limits come from that library's own constants.
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.legendre.ref import legendre_contract_ref
 
 #: kernel launches since the last ``reset_launches`` (a plain integer).
 launches = 0
-#: the kernel's tile (``csrc/legendre.cu``): adjacent j (floats along m)
-#: and rows b per block, which bound its grid; its dynamic shared memory
-#: is fixed (96 KB real, 64 KB complex: two stages of 16-deep slabs)
-_TJ, _TB = 8, 32
+#: what ``legendre_constants`` in ``csrc/legendre.cu`` exports, in order:
+#: the tile (adjacent j, rows b, columns n, depth per slab, stages), the
+#: threads of a block and its dynamic shared memory, real and complex
+CONSTANTS = ("TJ", "TB", "TN", "TK", "STAGES", "THREADS", "SMEM_REAL",
+             "SMEM_COMPLEX")
 
 
 def reset_launches() -> None:
@@ -32,13 +36,14 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _lib():
-    lib = build.load_library("legendre")
-    fn = lib.legendre_contract_launch
+def _lib(blocks: BlockConfig | None):
+    """The launcher of the library for ``blocks`` and its constants."""
+    name, defines = library_of("legendre", blocks)
+    fn = build.load_library(name, defines).legendre_contract_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return fn, build.constants(name, defines, CONSTANTS)
 
 
 def _check(x: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
@@ -71,15 +76,21 @@ def _check(x: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
         if t.stride(-1) != 1:
             raise ValueError(f"legendre_contract: {name} must have unit "
                              f"stride along m, got strides {t.stride()}")
+
+
+def _check_grid(x: torch.Tensor, n: int, tile: dict) -> None:
+    """The launched tile's grid limits (its constants, from its library)."""
+    b, k, m = x.shape
     j = m * (2 if x.is_complex() else 1)
-    if (max(b, k, n, j) >= 2 ** 31 or (b + _TB - 1) // _TB > 65535
-            or (j + _TJ - 1) // _TJ > 65535):
+    if (max(b, k, n, j) >= 2 ** 31 or -(-b // tile["TB"]) > 65535
+            or -(-j // tile["TJ"]) > 65535):
         raise ValueError(f"legendre_contract: shape {(b, k, n, m)} exceeds "
-                         "the kernel's grid")
+                         f"the grid of the tile {tile}")
 
 
 def legendre_contract(x: torch.Tensor, table: torch.Tensor,
-                      extents: torch.Tensor) -> torch.Tensor:
+                      extents: torch.Tensor,
+                      blocks: BlockConfig | None = None) -> torch.Tensor:
     """out[b, n, m] = sum_k x[b, k, m] * table[k, n, m].
 
     x: (B, K, M) float32 or complex64; table: (K, N, M) float32; extents:
@@ -88,7 +99,8 @@ def legendre_contract(x: torch.Tensor, table: torch.Tensor,
     block of orders inside the union of their extents and writes zeros
     outside it; the plain version reads the whole table.  A complex x
     contracts its real and imaginary parts with the same table in one
-    launch.
+    launch.  ``blocks``: the tile to launch (None: the committed one);
+    the plain version ignores it.
     """
     global launches
     if x.device.type == "cpu" and table.device.type == "cpu":
@@ -96,13 +108,14 @@ def legendre_contract(x: torch.Tensor, table: torch.Tensor,
     _check(x, table, extents)
     b, k, m = x.shape
     n = table.shape[1]
+    fn, tile = _lib(blocks)
+    _check_grid(x, n, tile)
     out = torch.empty((b, n, m), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     cshift = 1 if x.is_complex() else 0
     xf = torch.view_as_real(x) if cshift else x
     outf = torch.view_as_real(out) if cshift else out
-    fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(xf.data_ptr(), table.data_ptr(), extents.data_ptr(),
              outf.data_ptr(), b, k, n, m << cshift, cshift, xf.stride(0),

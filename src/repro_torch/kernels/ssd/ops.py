@@ -11,6 +11,8 @@ rather than differentiated through a plain version.
 ``ssd_chunked_pallas``: the within-chunk cumsum and the incoming-state
 term stay plain torch, as the JAX package left them to XLA, and the
 recurrence over chunks (JAX's ``lax.scan``) is one kernel launch.
+``blocks`` (a ``BlockConfig`` of family "ssd") picks the intra-chunk
+library built with another tile; the recurrence kernel keeps its own.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
                                          ssd_intra_chunk_ref)
 
@@ -38,8 +41,8 @@ def reset_launches() -> None:
     launches = state_launches = 0
 
 
-def _lib():
-    fn = build.load_library("ssd").ssd_intra_chunk_launch
+def _lib(blocks: BlockConfig | None = None):
+    fn = build.load_library(*library_of("ssd", blocks)).ssd_intra_chunk_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -110,14 +113,16 @@ def _state_lib():
 
 
 def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
-                    c_mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    c_mat: torch.Tensor, blocks: BlockConfig | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused intra-chunk SSD, the counterpart of the JAX package's
     ``ssd_intra_chunk``.
 
     x: (BC, L, H, P) dt-scaled inputs; da_cs: (BC, L, H) inclusive cumsum
     of dt*A within each chunk; b_mat, c_mat: (BC, L, G, N), shared by the
     H/G heads of a group; all float32.  Returns (y_diag (BC, L, H, P),
-    states (BC, H, P, N)).
+    states (BC, H, P, N)).  ``blocks``: the tile to launch (None: the
+    committed one); the plain version ignores it.
     """
     global launches
     _check(x, da_cs, b_mat, c_mat)
@@ -130,7 +135,7 @@ def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
     st = torch.empty((bc, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 or st.numel() == 0:
         return y.zero_(), st.zero_()
-    fn = _lib()
+    fn = _lib(blocks)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), da_cs.data_ptr(), b_mat.data_ptr(),
              c_mat.data_ptr(), y.data_ptr(), st.data_ptr(), bc, l, h, p, g, n,
@@ -185,10 +190,11 @@ def chunk_recurrence(states: torch.Tensor, chunk_decay: torch.Tensor,
 
 def ssd_chunked_kernel(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
                        c_mat: torch.Tensor, chunk: int,
-                       initial_state: torch.Tensor | None = None
+                       initial_state: torch.Tensor | None = None,
+                       blocks: BlockConfig | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan with the intra-chunk step on the kernel; the same
-    contract as ``repro_torch.models.ssm.ssd_chunked``.
+    """Chunked SSD scan with the intra-chunk step on the kernel at the tile
+    ``blocks``; the same contract as ``repro_torch.models.ssm.ssd_chunked``.
 
     x: (B, S, H, P) dt-scaled; da: (B, S, H); b_mat, c_mat: (B, S, G, N);
     S a multiple of ``chunk``.  Returns (y (B, S, H, P) float32,
@@ -209,7 +215,7 @@ def ssd_chunked_kernel(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
     cc = to_chunks(c_mat, (g, n))
     da_cs = torch.cumsum(to_chunks(da, (h,)), dim=1)
 
-    y_diag, states = ssd_intra_chunk(xc, da_cs, bc, cc)
+    y_diag, states = ssd_intra_chunk(xc, da_cs, bc, cc, blocks)
     states = states.reshape(bsz, nc, h, p, n)
     da_cs = da_cs.reshape(bsz, nc, chunk, h)
 

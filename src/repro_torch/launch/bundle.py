@@ -3,16 +3,17 @@
 A bundle turns replica boot from kernel builds and plan construction
 into an artifact load: it packs the kernel libraries, the precomputed
 SHT/DISCO geometry plans and the engine-pool manifest for a declared set
-of request shapes (see ``repro_torch.serving.bundle``).  The JAX
-package's ``repro.launch.bundle``, without ``--tuning-dir`` (kernel
-tunings are ROADMAP A11).
+of request shapes (see ``repro_torch.serving.bundle``), and with
+``--tuning-dir`` the kernel tunings and their libraries.  The JAX
+package's ``repro.launch.bundle``, plus ``--device``.
 
 Build (on a machine with the exact torch and CUDA versions, card and
 source tree the replicas will run)::
 
   PYTHONPATH=src python -m repro_torch.launch.bundle build \
       --spec '{"members": 2, "lead_steps": 4, "lead_chunk": 2}' \
-      --max-batch 2 --out bundles/smoke [--device cpu]
+      --max-batch 2 --out bundles/smoke [--tuning-dir .tuning] \
+      [--device cpu]
 
 Boot a replica from it (refuses on any mismatch instead of building)::
 
@@ -42,6 +43,13 @@ def _cmd_build(args: argparse.Namespace) -> int:
         spec.validate()
         specs.append(spec)
     ckpts = {specs[0].config: args.ckpt} if args.ckpt else None
+    if args.tuning_dir:
+        # install before warming: the bundled keys (and engines) must be
+        # the tuned ones, and pack() ships the entries under tunings/
+        from repro_torch.kernels import autotune
+        cache = autotune.TuningCache(args.tuning_dir)
+        autotune.install_tuning_cache(cache)
+        _log.info("tuning cache installed: %s", cache.stats())
     out = pack(specs, out=args.out, max_batch=args.max_batch,
                ckpts=ckpts, tar=args.tar, out_dir=args.out_dir,
                verbose=True, device=args.device)
@@ -66,6 +74,8 @@ def _cmd_inspect(args: argparse.Namespace) -> int:
         "environment": m.get("environment"),
         "engines": m.get("engines"),
         "plans": m.get("plans"),
+        "tunings": m.get("tunings"),
+        "libraries": m.get("libraries"),
         "files": len(m.get("files", {})),
         "total_bytes": total,
     }, indent=2))
@@ -106,6 +116,11 @@ def main(argv=None) -> None:
     b.add_argument("--tar", action="store_true",
                    help="produce a single .tar archive instead of a "
                         "directory")
+    b.add_argument("--tuning-dir", default=None, metavar="DIR",
+                   help="install this kernel TuningCache before warming: "
+                        "the bundled engines use its tiles, and its "
+                        "entries and their libraries ship in the "
+                        "bundle's tunings/ and blobs/")
     b.add_argument("--device", default="cuda",
                    help="device the bundle is built for (the replicas' "
                         "own); 'cpu' must be asked for")

@@ -31,8 +31,13 @@ a diagnostic instead of silently building), the packed geometry plans
 are installed, and every bundled engine is pre-warmed from the bundle's
 libraries over a *readonly* cache before the server accepts traffic.
 
-Kernel tunings (the reference's ``--tuning-dir``/``--tune``) are ROADMAP
-A11 and not ported.
+``--tuning-dir D`` installs a kernel ``TuningCache`` (built by
+``python -m repro_torch.launch.tune``): every engine resolves the tuned
+tiles, which ride the engine keys, and launches their libraries.
+``--tune`` first sweeps the preloaded config's shapes into it (cache
+hits skip the sweep; ``--tune`` alone means ``--tuning-dir .tuning``);
+it needs the card.  Both are refused beside ``--bundle``: a bundle
+replica installs the tunings the bundle packs.
 """
 
 from __future__ import annotations
@@ -87,6 +92,14 @@ def main(argv=None) -> None:
                     help="persist the kernel libraries warmed keys load "
                          "(lib<name>-<sha>.so) here, so a restarted "
                          "service skips nvcc")
+    ap.add_argument("--tuning-dir", default=None, metavar="DIR",
+                    help="install this kernel TuningCache (built by "
+                         "repro_torch.launch.tune): every engine resolves "
+                         "the tuned tiles, which ride the engine keys")
+    ap.add_argument("--tune", action="store_true",
+                    help="sweep the preloaded config's kernel tiles into "
+                         "--tuning-dir before warmup (cache hits skip the "
+                         "sweep; implies --tuning-dir .tuning when unset)")
     ap.add_argument("--bundle", default=None, metavar="PATH",
                     help="boot from a warm-start bundle (dir or .tar "
                          "built by repro_torch.launch.bundle): verify, "
@@ -144,6 +157,12 @@ def main(argv=None) -> None:
     if args.bundle and args.persist_dir:
         ap.error("--bundle and --persist-dir are mutually exclusive: a "
                  "bundle replica serves a readonly library set")
+    if args.bundle and (args.tune or args.tuning_dir):
+        ap.error("--bundle and --tune/--tuning-dir are mutually "
+                 "exclusive: a bundle replica resolves the tunings "
+                 "packed in the bundle")
+    if args.tune and not args.tuning_dir:
+        args.tuning_dir = ".tuning"
     from repro_torch.serving.cache import ExecutableCache
     from repro_torch.serving.observability import (ObservabilityConfig,
                                                    setup_logging)
@@ -182,6 +201,26 @@ def main(argv=None) -> None:
     except RuntimeError as e:   # no card and no --device cpu
         ap.error(str(e))
 
+    if args.tuning_dir:
+        # before any engine exists: RequestSpec.engine_config() resolves
+        # the active cache, so the warmups below already load the tuned
+        # libraries under the tuned keys
+        from repro_torch.kernels import autotune
+        cache = autotune.TuningCache(args.tuning_dir)
+        autotune.install_tuning_cache(cache)
+        if args.tune:
+            if pool.device.type != "cuda":
+                ap.error("--tune times the kernels on the card; on the CPU "
+                         "the plain versions run, whatever the tile")
+            from repro_torch.launch import tune
+            model = pool.get(args.config[0]).model
+            entries = tune.run(autotune.model_op_shapes(model), cache,
+                               device=pool.device, out=_log.info)
+            _log.info("tuning ready: sweeps=%d %s",
+                      sum(e["swept"] for e in entries), cache.stats())
+        else:
+            _log.info("tuning cache installed: %s", cache.stats())
+
     sched_kwargs = dict(
         max_concurrency=args.max_concurrency, queue_size=args.queue_size,
         max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
@@ -213,10 +252,10 @@ def main(argv=None) -> None:
         info = scheduler.bundle_info
         _log.info("bundle boot OK: %s engine(s), %s program(s), "
                   "%s from the bundle, %s plan(s) installed in %ss, "
-                  "%s kernel librar(ies) loaded, boot_s=%s",
+                  "%s kernel librar(ies) loaded, %s tuning(s), boot_s=%s",
                   info["engines"], info["programs"], info["disk_hits"],
                   info["plans"], info["plans_install_s"],
-                  info["libraries"], info["boot_s"])
+                  info["libraries"], info["tunings"], info["boot_s"])
     else:
         scheduler = ForecastScheduler(
             pool=pool, cache=ExecutableCache(args.persist_dir),

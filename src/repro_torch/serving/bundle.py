@@ -8,8 +8,14 @@ instead of *building*:
 * ``blobs/lib<name>-<sha>.so`` -- the kernel libraries the bundled
   engines launch, under their content-addressed names (the serving
   cache's persisted "executables"; loaded with
-  ``kernels.build.load_library_from``, no ``nvcc``).  Empty on the CPU,
-  where the wrappers run their plain versions;
+  ``kernels.build.load_library_from``, no ``nvcc``), tuned variants
+  included, and the library of every packed tuning's winner; the
+  manifest's ``libraries`` names each file's source and defines.  Empty
+  on the CPU, where the wrappers run their plain versions;
+* ``tunings/tune_<token>.json`` -- the entries of the tuning cache that
+  was active at build (``kernels.autotune``): a booting replica installs
+  them, so its engines resolve the same tiles, hence the same keys,
+  with no sweep;
 * ``plans/*.npz`` -- precomputed geometry: DISCO psi tensors with their
   banded splits and the SHT Legendre tables, in the JAX package's npz
   format (``repro.serving.bundle``), so each package installs the
@@ -21,9 +27,7 @@ instead of *building*:
 
 The reference's ``xla/`` (its persistent compilation cache) and
 ``set_xla_cache_dir`` have no counterpart: the port has no compiled
-program to cache.  Kernel tunings (the reference's ``tunings/``) are
-ROADMAP A11: the port packs none, and ``verify`` refuses a manifest that
-carries any.
+program to cache.
 
 **Key hygiene.**  A bundle is only valid for the exact (torch version,
 CUDA version, device, ``repro_torch`` source fingerprint) it was built
@@ -173,6 +177,7 @@ def pack(specs: list[RequestSpec], out: str | None = None,
     try:
         blobs_dir = os.path.join(staging, "blobs")
 
+        from repro_torch.inference.engine import kernel_libraries
         from repro_torch.serving.cache import ExecutableCache
         from repro_torch.serving.scheduler import (ForecastScheduler,
                                                    ModelPool)
@@ -182,6 +187,7 @@ def pack(specs: list[RequestSpec], out: str | None = None,
         engines: list[dict] = []
         plan_payloads: list[dict] = []
         plan_seen: set = set()
+        libraries: set = set()
         try:
             for spec in specs:
                 spec.validate()
@@ -200,6 +206,11 @@ def pack(specs: list[RequestSpec], out: str | None = None,
                         "tokens": tokens,
                         "compile_s": round(out_warm["compile_s"], 3)})
                 engine, _ = sched.engine_for(spec)
+                # the engine's libraries, and those of the model's own
+                # config, which a replica's calibration at boot launches
+                libraries.update(engine.kernel_libraries())
+                libraries.update(kernel_libraries(pool.get(
+                    spec.config).model))
                 engines.append({
                     "spec": spec.to_dict(), "programs": programs,
                     "estimated_bytes": engine.estimated_bytes()})
@@ -224,6 +235,36 @@ def pack(specs: list[RequestSpec], out: str | None = None,
             plan_files.append(f"plans/{name}")
         _log(f"exported {len(plan_files)} geometry plan(s)")
 
+        # the active tuning cache: the engines above were warmed with the
+        # tiles it resolved into engine_config, so a booting replica must
+        # resolve the same ones to derive the same keys; each entry's
+        # winning library rides along in blobs/
+        from repro_torch.kernels import autotune, build
+        tuning_files = []
+        active = autotune.active_tuning_cache()
+        if active is not None:
+            tunings_dir = os.path.join(staging, "tunings")
+            os.makedirs(tunings_dir, exist_ok=True)
+            for name, entry in active.entries():
+                shutil.copyfile(os.path.join(active.root, name),
+                                os.path.join(tunings_dir, name))
+                tuning_files.append(f"tunings/{name}")
+                libraries.add(autotune.library_for(entry["op"],
+                                                   entry["dims"]))
+            _log(f"packed {len(tuning_files)} kernel tuning(s)")
+        library_list = []
+        for name, defines in sorted(libraries):
+            blob = os.path.join(blobs_dir, build.library_file(name, defines))
+            if not os.path.exists(blob):
+                src = build.library_path(name, defines)
+                if not src.exists():
+                    build.build_all([(name, defines)])
+                os.makedirs(blobs_dir, exist_ok=True)
+                shutil.copyfile(src, blob)
+            library_list.append({
+                "file": f"blobs/{os.path.basename(blob)}", "name": name,
+                "defines": [list(d) for d in defines]})
+
         files = {}
         for dirpath, dirnames, filenames in os.walk(staging):
             dirnames.sort()
@@ -238,6 +279,8 @@ def pack(specs: list[RequestSpec], out: str | None = None,
             "environment": environment(pool.device),
             "engines": engines,
             "plans": plan_files,
+            "tunings": tuning_files,
+            "libraries": library_list,
             "files": files,
         }
         bundle_id = hashlib.sha256(_canonical(manifest)).hexdigest()
@@ -284,7 +327,8 @@ def pack(specs: list[RequestSpec], out: str | None = None,
 class WarmStartBundle:
     """A loaded bundle: the manifest plus the on-disk root directory.
 
-    ``load`` -> ``verify`` -> ``install_plans`` + ``install_libraries``
+    ``load`` -> ``verify`` -> ``install_tunings`` + ``install_plans`` +
+    ``install_libraries``
     -> ``boot(scheduler)`` is the replica boot sequence
     (``boot_scheduler`` runs all of it).
     Every step refuses with a ``BundleError`` naming the mismatched
@@ -344,10 +388,10 @@ class WarmStartBundle:
         on ``device`` without building anything.
 
         Checks, in order: the content address (manifest integrity), that
-        the manifest carries no kernel tunings (ROADMAP A11: not ported),
-        the strict environment fields (torch and CUDA versions, the
-        device, the ``repro_torch`` source fingerprint -- each one
-        invalidates the libraries or the key tokens), and with
+        every packed tuning's winning library and every listed library is
+        a packed file, the strict environment fields (torch and CUDA
+        versions, the device, the ``repro_torch`` source fingerprint --
+        each one invalidates the libraries or the key tokens), and with
         ``deep=True`` the sha256 of every packed file (a tampered or
         truncated file is refused here, not discovered mid-boot).  Every
         failure is reported, not just the first.
@@ -359,11 +403,26 @@ class WarmStartBundle:
                 f"manifest does not match its content address: "
                 f"bundle_id={self.bundle_id!r} but canonical manifest "
                 f"hashes to {want_id!r} (manifest edited after build?)")
-        if self.manifest.get("tunings"):
-            problems.append(
-                f"manifest carries {len(self.manifest['tunings'])} kernel "
-                f"tuning(s); the port has no autotuner to install them "
-                f"(ROADMAP A11)")
+        files = self.manifest.get("files", {})
+        for rel in self.manifest.get("tunings", []):
+            try:
+                with open(os.path.join(self.root, rel)) as f:
+                    entry = json.load(f)
+                lib = f"blobs/{entry['library']}"
+                what = f"{entry['op']} at {entry['shapes']}"
+            except (OSError, ValueError, TypeError, KeyError) as e:
+                problems.append(f"tuning {rel!r} is unreadable "
+                                f"({type(e).__name__}: {e})")
+                continue
+            if lib not in files or not os.path.exists(
+                    os.path.join(self.root, lib)):
+                problems.append(
+                    f"tuning {rel!r} ({what}) launches {lib!r}, which the "
+                    f"bundle does not pack")
+        for lib in self.manifest.get("libraries", []):
+            if lib["file"] not in files:
+                problems.append(f"library {lib['file']!r} is listed but "
+                                f"not packed")
         env_here = environment(device)
         env_bundle = self.manifest.get("environment", {})
         for field in _STRICT_ENV:
@@ -402,23 +461,46 @@ class WarmStartBundle:
             n += 1
         return n
 
+    def install_tunings(self) -> int:
+        """Install the packed kernel tunings as the process-active
+        ``TuningCache`` (``kernels.autotune``), so every engine key this
+        replica derives resolves the tiles the bundle's engines were
+        warmed with -- with no sweep.  A bundle without tunings
+        uninstalls any active cache (its libraries are the committed
+        tiles; a leftover cache would derive other keys).  Returns the
+        entry count."""
+        from repro_torch.kernels import autotune
+        packed = self.manifest.get("tunings", [])
+        autotune.install_tuning_cache(
+            os.path.join(self.root, "tunings") if packed else None)
+        return len(packed)
+
     def install_libraries(self, cache) -> int:
-        """Load the packed kernel libraries through ``cache`` (the
-        replica's readonly cache over ``blobs/``), so that whatever
+        """Load the packed kernel libraries (``blobs/``; the manifest's
+        ``libraries`` gives each file's source and defines) through ``cache``
+        (the replica's readonly cache over ``blobs/``), so that whatever
         launches a kernel next -- the model's calibration included --
         runs them and never ``nvcc``.  Returns how many were loaded; a
         library built from other sources than this checkout's, or one
         that will not load, is refused."""
-        names = []
+        from repro_torch.kernels import build
+        listed = {lib["file"]: (lib["name"],
+                                tuple(tuple(d) for d in lib["defines"]))
+                  for lib in self.manifest.get("libraries", [])}
+        libs = []
         for rel in sorted(self.manifest.get("files", {})):
             base = rel.rpartition("/")[2]
             if rel.startswith("blobs/lib") and base.endswith(".so"):
-                names.append(base[len("lib"):].rpartition("-")[0])
+                # a file the list does not name is a committed library
+                libs.append(listed.get(
+                    rel, (base[len("lib"):].rpartition("-")[0], ())))
         try:
-            return cache.load_libraries(names)
+            return cache.load_libraries(libs)
         except ReadOnlyCacheMiss as e:
-            raise BundleError(f"bundle {self.bundle_id[:12]} cannot load "
-                              f"its kernel libraries {names}: {e}") from e
+            raise BundleError(
+                f"bundle {self.bundle_id[:12]} cannot load its kernel "
+                f"libraries {[build.label(*lib) for lib in libs]}: "
+                f"{e}") from e
 
     def boot(self, scheduler) -> dict:
         """Pre-warm ``scheduler`` with every engine in the manifest.
@@ -466,10 +548,10 @@ class WarmStartBundle:
 
 def boot_scheduler(bundle: "WarmStartBundle | str", pool=None,
                    device="cuda", **scheduler_kwargs):
-    """One-call replica boot: verify, install the plans and load the
-    kernel libraries, build a scheduler over a readonly cache of the
-    bundle's libraries and pre-warm every bundled engine.  Returns the
-    ready scheduler.
+    """One-call replica boot: verify, install the tunings and the plans
+    and load the kernel libraries (on a card), build a scheduler over a
+    readonly cache of the bundle's libraries and pre-warm every bundled
+    engine.  Returns the ready scheduler.
 
     ``bundle`` may be a loaded ``WarmStartBundle`` or a path; the
     replica runs on ``pool``'s device (a new ``ModelPool(device=device)``
@@ -486,6 +568,7 @@ def boot_scheduler(bundle: "WarmStartBundle | str", pool=None,
     if pool is None:
         pool = ModelPool(device=device)
     bundle.verify(device=pool.device)
+    tunings = bundle.install_tunings()
     t0 = time.perf_counter()
     plans = bundle.install_plans()
     plans_install_s = time.perf_counter() - t0
@@ -494,12 +577,14 @@ def boot_scheduler(bundle: "WarmStartBundle | str", pool=None,
         cache=ExecutableCache(persist_dir=bundle.blobs_dir, readonly=True),
         **scheduler_kwargs)
     try:
-        libraries = bundle.install_libraries(scheduler.cache)
+        # a replica on the CPU launches no kernel: it loads none
+        libraries = (bundle.install_libraries(scheduler.cache)
+                     if pool.device.type == "cuda" else 0)
         info = bundle.boot(scheduler)
     except BaseException:
         scheduler.close()
         raise
     scheduler.set_bundle_info({**info, "plans": plans,
                                "plans_install_s": round(plans_install_s, 3),
-                               "libraries": libraries})
+                               "libraries": libraries, "tunings": tunings})
     return scheduler

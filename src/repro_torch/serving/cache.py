@@ -6,8 +6,10 @@ export or import.  What a key needs before its first rollout is:
 
 * the kernel libraries its path launches (``ForecastEngine.
   kernel_libraries``: the Legendre kernel and the band contraction on
-  the card, none on the CPU), each loaded once per process and built by
-  ``nvcc`` on a miss (``kernels.build``);
+  the card, each at the tile its ``KernelConfig.blocks`` names -- a
+  tuned tile is a variant library, ``(name, defines)``; none on the
+  CPU), each loaded once per process and built by ``nvcc`` on a miss
+  (``kernels.build``);
 * the engine's resident inputs (``ForecastEngine.make_resident``): the
   geometry buffers in the engine's layout, the bf16 copies under the bf16
   policy and the spectra's table.
@@ -24,7 +26,8 @@ alone.  A warm key is a **hit** (source ``"memory"``, ``compile_s``
 
 With ``persist_dir`` the "executables" persisted are the kernel
 libraries themselves, under their content-addressed names
-(``lib<name>-<sha>.so``, the hash of the sources in the name), so a
+(``lib<name>-<sha>.so``, the hash of the sources and of a variant's
+defines in the name), so a
 fresh process loads them instead of running ``nvcc``.  ``readonly=True``
 (a replica booted from a warm-start bundle) raises ``ReadOnlyCacheMiss``
 wherever it would otherwise run ``nvcc`` or build a geometry plan
@@ -182,11 +185,11 @@ class ExecutableCache:
         ``cache_write``, ``import_chunk``) through ``injector``."""
         self._faults = injector
 
-    def _path(self, name: str) -> str | None:
+    def _path(self, lib: tuple[str, tuple]) -> str | None:
         from repro_torch.kernels import build
         if not self.persist_dir:
             return None
-        return os.path.join(self.persist_dir, build.library_file(name))
+        return os.path.join(self.persist_dir, build.library_file(*lib))
 
     def require_plans(self, config: str) -> None:
         """On a readonly cache, raise ``ReadOnlyCacheMiss`` unless every
@@ -210,8 +213,9 @@ class ExecutableCache:
                 f"refusing to build them -- the bundle was not built for "
                 f"this config")
 
-    def load_libraries(self, names) -> int:
-        """Load the named libraries from ``persist_dir`` now (through the
+    def load_libraries(self, libs) -> int:
+        """Load the libraries (names or ``(name, defines)`` pairs) from
+        ``persist_dir`` now (through the
         ``cache_read`` and ``import_chunk`` fault points), before anything
         launches a kernel: a replica booting from a bundle does so, so
         that its model's calibration runs the bundled libraries and never
@@ -220,21 +224,21 @@ class ExecutableCache:
         ``ReadOnlyCacheMiss``."""
         from repro_torch.kernels import build
         n = 0
-        for name in names:
-            if build.is_loaded(name):
+        for lib in map(build.library_key, libs):
+            if build.is_loaded(*lib):
                 continue
-            path = self._path(name)
+            path = self._path(lib)
             if path is None or not os.path.exists(path):
                 if self.readonly:
                     raise ReadOnlyCacheMiss(
-                        f"no {build.library_file(name)} in "
-                        f"{self.persist_dir}; refusing to run nvcc")
+                        f"no {build.library_file(*lib)} ({build.label(*lib)})"
+                        f" in {self.persist_dir}; refusing to run nvcc")
                 continue
-            n += self._from_disk(None, name, path)
+            n += self._from_disk(None, lib, path)
         return n
 
-    def _from_disk(self, key: ExecutableKey | None, name: str, path: str
-                   ) -> bool:
+    def _from_disk(self, key: ExecutableKey | None, lib: tuple[str, tuple],
+                   path: str) -> bool:
         """Try loading a persisted library.
 
         Two failure modes, handled differently: a *read* failure (the
@@ -264,7 +268,7 @@ class ExecutableCache:
             return False
         try:
             self._faults.fire("import_chunk", path=path)
-            build.load_library_from(name, self.persist_dir)
+            build.load_library_from(lib[0], self.persist_dir, lib[1])
             return True
         except (OSError, faultlib.InjectedFault) as e:
             if self.readonly:
@@ -283,12 +287,12 @@ class ExecutableCache:
                          " rebuilding", path, qpath, type(e).__name__, e)
             return False
 
-    def _persist(self, name: str, path: str) -> None:
+    def _persist(self, lib: tuple[str, tuple], path: str) -> None:
         """Copy a built library into ``persist_dir`` (atomic rename)."""
         from repro_torch.kernels import build
         self._faults.fire("cache_write", path=path)
         tmp = f"{path}.tmp.{os.getpid()}"
-        shutil.copyfile(build.library_path(name), tmp)
+        shutil.copyfile(build.library_path(*lib), tmp)
         os.replace(tmp, path)
 
     def _installed(self, key: ExecutableKey, engine, buffers) -> bool:
@@ -321,29 +325,31 @@ class ExecutableCache:
             # persist_dir (or unreadable there), or, with nothing
             # persisted, not loaded yet
             produce = []
-            for name in engine.kernel_libraries():
-                path = self._path(name)
+            for lib in map(build.library_key, engine.kernel_libraries()):
+                path = self._path(lib)
                 if path is None:
-                    if not build.is_loaded(name):
-                        produce.append(name)
+                    if not build.is_loaded(*lib):
+                        produce.append(lib)
                 elif not os.path.exists(path) or (
-                        not build.is_loaded(name)
-                        and not self._from_disk(key, name, path)):
-                    produce.append(name)
+                        not build.is_loaded(*lib)
+                        and not self._from_disk(key, lib, path)):
+                    produce.append(lib)
             compiled = bool(produce) or not self.persist_dir
             if produce and self.readonly:
                 raise ReadOnlyCacheMiss(
-                    f"no bundle library for {produce} (key {key!r}; looked "
-                    f"in {self.persist_dir} for "
-                    f"{[build.library_file(n) for n in produce]}); refusing "
+                    f"no bundle library for "
+                    f"{[build.label(*lib) for lib in produce]} (key "
+                    f"{key!r}; looked in {self.persist_dir} for "
+                    f"{[build.library_file(*lib) for lib in produce]}); "
+                    f"refusing "
                     f"to run nvcc -- the bundle was not built from these "
                     f"sources")
             if compiled:
                 self._faults.fire("compile", key=str(key.chunk_len))
-            for name in produce:
-                build.load_library(name)     # nvcc when not built yet
+            for lib in produce:
+                build.load_library(*lib)     # nvcc when not built yet
                 if self.persist_dir:
-                    self._persist(name, self._path(name))
+                    self._persist(lib, self._path(lib))
             engine.make_resident(buffers)
             engine.mark_warm(key.scored, key.chunk_len, batch=key.batch)
             dt = time.perf_counter() - t0

@@ -130,13 +130,15 @@ class RequestSpec:
     def engine_config(self):
         """The ``EngineConfig`` a warm engine for this spec runs with."""
         from repro_torch.inference import EngineConfig
+        from repro_torch.kernels import autotune
         from repro_torch.kernels.config import KernelConfig
-        # "pallas" names the port's hand-written kernels ("kernel"); kernel
-        # tunings (the reference's autotune.resolve_kernel_config) are
-        # ROADMAP A11 and not ported
-        kernels = (None if self.kernels == "auto" else KernelConfig(
-            sht=_KERNEL_PATHS[self.kernels],
-            disco=_KERNEL_PATHS[self.kernels]))
+        # "pallas" names the port's hand-written kernels ("kernel"); the
+        # installed tunings ride the config, hence engine_key and every
+        # cache key derived from it
+        kernels = autotune.resolve_kernel_config(
+            None if self.kernels == "auto" else KernelConfig(
+                sht=_KERNEL_PATHS[self.kernels],
+                disco=_KERNEL_PATHS[self.kernels]))
         return EngineConfig(members=self.members,
                             lead_chunk=self.lead_chunk,
                             compute_dtype=self.precision,

@@ -255,20 +255,22 @@ class EnsembleTrainer:
             co = shtlib.sht_forward(obs, buffers["loss_wpct"])
         else:
             g, n, area = d.solo, 1, self.area_weights[slice(*d.io_block)]
-            # the members and the truth through one transform
+            # the members and the truth through one transform,
+            # (E+1, B, C, Lloc, M)
             c = domain.domain_sht_forward(torch.cat([ens, obs[None]]),
                                           buffers["loss_sht"], d.group,
-                                          d.solo)      # (E+1,B,C,Lloc,M)
+                                          d.solo, self.model.cfg.kernels)
             ce, co = c[:-1], c[-1]
             w_lm = domain.degree_block(w_lm.T, c.shape[-2], d.group).T
         cw = self.channel_weights / self.channel_weights.sum()
         b = obs.shape[0]
+        blocks = self.model.cfg.kernels.blocks_for("crps")
 
         def score(e, o, w):
             # per-point weight: channel weight x the term's weight / B
             w = (cw[:, None, None] * w[None]) / b
             return dist_crps(_flat_padded(e, 2, n), _flat_padded(o, 1, n),
-                             _flat_padded(w, 0, n), g, t.fair_crps)
+                             _flat_padded(w, 0, n), g, t.fair_crps, blocks)
         nodal = score(ens, obs, area)
         spec = sum(score(part(ce), part(co), w_lm)
                    for part in (torch.real, torch.imag))
@@ -396,14 +398,17 @@ class EnsembleTrainer:
         tgt = batch["targets"][:, 0]
         sq = torch.einsum("bchw,hw->bc", (pred.mean(dim=0) - tgt) ** 2, area)
         if d is None:
-            nodal = crpslib.nodal_crps_loss(pred, tgt, area, fair=True)
+            nodal = crpslib.nodal_crps_loss(
+                pred, tgt, area, fair=True,
+                blocks=self.model.cfg.kernels.blocks_for("crps"))
             return {"crps": nodal.mean(), "rmse_ens_mean": sq.sqrt().mean()}
         from repro_torch.distributed.dist_crps import dist_crps
         # the nodal CRPS per point, weighted by area / (B C): its sum over
         # every rank's points is the mean over (b, c) of eq. (50)
         crps = dist_crps(pred.reshape(pred.shape[:3] + (-1,)),
                          tgt.reshape(tgt.shape[:2] + (-1,)),
-                         area.reshape(-1) / (b * c), d.solo, fair=True)
+                         area.reshape(-1) / (b * c), d.solo, fair=True,
+                         blocks=self.model.cfg.kernels.blocks_for("crps"))
         sums = compat.psum(torch.cat([crps[None], sq.reshape(-1)]), d.group)
         out = torch.stack([sums[0], torch.sqrt(sums[1:]).mean()])
         if p.data_group is not None:

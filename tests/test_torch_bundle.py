@@ -8,11 +8,18 @@ the CPU.
   the port's own payloads survive the bundle's npz format;
 * a bundle packed, verified and booted in this process serves its shape
   bit for bit as a direct engine does, with no miss; a readonly replica
-  refuses a config whose plans it lacks, a changed file (naming it), a
-  foreign environment and a manifest carrying kernel tunings (naming
-  ROADMAP A11).
+  refuses a config whose plans it lacks, a changed file (naming it) and
+  a foreign environment;
+* kernel tunings (ROADMAP A11): a bundle packed with a tuning cache
+  installed carries its entries under ``tunings/`` and each winner's
+  library under ``blobs/`` (fake libraries here: the CPU has no nvcc),
+  verifies, installs the tunings at boot and serves under the tuned
+  keys; a tuning whose library is not packed is refused.  Library file
+  names: none with no defines changes the committed kernel's name, a
+  variant gets its own, and the build passes its ``-D`` flags.
 """
 
+import hashlib
 import json
 import os
 import shutil
@@ -33,7 +40,8 @@ from repro_torch.core import fcn3 as tfcn3
 from repro_torch.core.sphere import disco as tdisco
 from repro_torch.core.sphere import legendre as tleg
 from repro_torch.inference.engine import ForecastEngine, members_noise
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
+from repro_torch.kernels.config import BlockConfig
 from repro_torch.launch import bundle as bundle_cli
 from repro_torch.serving import bundle as bundlelib
 from repro_torch.serving.cache import ExecutableCache, ReadOnlyCacheMiss
@@ -179,6 +187,34 @@ def bundle_dir(tmp_path_factory):
     return bundlelib.pack([SPEC], out=out, max_batch=2, device="cpu")
 
 
+#: the tile the tuned bundle's fake sweep picks for the Legendre kernel
+TUNED = BlockConfig.make("legendre", TB=16)
+
+
+@pytest.fixture(scope="module")
+def tuned_bundle_dir(tmp_path_factory, bundle_dir):
+    """A bundle of SPEC packed with a tuning cache installed: one
+    Legendre entry whose (fake-timed) winner is ``TUNED``, its library a
+    fake file in a build directory of its own (no nvcc on the CPU)."""
+    root = tmp_path_factory.mktemp("tuned")
+    cache = autotune.TuningCache(root / "tunings")
+    timer = (lambda dims, fn: 1e-3 if dims == TUNED.sizes() else 2e-3)
+    entry = autotune.sweep_op("legendre", (8, 16, 9, 9), cache=cache,
+                              timer=timer, max_candidates=4)
+    assert entry["dims"] == TUNED.sizes()
+    mp = pytest.MonkeyPatch()
+    mp.setattr(build, "BUILD_DIR", root / "build")
+    build.BUILD_DIR.mkdir()
+    build.library_path("legendre", TUNED.defines()).write_bytes(b"\x7fELF")
+    previous = autotune.install_tuning_cache(cache)
+    try:
+        return bundlelib.pack([SPEC], out=str(root / "tuned-bundle"),
+                              max_batch=2, device="cpu")
+    finally:
+        autotune.install_tuning_cache(previous)
+        mp.undo()
+
+
 def _copy(bundle_dir, tmp_path):
     dst = tmp_path / "copy"
     shutil.copytree(bundle_dir, dst)
@@ -191,7 +227,7 @@ class TestBundle:
         m = b.manifest
         assert m["format"] == bundlelib.BUNDLE_FORMAT
         assert m["environment"]["device"] == "cpu"
-        assert "tunings" not in m
+        assert m["tunings"] == [] and m["libraries"] == []
         assert not any(rel.startswith("xla/") for rel in m["files"])
         (eng,) = m["engines"]
         assert eng["spec"] == SPEC.to_dict()
@@ -258,18 +294,79 @@ class TestBundle:
                            match="sha256 mismatch for 'plans/plan_00_disco"):
             bundlelib.WarmStartBundle.load(path).verify(device="cpu")
 
-    def test_tunings_refused_naming_a11(self, bundle_dir, tmp_path):
-        path = _copy(bundle_dir, tmp_path)
+    def test_tuned_bundle_packs_verifies_and_installs(self,
+                                                      tuned_bundle_dir):
+        b = bundlelib.WarmStartBundle.load(tuned_bundle_dir)
+        m = b.manifest
+        (rel,) = m["tunings"]
+        lib = build.library_file("legendre", TUNED.defines())
+        assert rel.startswith("tunings/tune_") and rel in m["files"]
+        assert m["libraries"] == [{"file": f"blobs/{lib}",
+                                   "name": "legendre",
+                                   "defines": [["TUNE_TB", 16]]}]
+        assert f"blobs/{lib}" in m["files"]
+        # the bundled engines were warmed with the tuned tile
+        tuned = SPEC.engine_config()
+        assert tuned.kernels is None      # no cache installed here
+        b.verify(device="cpu")
+        previous = autotune.install_tuning_cache(None)
+        try:
+            assert b.install_tunings() == 1
+            active = autotune.active_tuning_cache()
+            assert active.root == os.path.join(b.root, "tunings")
+            assert active.best_for("legendre") == TUNED
+            assert SPEC.engine_config().kernels.blocks == (TUNED,)
+            assert SPEC.engine_key() != (SPEC.config, tuned)
+        finally:
+            autotune.install_tuning_cache(previous)
+
+    def test_tuned_bundle_boots_under_the_tuned_keys(self, tuned_bundle_dir,
+                                                     bundle_dir):
+        previous = autotune.install_tuning_cache(None)
+        sched = None
+        try:
+            sched = bundlelib.boot_scheduler(
+                tuned_bundle_dir, pool=ModelPool(device="cpu"))
+            info = sched.bundle_info
+            assert info["tunings"] == 1
+            assert info["programs"] == info["disk_hits"] == 2
+            assert SPEC.engine_config().kernels.blocks == (TUNED,)
+            res = _result(sched.submit(SPEC))
+            assert res.timing["compile_s"] == 0.0
+            assert sched.cache.stats()["misses"] == 0
+        finally:
+            if sched is not None:
+                sched.close(timeout=30)
+            autotune.install_tuning_cache(previous)
+        # a bundle without tunings uninstalls a leftover cache
+        autotune.install_tuning_cache(os.path.join(tuned_bundle_dir,
+                                                   "tunings"))
+        try:
+            assert bundlelib.WarmStartBundle.load(
+                bundle_dir).install_tunings() == 0
+            assert autotune.active_tuning_cache() is None
+        finally:
+            autotune.install_tuning_cache(previous)
+
+    def test_tuning_without_its_library_refused(self, tuned_bundle_dir,
+                                                tmp_path):
+        path = _copy(tuned_bundle_dir, tmp_path)
         mpath = os.path.join(path, "manifest.json")
         with open(mpath) as f:
             m = json.load(f)
-        m["tunings"] = ["tunings/legendre.json"]
+        rel = f"blobs/{build.library_file('legendre', TUNED.defines())}"
+        os.remove(os.path.join(path, rel))
+        del m["files"][rel]
+        m["libraries"] = []
         m["bundle_id"] = bundlelib.hashlib.sha256(
             bundlelib._canonical(m)).hexdigest()
         with open(mpath, "w") as f:
             json.dump(m, f)
-        with pytest.raises(bundlelib.BundleError, match="ROADMAP A11"):
-            bundlelib.WarmStartBundle.load(path).verify(device="cpu")
+        with pytest.raises(bundlelib.BundleError,
+                           match=f"launches '{rel}', which the bundle "
+                                 "does not pack"):
+            bundlelib.WarmStartBundle.load(path).verify(device="cpu",
+                                                        deep=False)
 
     def test_foreign_environment_and_edited_manifest_refused(
             self, bundle_dir, tmp_path):
@@ -342,3 +439,50 @@ class TestBundle:
             bundle_cli.main(["verify", path, "--device", "cpu"])
         assert e.value.code == 1
         assert "missing bundle file" in capsys.readouterr().out
+
+
+class TestLibraryNames:
+    """Variant libraries (``kernels.build``): the committed kernels keep
+    their names, so existing caches and bundles stay valid."""
+
+    @pytest.mark.parametrize("name", build.SOURCES)
+    def test_no_defines_is_the_committed_name(self, name):
+        sha = hashlib.sha1((build.CSRC / f"{name}.cu").read_bytes())
+        for header in sorted(build.CSRC.glob("*.cuh")):
+            sha.update(header.read_bytes())
+        want = f"lib{name}-{sha.hexdigest()[:12]}.so"
+        assert build.library_file(name) == want
+        assert build.library_file(name, ()) == want
+        assert build.label(name) == name
+
+    def test_variants_get_distinct_names(self):
+        a = build.library_file("legendre", (("TUNE_TB", 16),))
+        b = build.library_file("legendre", (("TUNE_TB", 64),))
+        c = build.library_file("legendre", (("TUNE_TK", 8),
+                                            ("TUNE_TB", 16)))
+        names = {build.library_file("legendre"), a, b, c}
+        assert len(names) == 4
+        assert all(n.startswith("liblegendre-") for n in names)
+        # the defines are sorted before they are hashed
+        assert c == build.library_file("legendre", (("TUNE_TB", 16),
+                                                    ("TUNE_TK", 8)))
+        assert build.label("legendre", (("TUNE_TK", 8), ("TUNE_TB", 16))
+                           ) == "legendre[TUNE_TB=16,TUNE_TK=8]"
+
+    def test_command_carries_the_defines(self, monkeypatch):
+        monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+        out = build.BUILD_DIR / "x.so"
+        plain = build._command("crps", out)
+        tuned = build._command("crps", out, (("TUNE_THREADS", 512),))
+        assert not any(a.startswith("-D") for a in plain)
+        assert "-DTUNE_THREADS=512" in tuned
+        assert [a for a in tuned if a != "-DTUNE_THREADS=512"] == plain
+
+    @pytest.mark.parametrize("defines", [(("tune_tb", 16),),
+                                         (("TUNE TB", 16),),
+                                         (("TUNE_TB", "16"),),
+                                         (("TUNE_TB", True),),
+                                         (("TUNE_TB", 16), ("TUNE_TB", 32))])
+    def test_bad_defines_refused(self, defines):
+        with pytest.raises(ValueError):
+            build.library_file("legendre", defines)

@@ -915,3 +915,88 @@ def test_cuda_domain_step_in_a_gloo_world(cuda):
         assert abs(r["loss"] - sl) <= 1e-5 * abs(sl)
         for k, g in r["grads"].items():
             torch.testing.assert_close(g, sg[k], rtol=2e-3, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's tiles (kernels.autotune): every candidate the tune CLI
+# sweeps by default builds and computes what the plain version computes
+
+@pytest.fixture(scope="module")
+def smoke_tune_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.configs import fcn3 as cfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.kernels import autotune
+    shapes = autotune.model_op_shapes(FCN3(cfgs.fcn3_smoke(), device="cuda"),
+                                      members=2)
+    shapes["ssd"] = (8, 64, 12, 32, 1, 64)
+    return shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["legendre", "disco", "disco_bwd", "crps",
+                                "ssd"])
+def test_cuda_tile_candidates_match_plain(cuda, smoke_tune_shapes, op):
+    from repro_torch.kernels import autotune, build
+    shapes = smoke_tune_shapes[op]
+    cands = autotune.candidates(op, shapes)       # the CLI's default cap
+    build.build_all([autotune.library_for(op, d) for d in cands])
+    runner = autotune.OpRunner(op, shapes, "cuda")
+    ref = runner.plain()
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    for dims in cands:
+        got = runner(autotune.blocks_of(op, dims))()
+        torch.cuda.synchronize()
+        gots = got if isinstance(got, tuple) else (got,)
+        for g, r in zip(gots, refs):
+            assert _rel_err(g, r) <= REL_TOL, (op, dims)
+        assert build.is_loaded(*autotune.library_for(op, dims))
+
+
+@pytest.mark.cuda
+def test_cuda_tuned_engine_matches_untuned(cuda):
+    # an engine whose KernelConfig carries other tiles launches their
+    # libraries and holds the dispatch bar against the committed ones
+    from repro_torch.configs import fcn3 as cfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference.engine import (EngineConfig, ForecastEngine,
+                                              members_noise)
+    from repro_torch.inference.params import load_params
+    from repro_torch.kernels import build
+    from repro_torch.kernels.config import BlockConfig, KernelConfig
+    cfg = cfgs.fcn3_smoke()
+    model = FCN3(cfg, device=cuda)
+    ds = dlib.SyntheticERA5(cfg, device=cuda)
+    bufs = model.make_buffers()
+    s0 = ds.state(1)
+    load_params(model, ds, bufs, s0, None, rounds=2)
+    tuned = KernelConfig(blocks=(
+        BlockConfig.make("legendre", TB=16, STAGES=3),
+        BlockConfig.make("disco", CH=64, STAGES=4)))
+    runs = {}
+    for name, kc in (("committed", None), ("tuned", tuned)):
+        eng = ForecastEngine(model, EngineConfig(members=2, lead_chunk=2,
+                                                 kernels=kc))
+        before = legendre_ops.launches, disco_ops.launches
+        runs[name] = eng.forecast(bufs, s0,
+                                  lambda n: ds.aux_fields(6.0 * (n + 1)),
+                                  members_noise(model, 5), steps=3,
+                                  truth=lambda n: ds.state(1, n + 1))
+        assert legendre_ops.launches > before[0]
+        assert disco_ops.launches > before[1]
+        if kc is not None:
+            libs = eng.kernel_libraries()
+            assert libs == (("legendre", (("TUNE_STAGES", 3),
+                                          ("TUNE_TB", 16))),
+                            ("disco_band", (("TUNE_CH", 64),
+                                            ("TUNE_STAGES", 4))))
+            assert all(build.is_loaded(*lib) for lib in libs)
+    a, b = runs["committed"], runs["tuned"]
+    torch.testing.assert_close(b.final_state, a.final_state, rtol=1e-4,
+                               atol=1e-5)
+    for name, v in a.scores.items():
+        torch.testing.assert_close(b.scores[name], v, rtol=1e-4,
+                                   atol=1e-5 if name == "rank_hist"
+                                   else 1e-6)

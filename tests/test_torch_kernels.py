@@ -26,6 +26,7 @@ from repro_torch.core.sphere import disco as tdisco
 from repro_torch.core.sphere import grids as tgrids
 from repro_torch.core.sphere import sht as tsht
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels.config import BLOCK_DEFAULTS
 from repro_torch.kernels.disco import ops as disco_ops
 from repro_torch.kernels.disco.ref import (disco_band_contract_ref,
                                            disco_band_transpose_ref,
@@ -364,8 +365,32 @@ class TestDiscoBand:
                                        stride)
         np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("ch", [16, 32, 48])
+    @pytest.mark.parametrize("stride", [1, 2, 3])
+    def test_transpose_tiles_match_plain(self, ch, stride):
+        # the kernel's arithmetic at the other pieces the autotuner's
+        # "disco_bwd" lattice builds (-DTUNE_CH), on a band with holes
+        band = _band_with_holes(13 + stride)
+        r = _rng(40 + stride)
+        lat_idx = r.integers(0, 12, band.shape[1:3]).astype(np.int32)
+        h_in, w_out = 12, 31 if stride <= 2 else 300
+        k, h_out = band.shape[:2]
+        g = r.standard_normal((3, k, h_out, w_out)).astype(np.float32)
+        got = _emulate_transpose(g, band, lat_idx, h_in, stride, ch=ch)
+        ref = disco_band_transpose_ref(torch.from_numpy(g),
+                                       torch.from_numpy(band),
+                                       torch.from_numpy(lat_idx), h_in,
+                                       stride)
+        np.testing.assert_allclose(got, ref.numpy(), rtol=1e-5, atol=1e-5)
 
-def _emulate_transpose(g, band, lat_idx, h_in, stride):
+
+#: csrc/disco_band_bwd.cu's fixed constants: input longitudes a block and
+#: the generic path's Toeplitz offsets (less one)
+TRANSPOSE_TV, TRANSPOSE_DM_ANY = 256, 3
+
+
+def _emulate_transpose(g, band, lat_idx, h_in, stride,
+                       ch=BLOCK_DEFAULTS["disco_bwd"]["CH"]):
     """csrc/disco_band_bwd.cu's arithmetic in numpy, for every block of
     its grid: input row r from the lists, a tile of TV longitudes split
     into warps of VW (above stride 2: TV longitudes of one residue class
@@ -373,8 +398,9 @@ def _emulate_transpose(g, band, lat_idx, h_in, stride):
     CH taps; per (piece, k) the staged taps with zero margins and the g
     window from u0 = floor((v0 - c - taps) / S), wrapped; n-tile j of
     parity par and u-block i = j + delta meet in the 8 x 8 operand
-    B_delta[q, n] = P[base + par - 8 S delta + S (n - q)]."""
-    tv, ch, vw, s_ = disco_ops._TV, disco_ops._TCH, 32, stride
+    B_delta[q, n] = P[base + par - 8 S delta + S (n - q)].  ``ch``: the
+    taps of a piece (the tile's CH)."""
+    tv, vw, s_ = TRANSPOSE_TV, 32, stride
     b, k, h_out, w_out = g.shape
     d = band.shape[-1]
     w_in = w_out * stride
@@ -401,7 +427,7 @@ def _emulate_transpose(g, band, lat_idx, h_in, stride):
                 for pc in range(-(-(-(-span // 8) * 8) // ch)):
                     n_taps = min(ch, -(-span // 8) * 8 - pc * ch)
                     nd = (n_taps + 9 * s_ - 2) // (8 * s_)
-                    assert not generic or nd <= disco_ops._TDM_ANY
+                    assert not generic or nd <= TRANSPOSE_DM_ANY
                     c = d_lo + pc * ch - d // 2
                     u0 = (v0 - c - n_taps) // s_
                     base = v0 - c - s_ * u0

@@ -77,8 +77,12 @@ def build_variants(names):
                 raise SystemExit(f"{name}: the source has no {old!r}")
             text = text.replace(old, new)
         for const, value in VARIANTS[name].get("const", {}).items():
-            text, n = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {value};", text)
+            # a tunable constant's default is a #define TUNE_<NAME>
+            text, n = re.subn(rf"#define TUNE_{const} \d+",
+                              f"#define TUNE_{const} {value}", text)
+            if n != 1:
+                text, n = re.subn(rf"constexpr int {const} = \d+;",
+                                  f"constexpr int {const} = {value};", text)
             if n != 1:
                 raise SystemExit(f"{name}: no constant {const}")
         cu = out_dir / f"{name}.cu"
@@ -117,8 +121,9 @@ def work_counts(taps, w_in: int, stride: int, planes: int) -> dict:
     and its mma.sync products, three per 3xTF32 product, with the share
     of them that lands on the slices' spans."""
     import numpy as np
-    from repro_torch.kernels.disco import ops
-    tv, ch, k = ops._TV, ops._TCH, 7
+    from repro_torch.kernels.config import BLOCK_DEFAULTS
+    # the committed kernel's TV (csrc/disco_band_bwd.cu) and CH
+    tv, ch, k = 256, BLOCK_DEFAULTS["disco_bwd"]["CH"], 7
     padded = -(-taps["tap_ent"][:, 2] // 8) * 8
     pieces = np.concatenate([np.minimum(ch, p - np.arange(0, p, ch))
                              for p in padded])

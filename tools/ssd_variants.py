@@ -45,11 +45,11 @@ from chip_smoke import PEAK_BYTES, bound, card_line, cuda_ms  # noqa: E402
 BC, L, H, P, G, N = 512, 128, 24, 64, 1, 128
 #: name -> (text, replacement) pairs applied to ssd.cu
 VARIANTS = {
-    **{f"heads{n}": [("constexpr int HEADS_PER_BLOCK = 24;",
-                      f"constexpr int HEADS_PER_BLOCK = {n};")]
+    **{f"heads{n}": [("#define TUNE_HEADS_PER_BLOCK 24",
+                      f"#define TUNE_HEADS_PER_BLOCK {n}")]
        for n in (12, 8, 6)},
-    "threads768": [("constexpr int THREADS = 512;",
-                    "constexpr int THREADS = 768;")],
+    "threads768": [("#define TUNE_THREADS 512",
+                    "#define TUNE_THREADS 768")],
     "no_y": [("    if (pb >= P) return;", "    if (pb >= P || L > 0) return;")],
     "no_state": [("    if (pb >= P || nb >= N) return;",
                   "    if (pb >= P || nb >= N || L > 0) return;")],
