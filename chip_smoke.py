@@ -155,6 +155,24 @@ non-zero exit code and no result line:
    work)
    and the least time the card could take, in fp32 (``bound_ms``) and
    on the TF32 tensor cores in 3xTF32 (``bound_tc_ms``);
+[dryrun] the dry run (``repro_torch.launch.dryrun``: one step on fake
+   tensors, every kernel call and collective counted, no launch) held to
+   the card where its inputs still live, each dry run with no kernel
+   launch and no plain version inside it: (ii) right after [main], one
+   forward of ``MEMBERS`` members at ``fcn3_full`` against one forward of
+   [main]'s model (CUDA events, median of 3; launches and
+   ``max_memory_allocated`` over one call); (i) after the training phase,
+   the training cell's step against the steady step's launches (the
+   counters read before and after it, not reset) and the phase's peak;
+   each family's calls must equal its launches and the live-set peak lie
+   within ``DRYRUN_PEAK_BAND`` of ``max_memory_allocated``, with the
+   roofline terms, the bound and bound / measured printed; (iii) after
+   [dist], (d1)'s step as rank 0 of a fake 1 x 2 mesh, whose
+   ``all_to_all_v`` bytes must equal (d1) rank 0's ``timed_bytes`` in
+   every step (the other kinds printed beside (d1)'s); then the CLI's
+   ``--arch fcn3 --shape train`` (rank 0 of 16 x 16, domain) with
+   ``--out``: collective bytes > 0, finite terms.  Phase 7's rows at a
+   shape (i) or (ii) counted must carry the same FLOPs and bytes a call;
 8. the ``kernels`` JSON line (each entry with [tune]'s ``tuned_dims``,
    ``tuned_ms`` and ``default_ms`` at ``tuned_at``, null for the
    recurrence, whose tile is not tuned), then the result line.
@@ -180,11 +198,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
 #: kernel vs plain: max |kernel - plain| <= REL_TOL * max |plain|
 #: (fp32 sums of up to S*D = 3.3k terms in another order)
 REL_TOL = 1e-4
@@ -260,6 +273,9 @@ EVAL_MEMBERS, EVAL_LEADS, EVAL_ICS = 2, 2, 2
 TIE_REL = 8 * 2.0 ** -23
 #: CRPS kernel vs plain: relative error (a handful of fp32 terms)
 CRPS_REL_TOL = 1e-5
+#: [dryrun]: a dry run's live-set peak against the card's
+#: max_memory_allocated over the same work: within these factors
+DRYRUN_PEAK_BAND = (0.5, 2.0)
 #: [tune]: every tunable kernel family swept at fcn3_full's
 #: model_op_shapes (2 members) and the LM prefill's SSD shape, at most
 #: this many tiles each (the committed one among them; all libraries
@@ -481,13 +497,12 @@ def check_legendre(table, extents, shape, dtype, name) -> dict:
     lib_ms = cuda_ms(lambda: torch.bmm(xm, tm), reps=10)
     del xm, tm
     # the tables are zero for m > l: count the products the data needs
-    nnz = int((table != 0).sum())
-    flops = 2.0 * parts * b * nnz
-    flops_dense = 2.0 * parts * b * k * n * m
-    nbytes = 4.0 * (parts * b * k * m + k * n * m + parts * b * n * m
-                    + extents.numel())
+    w = ops.work(shape, n, x.is_complex(), int((table != 0).sum()),
+                 extents.numel())
+    flops, flops_dense, nbytes = w["flops"], w["flops_dense"], w["bytes"]
     row = dict(shape=f"x{shape} {str(dtype).split('.')[-1]} "
                f"table{tuple(table.shape)}", what=name,
+               call=("legendre_contract", ops.call_key(x, table)),
                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, flops=flops,
                flops_dense=flops_dense, bytes=nbytes, **bound(flops, nbytes))
@@ -560,12 +575,12 @@ def check_disco(ent, name, full: bool) -> dict:
                                  f"plain version (rel {rel_err:.3e}) or is "
                                  f"not deterministic ({deterministic})")
     del xp
-    nnz = int((psi != 0).sum())
-    flops_dense = 2.0 * k * h_out * s * d * w_out * b
-    flops = 2.0 * nnz * w_out * b   # the taps this filter really has
-    nbytes = 4.0 * (b * h_in * w_in + psi.numel() + lat_idx.numel()
-                    + b * k * h_out * w_out)
+    # the taps this filter really has
+    w = ops.work(shape, tuple(psi.shape), stride, int((psi != 0).sum()))
+    flops, flops_dense, nbytes = w["flops"], w["flops_dense"], w["bytes"]
     row = dict(shape=f"x{shape} psi{tuple(psi.shape)} stride{stride}",
+               call=("disco_band_contract",
+                     (tuple(shape), tuple(psi.shape), stride)),
                what=name, launches=ent["launches"], max_abs_err=abs_err,
                max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_rel_err=lib_err, flops=flops,
@@ -667,14 +682,14 @@ def check_transpose(ent, name, library: bool = True,
         log(f"[kernel] conv_transpose1d yardstick failed: {exc}")
     del gl, ref
     torch.cuda.empty_cache()
-    nnz = int((psi != 0).sum())
-    flops_dense = 2.0 * k * h_out * s * d * w_out * b
-    flops = 2.0 * nnz * w_out * b   # the taps this filter really has
-    # g, the live taps and their lists in, gx out
-    nbytes = 4.0 * (b * k * h_out * w_out + taps.ent.numel()
-                    + taps.psi.numel() + sum(t.numel() for t in lists)
-                    + b * h_in * w_in)
+    # the taps this filter really has; g, the live taps and their lists
+    # in, gx out
+    w = ops.transpose_work(shape, tuple(psi.shape), h_in, stride,
+                           int((psi != 0).sum()), ops.list_numel(taps, lists))
+    flops, flops_dense, nbytes = w["flops"], w["flops_dense"], w["bytes"]
     row = dict(shape=f"g{shape} psi{tuple(psi.shape)} stride{stride}",
+               call=("disco_band_transpose",
+                     (tuple(shape), tuple(psi.shape), h_in, stride)),
                what=name, launches=ent["launches"], max_abs_err=abs_err,
                max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_rel_err=lib_err, flops=flops,
@@ -719,13 +734,11 @@ def check_crps(ent) -> list[dict]:
     obs = torch.randn((n,), generator=gen, device="cuda")
     g = torch.randn((n,), generator=gen, device="cuda")
     rows = []
-    for what, kernel, plain, out_floats, in_floats, ops_per_point in (
+    for what, kernel, plain in (
             ("forward", lambda: ops.crps_fused(ens, obs, fair),
-             lambda: crps_fused_ref(ens, obs, fair), 1, e + 1,
-             3 * e + 3 * e * (e - 1) // 2 + 4),
+             lambda: crps_fused_ref(ens, obs, fair)),
             ("backward", lambda: ops.crps_fused_bwd(g, ens, obs, fair),
-             lambda: crps_fused_bwd_ref(g, ens, obs, fair), e, e + 2,
-             e * (3 * e + 6))):
+             lambda: crps_fused_bwd_ref(g, ens, obs, fair))):
         got = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -734,9 +747,11 @@ def check_crps(ent) -> list[dict]:
         del got, ref
         ms = cuda_ms(kernel, reps=10)
         plain_ms = cuda_ms(plain, reps=5)
-        flops = float(ops_per_point) * n
-        nbytes = 4.0 * n * (in_floats + out_floats)
+        w = ops.work(e, n, backward=what == "backward")
+        flops, nbytes = w["flops"], w["bytes"]
         row = dict(shape=f"ens({e}, {n}) fair={fair}", what=what,
+                   call=("crps_fused" if what == "forward"
+                         else "crps_fused_bwd", ((e, n), fair)),
                    max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                    plain_ms=plain_ms, library_ms=None, flops=flops,
                    bytes=nbytes, **bound(flops, nbytes))
@@ -786,14 +801,11 @@ def check_ssd(ins, batch: int) -> tuple[dict, tuple]:
         x.reshape(seq + (h, p)), da.reshape(seq + (h,)),
         b.reshape(seq + (g, n)), c.reshape(seq + (g, n)), l), reps=5)
     del da
-    taps = l * (l + 1) // 2
-    # the work the data needs: C B^T once per group on the s <= l taps,
-    # att @ X on those taps and the state product, per head
-    flops = 2.0 * bc * (g * taps * n + h * taps * p + h * l * p * n)
-    flops_dense = 2.0 * bc * h * (l * l * n + l * l * p + l * p * n)
-    nbytes = 4.0 * (2 * x.numel() + da_cs.numel() + 2 * b.numel()
-                    + bc * h * p * n)
+    # the work the data needs (the causal taps)
+    w = ops.work(tuple(x.shape), g, n)
+    flops, flops_dense, nbytes = w["flops"], w["flops_dense"], w["bytes"]
     row = dict(shape=f"x{tuple(x.shape)} B,C{tuple(b.shape)}", what="prefill",
+               call=("ssd_intra_chunk", (tuple(x.shape), tuple(b.shape))),
                max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
                plain_ms=plain_ms, library_ms=None, flops=flops,
                flops_dense=flops_dense, bytes=nbytes,
@@ -839,9 +851,10 @@ def check_ssd_state(states, decay, launches: int) -> dict:
     plain_ms = cuda_ms(lambda: chunk_recurrence_ref(states, decay, init),
                        reps=5)
     # states and the incoming state in, prev and the final state out
-    nbytes = 4.0 * (2 * states.numel() + decay.numel() + 2 * init.numel())
-    flops = 2.0 * states.numel()
+    w = ops.state_work(tuple(states.shape))
+    flops, nbytes = w["flops"], w["bytes"]
     row = dict(shape=f"states{tuple(states.shape)}", what="prefill",
+               call=("ssd_chunk_recurrence", (tuple(states.shape),)),
                launches=launches, max_abs_err=abs_err, max_rel_err=rel_err,
                ms=ms, plain_ms=plain_ms, library_ms=None, flops=flops,
                bytes=nbytes, **bound(flops, nbytes))
@@ -972,13 +985,10 @@ def lm_phase(report) -> dict:
 
 
 def bound(flops: float, nbytes: float) -> dict:
-    """Least time on the card: the larger of operations and bytes, with
-    the operations at the fp32 rate (``bound_ms``) and as 3xTF32 products
-    on the tensor cores, three TF32 products each (``bound_tc_ms``)."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_tc_ms": 1e3 * max(3 * flops / PEAK_TF32_FLOPS, t_bytes)}
+    """Least time on the card (``repro_torch.launch.roofline.bound``: the
+    H100's data-sheet peaks)."""
+    from repro_torch.launch import roofline
+    return roofline.bound(flops, nbytes)
 
 
 def small_input_check() -> float:
@@ -1583,10 +1593,11 @@ def train_phase(report, keep: str | None = None, steps_done=None) -> dict:
     if keep is not None:
         step0["ckpt"] = ckptlib.save_checkpoint(
             keep, 0, dict(run.model.named_parameters()))
-    stamps = [time.time()]
+    stamps, snaps = [time.time()], [launch_counts()]
     history = train_mod.run_steps(
         run, TRAIN_STEPS,
-        report=lambda line: (stamps.append(time.time()), report(line)))
+        report=lambda line: (stamps.append(time.time()),
+                             snaps.append(launch_counts()), report(line)))
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"disco_band_contract": disco_ops.launches,
@@ -1609,6 +1620,7 @@ def train_phase(report, keep: str | None = None, steps_done=None) -> dict:
             "step_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
             "peak_mem_gb": peak_gb,
             "launches": launches, "history": history,
+            "step_launches": _launched(snaps[-2], snaps[-1]),
             "changed": changed, "n_params": n_params}
 
 
@@ -2050,7 +2062,8 @@ def dist_engine_rank(rank: int, world_size: int, plans: str,
            "lead_s": [b - a for a, b in zip(stamps[:-1], stamps[1:])],
            "rollout_s": time.time() - stamps[0],
            "collective_s": compat.timed_seconds(),
-           "a2a_bytes": compat.timed_bytes(), "scores": scores,
+           "a2a_bytes": compat.timed_bytes(),
+           "kind_bytes": compat.timed_kinds(), "scores": scores,
            "final_state": final,
            "launches": {"disco_band_contract": disco_ops.launches,
                         "legendre_contract": legendre_ops.launches,
@@ -2061,6 +2074,11 @@ def dist_engine_rank(rank: int, world_size: int, plans: str,
     rec.close()
     guard.close()
     return out
+
+
+def _nonzero(kinds: dict) -> dict:
+    """A rank's bytes by kind of collective, the kinds it used."""
+    return {k: v for k, v in kinds.items() if v}
 
 
 def _worst(got, want, rtol: float, atol: float) -> tuple[float, float]:
@@ -2099,6 +2117,7 @@ def engine_dist_phase(report, forecast: dict, plans: str) -> dict:
                f"{[round(x, 3) for x in r['lead_s']]} rollout_s="
                f"{r['rollout_s']:.3f} collective_s={r['collective_s']:.3f} "
                f"(share {share:.3f}) score_a2a_bytes={r['a2a_bytes']} "
+               f"bytes_by_kind={_nonzero(r['kind_bytes'])} "
                f"({r['a2a_bytes'] / LEAD_STEPS / 1e6:.1f} MB a lead) "
                f"launches={r['launches']} plain_calls_on_cuda={r['plain']} "
                f"peak_mem_gb={r['peak_gb']:.2f}")
@@ -2381,6 +2400,7 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
                f"(share "
                f"{[round(h['collective_s'] / h['seconds'], 3) for h in hs]})"
                f" halo_bytes={[int(h['halo_bytes']) for h in hs]} "
+               f"bytes_by_kind={[_nonzero(h['kind_bytes']) for h in hs]} "
                f"loss={[round(h['loss'], 7) for h in hs]} |g|="
                f"{[round(h['grad_norm'], 6) for h in hs]} launches="
                f"{r['launches']} plain_calls_on_cuda={r['plain']} "
@@ -2690,6 +2710,261 @@ def tuned_lead(run, forecast: dict, tuning_dir: str) -> dict:
     return out
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch counter as it stands (read, not reset)."""
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"disco_band_contract": disco_ops.launches,
+            "disco_band_transpose": disco_ops.transpose_launches,
+            "legendre_contract": legendre_ops.launches,
+            "crps_fused": crps_ops.launches,
+            "crps_fused_bwd": crps_ops.bwd_launches,
+            "ssd_intra_chunk": ssd_ops.launches,
+            "ssd_chunk_recurrence": ssd_ops.state_launches}
+
+
+def _launched(before: dict, after: dict) -> dict:
+    """The launches between two ``launch_counts`` readings, where any."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def dry_count(name: str, build, guard, world=None) -> dict:
+    """One counted dry run (``repro_torch.launch.dryrun``): ``build(dry)``
+    makes the case inside a ``DryRun``, which counts its step; with
+    ``world`` = (ranks, mesh shape) it runs as rank 0 of a fake world on
+    a ``("data", "model")`` mesh of that shape.  No kernel may launch and
+    no plain version run inside it.  Returns the roofline, the counts and
+    the host seconds it took."""
+    import contextlib
+    from repro_torch.launch import counting, dryrun, mesh as meshlib
+    from repro_torch.launch import roofline
+    before, plain = launch_counts(), dict(guard.counts)
+    t0 = time.time()
+    with (dryrun.fake_world(world[0]) if world else contextlib.nullcontext()):
+        mesh = (meshlib.make_mesh(world[1], ("data", "model"),
+                                  counting.dry_run_device().type)
+                if world else None)
+        with counting.DryRun() as dry:
+            case = build(dry, mesh)
+            rl, counts = roofline.analyze(name, case.step, case.args,
+                                          world[0] if world else 1,
+                                          case.model_flops, dry)
+    seconds = time.time() - t0
+    moved = _launched(before, launch_counts())
+    ran = {k: v - plain.get(k, 0) for k, v in guard.counts.items()
+           if v != plain.get(k, 0)}
+    if moved or ran:
+        raise AssertionError(f"dry run {name}: launches {moved}, plain "
+                             f"calls {ran} inside it")
+    return {"roofline": rl, "counts": counts, "seconds": seconds}
+
+
+def dryrun_hold(report, tag: str, dry: dict, launches: dict,
+                measured_s: float, peak_gb: float) -> dict:
+    """Hold a dry run to the card: each kernel family's calls against its
+    launches in the same work on the card (equal), the live-set peak
+    against ``max_memory_allocated`` there (within
+    ``DRYRUN_PEAK_BAND``); print the terms beside the measured time."""
+    from repro_torch.launch import roofline
+    rl, counts = dry["roofline"], dry["counts"]
+    calls = {f: v["calls"] for f, v in counts.kernels.items()}
+    peak_ratio = counts.peak_bytes / 1e9 / peak_gb
+    flops = counts.kernel_flops + counts.aten_flops
+    report(f"[dryrun] {tag}: kernel calls {calls} against the card's "
+           f"launches {launches}; FLOPs kernels {counts.kernel_flops:.4g} "
+           + "(" + ", ".join(f"{f} {v['flops']:.4g}"
+                             for f, v in counts.kernels.items())
+           + f") aten {counts.aten_flops:.4g}; bytes kernels "
+           f"{counts.kernel_bytes:.4g} aten {counts.aten_bytes:.4g}; "
+           f"collectives {counts.collective_bytes()}; dry run "
+           f"{dry['seconds']:.1f} s on the host")
+    report(f"[dryrun] {tag}: live-set peak "
+           f"{counts.peak_bytes / 1e9:.2f} GB "
+           + str({k: round(v / 1e9, 2) for k, v in counts.at_peak.items()})
+           + f" against max_memory_allocated {peak_gb:.2f} GB (ratio "
+           f"{peak_ratio:.3f}, band {DRYRUN_PEAK_BAND}); t_compute="
+           f"{rl.t_compute:.4f} s t_compute_fp32={rl.t_compute_fp32:.4f} s "
+           f"t_memory={rl.t_memory:.4f} s bound={rl.step_time_bound:.4f} s "
+           f"({rl.bottleneck}) measured={measured_s:.4f} s "
+           f"bound/measured={rl.step_time_bound / measured_s:.4f} "
+           f"FLOPs/(measured x 3xTF32 peak)="
+           f"{flops / (measured_s * roofline.PEAK_FLOPS):.4f}")
+    if calls != launches:
+        raise AssertionError(f"{tag}: the dry run's kernel calls {calls} are "
+                             f"not the card's launches {launches}")
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= peak_ratio <= hi:
+        raise AssertionError(f"{tag}: the live-set peak is {peak_ratio:.3f} "
+                             f"of max_memory_allocated")
+    return {"calls": calls, "peak_ratio": peak_ratio,
+            "bound_over_measured": rl.step_time_bound / measured_s}
+
+
+def dryrun_train(guard) -> dict:
+    """[dryrun] (i): the training phase's own step dry-run on one rank
+    (``fcn3_full``, ``TRAIN_STAGE``, its ensemble, batch and rollout)."""
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.launch import dryrun, train as train_mod
+    tcfg = train_mod.stage_to_tcfg(train_mod.STAGES[TRAIN_STAGE],
+                                   TRAIN_ENSEMBLE, TRAIN_ROLLOUT)
+    return dry_count("fcn3/train-cell", lambda dry, mesh: (
+        dryrun.build_fcn3_case(
+            "train", mesh, dry, cfg=fcn3cfg.NAMED_CONFIGS[CONFIG](),
+            sizes=(TRAIN_BATCH, TRAIN_ENSEMBLE, TRAIN_ROLLOUT), tcfg=tcfg)),
+        guard)
+
+
+def dryrun_forecast(guard) -> dict:
+    """[dryrun] (ii): one FCN3 forward of ``MEMBERS`` members at
+    ``fcn3_full`` dry-run on one rank (the JAX ``inference`` case at E =
+    MEMBERS and one chip)."""
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.launch import dryrun
+    return dry_count("fcn3/forward", lambda dry, mesh: (
+        dryrun.build_fcn3_case("inference", mesh, dry,
+                               cfg=fcn3cfg.NAMED_CONFIGS[CONFIG](),
+                               sizes=(1, MEMBERS, 1))), guard)
+
+
+def dryrun_domain(guard) -> dict:
+    """[dryrun] (iii): (d1)'s step dry-run as rank 0 of a fake 1 x 2 mesh
+    (latitude over 2 ranks, the training cell's settings)."""
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.launch import dryrun, train as train_mod
+    tcfg = train_mod.stage_to_tcfg(train_mod.STAGES[TRAIN_STAGE],
+                                   TRAIN_ENSEMBLE, TRAIN_ROLLOUT)
+    return dry_count("fcn3/domain-1x2", lambda dry, mesh: (
+        dryrun.build_fcn3_case(
+            "train", mesh, dry, cfg=fcn3cfg.NAMED_CONFIGS[CONFIG](),
+            sizes=(TRAIN_BATCH, TRAIN_ENSEMBLE, TRAIN_ROLLOUT), tcfg=tcfg)),
+        guard, world=(DIST_TRAIN_RANKS, (1, DIST_TRAIN_RANKS)))
+
+
+def domain_dryrun(report, dry: dict, history: list[dict]) -> None:
+    """[dryrun] (iii) held to (d1): rank 0's ``all_to_all_v`` bytes a step
+    as counted against those ``compat`` measured in each of its steps;
+    the other kinds beside them."""
+    pred = dry["counts"].collective_bytes()
+    for i, h in enumerate(history):
+        got = _nonzero(h["kind_bytes"])
+        pairs = {k: (pred.get(k, 0), got.get(k, 0))
+                 for k in sorted(set(pred) | set(got))}
+        report(f"[dryrun] (iii) domain step, rank 0 of a fake 1 x "
+               f"{DIST_TRAIN_RANKS} mesh, against (d1) rank 0's step {i}: "
+               + " ".join(f"{k} {p} / {g}" + ("" if p == g else " (differs)")
+                          for k, (p, g) in pairs.items())
+               + f" bytes (predicted / measured); halo_bytes "
+               f"{h['halo_bytes']}")
+        if pred.get("all_to_all_v", 0) != h["halo_bytes"]:
+            raise AssertionError(f"(iii): the predicted all_to_all_v bytes "
+                                 f"{pred.get('all_to_all_v')} are not (d1)'s "
+                                 f"{h['halo_bytes']}")
+    rl = dry["roofline"]
+    report(f"[dryrun] (iii) roofline: t_compute={rl.t_compute:.4f} s "
+           f"t_memory={rl.t_memory:.4f} s t_collective={rl.t_collective:.4f}"
+           f" s (NVLink) peak {rl.peak_memory_per_device / 1e9:.2f} GB; dry "
+           f"run {dry['seconds']:.1f} s on the host")
+
+
+def production_dryrun(report) -> None:
+    """One production case through the dry-run CLI: ``--arch fcn3
+    --shape train`` as rank 0 of 16 x 16 (domain), its record written
+    with ``--out`` and read back: collective bytes > 0, finite terms."""
+    import contextlib
+    import io
+    from repro_torch.launch import dryrun
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
+                        "dryrun.jsonl")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = dryrun.main(["--arch", "fcn3", "--shape", "train", "--out",
+                          path])
+    with open(path) as f:
+        rec = json.loads(f.readline())
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    terms = [rec[k] for k in ("t_compute_s", "t_compute_fp32_s",
+                              "t_memory_s", "t_collective_s", "mfu_bound")]
+    report(f"[dryrun] CLI --arch fcn3 --shape train (rank 0 of "
+           f"{rec['mesh']}, {rec['fcn3_sharding']}): rc={rc} io_rows="
+           f"{rec['io_rows']} latent_rows={rec.get('latent_rows')} FLOPs "
+           f"{rec['flops_per_device']:.4g} (kernels {rec['kernel_flops']:.4g}"
+           f", aten {rec['aten_flops']:.4g}) bytes "
+           f"{rec['hbm_bytes_per_device']:.4g} collectives "
+           f"{rec['coll_breakdown']} peak "
+           f"{rec['peak_memory_per_device'] / 1e9:.2f} GB "
+           + str({k: round(v / 1e9, 2)
+                  for k, v in rec["memory_analysis"].items()})
+           + f" t_compute={rec['t_compute_s']:.4f} t_compute_fp32="
+           f"{rec['t_compute_fp32_s']:.4f} t_memory={rec['t_memory_s']:.4f}"
+           f" t_collective={rec['t_collective_s']:.4f} s bottleneck="
+           f"{rec['bottleneck']} model_flops={rec['model_flops']:.4g} "
+           f"mfu_bound={rec['mfu_bound']:.4f}; {time.time() - t0:.1f} s")
+    if rc != 0 or not rec["collective_bytes_per_device"] > 0 or not all(
+            math.isfinite(t) for t in terms):
+        raise AssertionError(f"the production dry run: rc {rc}, collective "
+                             f"bytes {rec['collective_bytes_per_device']}, "
+                             f"terms {terms}")
+
+
+def timed_forward(run, members: int) -> dict:
+    """One forward of ``members`` members on [main]'s model and buffers:
+    its launches and peak over one call, its time the median of 3 more
+    (CUDA events)."""
+    import torch
+    model, cfg = run.model, run.model.cfg
+    g = torch.Generator(device="cuda").manual_seed(17)
+    state = torch.randn((members, 1, cfg.n_state, cfg.nlat, cfg.nlon),
+                        generator=g, device="cuda")
+    cond = torch.randn((members, 1, cfg.n_cond_in, cfg.nlat, cfg.nlon),
+                       generator=g, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            return model(run.buffers, state, cond)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    out = fwd()
+    torch.cuda.synchronize()
+    launches = _launched(before, launch_counts())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(out).all())
+    del out
+    seconds = cuda_ms(fwd, reps=3, warmup=0) / 1e3
+    del state, cond
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak_gb": peak_gb, "seconds": seconds,
+            "finite": finite}
+
+
+def dryrun_rows(report, dries: dict, rows: dict) -> int:
+    """Phase 7's rows at a shape a dry run counted: the same FLOPs and
+    bytes a call (the same formulas on the same tables' non-zeros);
+    returns how many rows were held."""
+    held = 0
+    for tag, dry in dries.items():
+        calls = dry["counts"].kernel_calls
+        for row in (r for rs in rows.values() for r in rs):
+            ent = calls.get(tuple(row.get("call", ())))
+            if ent is None:
+                continue
+            n, flops, nbytes = ent
+            held += 1
+            ok = (math.isclose(flops / n, row["flops"], rel_tol=1e-12)
+                  and math.isclose(nbytes / n, row["bytes"], rel_tol=1e-12))
+            report(f"[dryrun] {tag} vs phase 7's {row['call'][0]} "
+                   f"{row['shape']}: FLOPs {flops / n:.6g} / "
+                   f"{row['flops']:.6g} bytes {nbytes / n:.6g} / "
+                   f"{row['bytes']:.6g} a call "
+                   f"({n} calls in the dry run)")
+            if not ok:
+                raise AssertionError(f"{tag}: the dry run's counts at "
+                                     f"{row['shape']} are not phase 7's")
+    return held
+
+
 def main() -> int:
     """Run every phase; 0 only when all of them pass."""
     # the [dist] phase puts two ranks of 30-34 GB beside this process on
@@ -2813,6 +3088,18 @@ def main() -> int:
             os.path.join(dist_tmp, "forecast"), 0,
             dict(run.model.named_parameters()))}
     del results, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- [dryrun] (ii): the forecast step counted on fake tensors, held to
+    # one forward of [main]'s model on the card
+    dry = {"(ii)": dryrun_forecast(guard)}
+    fw = timed_forward(run, MEMBERS)
+    dryrun_hold(log, f"(ii) forecast forward, {MEMBERS} members, "
+                f"fcn3_{CONFIG}", dry["(ii)"], fw["launches"], fw["seconds"],
+                fw["peak_gb"])
+    if not fw["finite"]:
+        raise AssertionError("the timed forward is not finite")
 
     # -- phase 2a: the kernel tiles tuned on this card, a tuned lead -------
     gc.collect()
@@ -3044,6 +3331,15 @@ def main() -> int:
                              f"training: {plain_calls}")
     torch.cuda.empty_cache()
 
+    # -- [dryrun] (i): the training cell's step counted on fake tensors,
+    # held to the steady step's launches (the counters read, not reset)
+    dry["(i)"] = dryrun_train(guard)
+    dryrun_hold(log, f"(i) train step, fcn3_{CONFIG} {TRAIN_STAGE} "
+                f"E={TRAIN_ENSEMBLE} batch={TRAIN_BATCH} "
+                f"rollout={TRAIN_ROLLOUT}", dry["(i)"],
+                summary["step_launches"], summary["step_s"][-1],
+                summary["peak_mem_gb"])
+
     # -- phase 5: small-input gradients against the reference path ----------
     gerr = small_gradient_check()
     log(f"[check] fcn3_smoke train-step gradients, kernel path vs reference "
@@ -3056,6 +3352,10 @@ def main() -> int:
         dist = dist_phase(log, summary.pop("step0"), dist_tmp, forecast)
     finally:
         shutil.rmtree(dist_tmp, ignore_errors=True)
+    # -- [dryrun] (iii): (d1)'s step counted as rank 0 of a fake 1 x 2 mesh
+    dry["(iii)"] = dryrun_domain(guard)
+    domain_dryrun(log, dry["(iii)"], dist["domain"][0]["history"])
+    production_dryrun(log)
     log(f"[dist] card: {card}; selftest {dist['selftest_s']:.1f} s, "
         f"Algorithms 1-2 {dist['geometry_s']:.1f} s, training "
         f"{dist['train_s']:.1f} s, domain training {dist['domain_s']:.1f} "
@@ -3220,6 +3520,10 @@ def main() -> int:
     # the Legendre kernel on its padded tables
     for row in dist["domain_rows"] + dist["engine_rows"]:
         rows[row["kernel"]].append(row)
+    held = dryrun_rows(log, {k: dry[k] for k in ("(i)", "(ii)")}, rows)
+    if held == 0:
+        raise AssertionError("no row of phase 7 is at a shape the dry runs "
+                             "counted")
 
     meta = {
         "legendre_contract": ("cuda", "src/repro_torch/csrc/legendre.cu",

@@ -8,16 +8,18 @@
   long_500k    seq_len=524288  global_batch=1     -> serve step; attention
                 architectures switch to a sliding window of 8192
 
-The JAX package builds ShapeDtypeStruct stand-ins from these for its
-compile-only dry run; the port allocates real tensors, so it keeps the
-shapes only.
+``input_specs`` gives the stand-ins of one step's inputs as ``meta``
+tensors (shape and dtype, no data), the counterpart of the JAX package's
+ShapeDtypeStructs; the dry run (``launch/dryrun.py``) reads them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.transformer import ArchConfig
+import torch
+
+from repro_torch.models.transformer import LM, ArchConfig
 
 SLIDING_WINDOW_LONG = 8192
 
@@ -49,3 +51,38 @@ def adapt_arch_for_shape(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
     if shape.name == "long_500k" and cfg.n_heads:
         cfg = dataclasses.replace(cfg, sliding_window=SLIDING_WINDOW_LONG)
     return cfg
+
+
+def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """``meta`` stand-ins for every model input of one step.
+
+    Train and prefill: ``tokens`` and ``labels`` (B, S_text) int32, with
+    ``patches`` (vlm) and ``enc_frames`` (audio); they need no model, so
+    every architecture has them.  Decode: ``tokens`` (B, 1), ``pos`` ()
+    and the cache ``LM.init_cache(B, S)`` on ``meta`` (an architecture
+    whose family the port lacks raises the model's NotImplementedError,
+    ROADMAP A13), with ``enc_states`` (audio).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.mode in ("train", "prefill"):
+        s_text = s - (cfg.n_patches if cfg.family == "vlm" else 0)
+        specs = {"tokens": _meta((b, s_text), torch.int32),
+                 "labels": _meta((b, s_text), torch.int32)}
+        if cfg.family == "vlm":
+            specs["patches"] = _meta((b, cfg.n_patches, cfg.d_model), dtype)
+        if cfg.family == "audio":
+            specs["enc_frames"] = _meta((b, cfg.encoder_seq, cfg.d_model),
+                                        dtype)
+        return specs
+    model = LM(cfg, device="meta")
+    specs = {"tokens": _meta((b, 1), torch.int32),
+             "cache": model.init_cache(b, s),
+             "pos": _meta((), torch.int32)}
+    if cfg.family == "audio":
+        specs["enc_states"] = _meta((b, cfg.encoder_seq, cfg.d_model), dtype)
+    return specs

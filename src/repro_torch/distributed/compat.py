@@ -34,35 +34,51 @@ and NCCL take no complex64).  Between ``start_timing()`` and
 ``timed_seconds()`` each collective is timed where it runs: on a CUDA
 tensor by two CUDA events recorded on the current stream around it (no
 synchronization of the card; ``timed_seconds`` waits for the last event),
-on a CPU tensor by the host clock, and ``timed_bytes()`` counts the bytes
-``all_to_all_v`` received.  Outside such a window nothing is recorded.
+on a CPU tensor by the host clock; ``timed_kinds()`` counts each kind's
+output bytes on this rank (``all_to_all``, ``all_to_all_v``,
+``all_reduce``, ``broadcast``; an all-to-all's output holds the rank's own
+block, ``all_to_all_v``'s only what the peers sent), and ``timed_bytes()``
+the bytes ``all_to_all_v`` received.  Outside such a window nothing is
+recorded, except on fake tensors (a dry run): there every collective
+notes its kind, group size and output bytes in ``kernels.tally``.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import tally
 
 #: the timings since ``start_timing``: host seconds (CPU tensors) and
 #: (start, end) CUDA event pairs; ``None`` while timing is off
 _timed: list | None = None
-#: the bytes ``all_to_all_v`` received since ``start_timing``
-_received = 0
+#: the output bytes of each kind of collective since ``start_timing``
+_kinds: dict[str, int] = {}
+#: the kinds of collective, as ``timed_kinds`` and the dry run name them
+KINDS = ("all_to_all", "all_to_all_v", "all_reduce", "broadcast")
 #: ``mesh_group``'s groups over several axes, by world, mesh and axes
 _mesh_groups: dict = {}
 
 
 def start_timing() -> None:
     """Time every collective from here on (the earlier timings dropped)."""
-    global _timed, _received
-    _timed, _received = [], 0
+    global _timed, _kinds
+    _timed, _kinds = [], dict.fromkeys(KINDS, 0)
+
+
+def timed_kinds() -> dict[str, int]:
+    """The output bytes of each kind of collective on this rank since
+    ``start_timing``."""
+    return dict(_kinds)
 
 
 def timed_bytes() -> int:
     """The bytes ``all_to_all_v`` received since ``start_timing``."""
-    return _received
+    return _kinds.get("all_to_all_v", 0)
 
 
 def timed_seconds() -> float:
@@ -87,10 +103,21 @@ def axis_index(group) -> int:
     return dist.get_rank(group)
 
 
-def _run(op, t: torch.Tensor) -> None:
+def _run(kind: str, op, t: torch.Tensor, group) -> None:
+    """Run the collective ``op`` whose output on this rank is ``t``;
+    count its bytes and time it while timing is on (see the module
+    docstring), note it in ``kernels.tally`` on a fake tensor."""
+    nbytes = t.numel() * t.element_size()
+    if tally.is_fake(t):
+        tally.note_collective(kind, dist.get_process_group_ranks(
+            group or dist.group.WORLD), nbytes)
+        op()
+        return
     if _timed is None:
         op()
-    elif t.is_cuda:
+        return
+    _kinds[kind] += nbytes
+    if t.is_cuda:
         ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev[0].record()
         op()
@@ -118,7 +145,9 @@ def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int
     # the split dim leads and is contiguous: block r is rows r*n/r.. of it
     send = xr.movedim(split_dim, 0).contiguous()
     recv = torch.empty_like(send)
-    _run(lambda: dist.all_to_all_single(recv, send, group=group), send)
+    _run("all_to_all",
+         lambda: dist.all_to_all_single(recv, send, group=group), recv,
+         group)
     block = list(xr.shape)
     block[split_dim] = n // r
     # (R, n/R, rest): received blocks in rank order, each back in place
@@ -157,6 +186,15 @@ def row_block(h: int, rank: int, n: int) -> tuple[int, int]:
     return (h * rank) // n, (h * (rank + 1)) // n
 
 
+def _host_ranks(mesh) -> np.ndarray:
+    """The mesh's global ranks as a host array, read with every dispatch
+    mode off (under a dry run's fake mode the mesh's rank tensor would be
+    made fake, and its values lost)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return np.asarray(mesh.mesh.tolist())
+
+
 def mesh_group(mesh, axes: tuple[str, ...]):
     """The process group over the mesh axes ``axes`` taken together,
     holding this rank: one axis is the mesh's own group; axes that cover
@@ -169,18 +207,18 @@ def mesh_group(mesh, axes: tuple[str, ...]):
     dims = [names.index(a) for a in axes]
     if len(dims) == 1:
         return mesh.get_group(axes[0])
-    ids = mesh.mesh
+    ids = _host_ranks(mesh)
     size = 1
     for d in dims:
         size *= ids.shape[d]
     if size == dist.get_world_size():
         return dist.group.WORLD
-    key = (dist.group.WORLD, tuple(ids.shape), tuple(ids.flatten().tolist()),
+    key = (dist.group.WORLD, ids.shape, tuple(ids.flatten().tolist()),
            tuple(names), tuple(axes))
     if key not in _mesh_groups:
-        rest = [d for d in range(ids.dim()) if d not in dims]
+        rest = [d for d in range(ids.ndim) if d not in dims]
         me = dist.get_rank()
-        for row in ids.permute(rest + dims).reshape(-1, size).tolist():
+        for row in ids.transpose(rest + dims).reshape(-1, size).tolist():
             g = dist.new_group(row)
             if me in row:
                 _mesh_groups[key] = g
@@ -189,7 +227,6 @@ def mesh_group(mesh, axes: tuple[str, ...]):
 
 def _all_to_all_v(x: torch.Tensor, group, dim: int, send_sizes, recv_sizes
                   ) -> torch.Tensor:
-    global _received
     r = axis_size(group)
     dim = dim % x.dim()
     if len(send_sizes) != r or len(recv_sizes) != r:
@@ -202,11 +239,10 @@ def _all_to_all_v(x: torch.Tensor, group, dim: int, send_sizes, recv_sizes
     # run of rows
     send = x.movedim(dim, 0).contiguous()
     recv = send.new_empty((sum(recv_sizes),) + send.shape[1:])
-    _run(lambda: dist.all_to_all_single(recv, send, list(recv_sizes),
+    _run("all_to_all_v",
+         lambda: dist.all_to_all_single(recv, send, list(recv_sizes),
                                         list(send_sizes), group=group),
-         send)
-    if _timed is not None:
-        _received += recv.numel() * recv.element_size()
+         recv, group)
     return recv.movedim(0, dim)
 
 
@@ -244,7 +280,8 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     if axis_size(group) > 1:
         buf = torch.view_as_real(out) if out.is_complex() else out
-        _run(lambda: dist.all_reduce(buf, group=group), buf)
+        _run("all_reduce", lambda: dist.all_reduce(buf, group=group), buf,
+             group)
     return out
 
 
@@ -282,7 +319,8 @@ def all_reduce_(tensors: list[torch.Tensor], group) -> None:
     if axis_size(group) == 1:
         return
     for part, flat in buckets(tensors):
-        _run(lambda: dist.all_reduce(flat, group=group), flat)
+        _run("all_reduce", lambda: dist.all_reduce(flat, group=group), flat,
+             group)
         o = 0
         for t in part:
             t.copy_(flat[o:o + t.numel()].view_as(t))
@@ -294,4 +332,5 @@ def broadcast_(tensors: list[torch.Tensor], src: int, group=None) -> None:
     if dist.get_world_size(group) == 1:
         return
     for t in tensors:
-        _run(lambda t=t: dist.broadcast(t, src, group=group), t)
+        _run("broadcast", lambda t=t: dist.broadcast(t, src, group=group), t,
+             group)

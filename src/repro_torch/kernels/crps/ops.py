@@ -7,6 +7,8 @@ counterpart of the JAX package's ``crps_pointwise_pallas``; the nodal
 average of ``nodal_crps_pallas`` is ``core.crps.nodal_crps_loss``.
 ``blocks`` (a ``BlockConfig`` of family "crps") picks the library built
 with another block size; both kernels of that library launch with it.
+On fake tensors (a dry run) the wrappers launch nothing: they note their
+``work`` in ``kernels.tally`` and return empty fake outputs.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tally
 from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.crps.ref import (crps_coeff, crps_fused_bwd_ref,
                                           crps_fused_ref)
@@ -26,6 +28,18 @@ bwd_launches = 0
 #: the largest ensemble the kernels take (members live in registers);
 #: must equal ``E_MAX`` in ``csrc/crps.cu``
 MAX_MEMBERS = 16
+
+
+def work(e: int, n: int, backward: bool = False) -> dict:
+    """FLOPs and bytes of one call on an ensemble (E, N): per point the
+    forward's 3E + 3E(E-1)/2 + 4 operations (the E(E-1)/2 pairs), E + 1
+    floats in and 1 out; the backward's E(3E + 6), E + 2 in (g too) and E
+    out."""
+    if backward:
+        return {"flops": float(e * (3 * e + 6)) * n,
+                "bytes": 4.0 * n * (2 * e + 2)}
+    return {"flops": float(3 * e + 3 * e * (e - 1) // 2 + 4) * n,
+            "bytes": 4.0 * n * (e + 2)}
 
 
 def reset_launches() -> None:
@@ -73,6 +87,10 @@ def crps_fused(ens: torch.Tensor, obs: torch.Tensor, fair: bool = False,
     """Pointwise ensemble CRPS: ens (E, N), obs (N,) -> (N,) float32;
     ``blocks``: the tile to launch (None: the committed one)."""
     global launches
+    if tally.is_fake(ens, obs):
+        e, n = ens.shape
+        tally.note("crps_fused", ((e, n), fair), work(e, n))
+        return ens.new_empty((n,), dtype=torch.float32)
     if ens.device.type == "cpu" and obs.device.type == "cpu":
         return crps_fused_ref(ens, obs, fair)
     _check(ens, obs)
@@ -94,6 +112,10 @@ def crps_fused_bwd(g: torch.Tensor, ens: torch.Tensor, obs: torch.Tensor,
                    ) -> torch.Tensor:
     """Gradient of ``sum(g * crps_fused(ens, obs))`` w.r.t. ens: (E, N)."""
     global bwd_launches
+    if tally.is_fake(g, ens, obs):
+        e, n = ens.shape
+        tally.note("crps_fused_bwd", ((e, n), fair), work(e, n, True))
+        return ens.new_empty((e, n), dtype=torch.float32)
     if all(t.device.type == "cpu" for t in (g, ens, obs)):
         return crps_fused_bwd_ref(g, ens, obs, fair)
     _check(ens, obs, g)

@@ -7,7 +7,10 @@ On CPU tensors each computes its plain version
 on CUDA tensors it launches its kernel or raises.  ``blocks`` (a
 ``BlockConfig`` of family "disco" or "disco_bwd") picks the library of
 another tile; the grid and the shared memory a launch needs come from
-that library's own exports (``*_constants``, ``*_smem_bytes``).
+that library's own exports (``*_constants``, ``*_smem_bytes``).  On
+fake tensors (a dry run) each launches nothing: it notes its ``work`` /
+``transpose_work`` in ``kernels.tally`` and returns an empty fake
+output.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tally
 from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.disco.ref import (disco_band_transpose_ref,
                                            disco_gather_band_contract_ref)
@@ -71,6 +74,42 @@ class RowTaps(NamedTuple):
     def of(cls, buffers: dict) -> "RowTaps":
         """The per-input-row lists of ``DiscoPlan.banded_buffers``."""
         return cls(buffers["in_ptr"], buffers["in_ent"], buffers["in_order"])
+
+
+def work(x_shape: tuple[int, int, int], psi_shape: tuple[int, ...],
+         stride: int, nnz: int) -> dict:
+    """FLOPs and bytes of one band contraction of x (B, H_in, W_in) with a
+    band (K, H_out, S, D) of ``nnz`` non-zeros: the taps the filter really
+    has at every output longitude, the dense band beside them, and x, the
+    band, ``lat_idx`` and the output once each."""
+    b, h_in, w_in = x_shape
+    k, h_out, s, d = psi_shape
+    w_out = w_in // stride
+    return {"flops": 2.0 * nnz * w_out * b,
+            "flops_dense": 2.0 * k * h_out * s * d * w_out * b,
+            "bytes": 4.0 * (b * h_in * w_in + k * h_out * s * d + h_out * s
+                            + b * k * h_out * w_out)}
+
+
+def transpose_work(g_shape: tuple[int, int, int, int],
+                   psi_shape: tuple[int, ...], h_in: int, stride: int,
+                   nnz: int, list_numel: int) -> dict:
+    """FLOPs and bytes of one transpose: the same taps as ``work``; g,
+    the live taps and their lists by input row (``list_numel`` entries in
+    all) in, gx (B, h_in, W_out * stride) out."""
+    b, k, h_out, w_out = g_shape
+    _, _, s, d = psi_shape
+    return {"flops": 2.0 * nnz * w_out * b,
+            "flops_dense": 2.0 * k * h_out * s * d * w_out * b,
+            "bytes": 4.0 * (b * k * h_out * w_out + list_numel
+                            + b * h_in * w_out * stride)}
+
+
+def list_numel(taps: LiveTaps, rows: RowTaps) -> int:
+    """The entries of the lists the transpose reads: the live taps'
+    entries and packed psi, and every list by input row."""
+    return (taps.ent.numel() + taps.psi.numel()
+            + sum(t.numel() for t in rows))
 
 
 def reset_launches() -> None:
@@ -167,6 +206,18 @@ def disco_band_contract(x: torch.Tensor, psi_band: torch.Tensor,
     tile to launch; None: the committed one).
     """
     global launches
+    if tally.is_fake(x, psi_band, lat_idx):
+        if x.dim() != 3 or psi_band.dim() != 4 or x.shape[-1] % stride:
+            raise ValueError(f"disco_band_contract: x {tuple(x.shape)}, "
+                             f"psi_band {tuple(psi_band.shape)}, stride "
+                             f"{stride} do not fit")
+        k, h_out = psi_band.shape[:2]
+        tally.note("disco_band_contract",
+                   (tuple(x.shape), tuple(psi_band.shape), stride),
+                   work(tuple(x.shape), tuple(psi_band.shape), stride,
+                        tally.nnz(psi_band)))
+        return x.new_empty((x.shape[0], k, h_out, x.shape[-1] // stride),
+                           dtype=torch.float32)
     if all(t.device.type == "cpu" for t in (x, psi_band, lat_idx)):
         return disco_gather_band_contract_ref(x, psi_band, lat_idx, stride)
     fn, tile, smem = _lib(blocks)
@@ -256,6 +307,17 @@ def disco_band_transpose(g: torch.Tensor, psi_band: torch.Tensor,
     (family "disco_bwd") to launch; None: the committed one.
     """
     global transpose_launches
+    if tally.is_fake(g, psi_band, lat_idx):
+        if g.dim() != 4 or psi_band.shape[:2] != g.shape[1:3]:
+            raise ValueError(f"disco_band_transpose: g {tuple(g.shape)} does "
+                             f"not fit psi_band {tuple(psi_band.shape)}")
+        tally.note("disco_band_transpose",
+                   (tuple(g.shape), tuple(psi_band.shape), h_in, stride),
+                   transpose_work(tuple(g.shape), tuple(psi_band.shape),
+                                  h_in, stride, tally.nnz(psi_band),
+                                  list_numel(taps, rows)))
+        return g.new_empty((g.shape[0], h_in, g.shape[-1] * stride),
+                           dtype=torch.float32)
     if all(t.device.type == "cpu" for t in (g, psi_band, lat_idx)):
         return disco_band_transpose_ref(g, psi_band, lat_idx, h_in, stride)
     fn, tile, smem = _bwd_lib(blocks)

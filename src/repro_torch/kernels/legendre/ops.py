@@ -9,6 +9,8 @@ each order only inside the extents it is given
 (``core.sphere.sht.order_extents`` of the table, passed explicitly).
 ``blocks`` (a ``BlockConfig`` of family "legendre") picks the library of
 another tile; the grid limits come from that library's own constants.
+On fake tensors (a dry run) it launches nothing: it notes the call's
+``work`` in ``kernels.tally`` and returns an empty fake output.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tally
 from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.legendre.ref import legendre_contract_ref
 
@@ -44,6 +46,21 @@ def _lib(blocks: BlockConfig | None):
                    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, build.constants(name, defines, CONSTANTS)
+
+
+def work(x_shape: tuple[int, int, int], n: int, complex_x: bool, nnz: int,
+         n_extents: int) -> dict:
+    """FLOPs and bytes of one call on x (B, K, M) and a (K, n, M) table
+    with ``nnz`` non-zeros: the products the data needs (the tables are
+    zero for m > l; a complex x counts its real and imaginary rows), the
+    dense count beside them, and x, the table, the extents and the output
+    once each."""
+    b, k, m = x_shape
+    parts = 2 if complex_x else 1
+    return {"flops": 2.0 * parts * b * nnz,
+            "flops_dense": 2.0 * parts * b * k * n * m,
+            "bytes": 4.0 * (parts * b * k * m + k * n * m + parts * b * n * m
+                            + n_extents)}
 
 
 def _check(x: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
@@ -103,6 +120,8 @@ def legendre_contract(x: torch.Tensor, table: torch.Tensor,
     the plain version ignores it.
     """
     global launches
+    if tally.is_fake(x, table, extents):
+        return _counted(x, table, extents)
     if x.device.type == "cpu" and table.device.type == "cpu":
         return legendre_contract_ref(x, table)
     _check(x, table, extents)
@@ -123,3 +142,24 @@ def legendre_contract(x: torch.Tensor, table: torch.Tensor,
     build.check_launch(err, "legendre_contract")
     launches += 1
     return out
+
+
+def _counted(x: torch.Tensor, table: torch.Tensor, extents: torch.Tensor
+             ) -> torch.Tensor:
+    """The dry run's call: shapes checked, the work noted, nothing run."""
+    if x.dim() != 3 or table.dim() != 3 or (x.shape[1], x.shape[2]) != (
+            table.shape[0], table.shape[2]):
+        raise ValueError(f"legendre_contract: x {tuple(x.shape)} and table "
+                         f"{tuple(table.shape)} do not fit")
+    n = table.shape[1]
+    tally.note("legendre_contract", call_key(x, table),
+               work(tuple(x.shape), n, x.is_complex(), tally.nnz(table),
+                    extents.numel()))
+    return x.new_empty((x.shape[0], n, x.shape[2]))
+
+
+def call_key(x: torch.Tensor, table: torch.Tensor) -> tuple:
+    """What tells one call's operands apart: x's shape and dtype, the
+    table's shape and whether it is a transposed view (the inverse)."""
+    return (tuple(x.shape), str(x.dtype).split(".")[-1], tuple(table.shape),
+            table.is_contiguous())

@@ -13,6 +13,9 @@ term stay plain torch, as the JAX package left them to XLA, and the
 recurrence over chunks (JAX's ``lax.scan``) is one kernel launch.
 ``blocks`` (a ``BlockConfig`` of family "ssd") picks the intra-chunk
 library built with another tile; the recurrence kernel keeps its own.
+On fake tensors (a dry run) neither kernel launches: each notes its
+``work`` / ``state_work`` in ``kernels.tally`` and returns empty fake
+outputs.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tally
 from repro_torch.kernels.config import BlockConfig, library_of
 from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
                                          ssd_intra_chunk_ref)
@@ -33,6 +36,30 @@ state_launches = 0
 #: the largest chunk, head dim and state dim the kernel takes; must equal
 #: ``L_MAX``, ``P_MAX`` and ``N_MAX`` in ``csrc/ssd.cu``
 L_MAX, P_MAX, N_MAX = 128, 64, 128
+
+
+def work(x_shape: tuple[int, int, int, int], g: int, n: int) -> dict:
+    """FLOPs and bytes of one intra-chunk call on x (BC, L, H, P) with
+    B and C (BC, L, G, N): the work the data needs (C B^T once per group
+    on the causal s <= l taps, att @ X on those taps and the state product,
+    per head), the dense count beside it, and x, da_cs, B, C in and y and
+    the states out."""
+    bc, l, h, p = x_shape
+    taps = l * (l + 1) // 2
+    return {"flops": 2.0 * bc * (g * taps * n + h * taps * p + h * l * p * n),
+            "flops_dense": 2.0 * bc * h * (l * l * n + l * l * p + l * p * n),
+            "bytes": 4.0 * (2 * bc * l * h * p + bc * l * h + 2 * bc * l * g * n
+                            + bc * h * p * n)}
+
+
+def state_work(states_shape: tuple[int, int, int, int, int]) -> dict:
+    """FLOPs and bytes of one recurrence over states (B, nc, H, P, N): a
+    multiply-add per entry; the states, the decays and the incoming state
+    in, the entering states and the final state out."""
+    bsz, nc, h, p, n = states_shape
+    numel = bsz * nc * h * p * n
+    return {"flops": 2.0 * numel,
+            "bytes": 4.0 * (2 * numel + bsz * nc * h + 2 * bsz * h * p * n)}
 
 
 def reset_launches() -> None:
@@ -126,6 +153,12 @@ def ssd_intra_chunk(x: torch.Tensor, da_cs: torch.Tensor, b_mat: torch.Tensor,
     """
     global launches
     _check(x, da_cs, b_mat, c_mat)
+    if tally.is_fake(x, da_cs, b_mat, c_mat):
+        g, n = b_mat.shape[2:]
+        tally.note("ssd_intra_chunk", (tuple(x.shape), tuple(b_mat.shape)),
+                   work(tuple(x.shape), g, n))
+        bc, _, h, p = x.shape
+        return x.new_empty(x.shape), x.new_empty((bc, h, p, n))
     if all(t.device.type == "cpu" for t in (x, da_cs, b_mat, c_mat)):
         return ssd_intra_chunk_ref(x, da_cs, b_mat, c_mat)
     _check_cuda(x, da_cs, b_mat, c_mat)
@@ -172,6 +205,10 @@ def chunk_recurrence(states: torch.Tensor, chunk_decay: torch.Tensor,
         if t.dtype != torch.float32:
             raise TypeError(f"chunk_recurrence: {name} must be float32, got "
                             f"{t.dtype}")
+    if tally.is_fake(states, chunk_decay, init):
+        tally.note("ssd_chunk_recurrence", (tuple(states.shape),),
+                   state_work(tuple(states.shape)))
+        return states.new_empty(states.shape), init.new_empty(init.shape)
     if all(t.device.type == "cpu" for _, t in named):
         return chunk_recurrence_ref(states, chunk_decay, init)
     _check_device("chunk_recurrence", named)

@@ -223,8 +223,9 @@ def setup(config: str, stage: str, batch: int = 1,
 def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
     """``steps`` optimizer steps, one ``step`` line each; returns each
     step's diagnostics as floats, with its ``seconds``, the seconds
-    ``collective_s`` spent in collectives and the bytes ``halo_bytes``
-    its halo exchanges brought this rank."""
+    ``collective_s`` spent in collectives, the bytes ``halo_bytes`` its
+    halo exchanges brought this rank and ``kind_bytes``, each kind of
+    collective's output bytes on this rank (``compat.timed_kinds``)."""
     dev = run.model.device
     history = []
     t0 = time.time()
@@ -238,7 +239,8 @@ def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
         vals = {k: float(v) for k, v in aux.items()}
         vals.update(seconds=time.time() - ts,
                     collective_s=compat.timed_seconds(),
-                    halo_bytes=compat.timed_bytes())
+                    halo_bytes=compat.timed_bytes(),
+                    kind_bytes=compat.timed_kinds())
         history.append(vals)
         run.steps_done += 1
         report(f"step {i:4d} loss={vals['loss']:.5f} "
@@ -251,7 +253,8 @@ def run_steps(run: TrainRun, steps: int, report=print) -> list[dict]:
 def dist_line(run: TrainRun, history: list[dict]) -> str:
     """This rank's ``[dist]`` line: seconds per step, the share in
     collectives, its row blocks and halo bytes per step (domain) or its
-    members (ensemble), kernel launches, peak memory."""
+    members (ensemble), each kind of collective's bytes per step, kernel
+    launches, peak memory."""
     import torch.distributed as dist
     from repro_torch.kernels.crps import ops as crps_ops
     from repro_torch.kernels.disco import ops as disco_ops
@@ -266,6 +269,9 @@ def dist_line(run: TrainRun, history: list[dict]) -> str:
                  f"{[int(h['halo_bytes']) for h in history]}")
     else:
         where = f"members={tr.tcfg.ensemble_size // tr.par.n_model}"
+    where += " bytes_by_kind=" + str(
+        [{k: v for k, v in h["kind_bytes"].items() if v}
+         for h in history])
     return (f"[dist] rank {dist.get_rank()}/{dist.get_world_size()} {where}"
             f" step_s={[round(h['seconds'], 3) for h in history]} "
             f"collective_share="

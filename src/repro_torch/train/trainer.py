@@ -89,6 +89,14 @@ class TrainConfig:
 DOMAIN_AXES = (sharding.MP, sharding.DP)
 
 
+def domain_axes(mesh) -> tuple:
+    """The domain decomposition's axes on ``mesh``: latitude over the
+    model axis, the batch over every other axis taken together
+    (``DOMAIN_AXES`` on a ``("data", "model")`` mesh)."""
+    rest = tuple(a for a in mesh.mesh_dim_names if a != sharding.MP)
+    return (sharding.MP, rest[0] if len(rest) == 1 else rest)
+
+
 def make_optimizer(cfg: TrainConfig) -> adamlib.Adam:
     """Adam at the stage's rate, halved every ``lr_halve_every`` steps."""
     lr = (adamlib.halving_schedule(cfg.lr, cfg.lr_halve_every)
@@ -113,7 +121,8 @@ class MeshGroups:
     def of(cls, axes: tuple, mesh) -> "MeshGroups":
         """The groups of ``axes`` = (model_axis[, data_axis]) on ``mesh``,
         which they must cover: the gradient sum runs over the whole
-        world."""
+        world.  The data axis may be a tuple of axes taken together (the
+        ``("pod", "data")`` of a multi-pod mesh)."""
         import torch.distributed as dist
         model_axis, data_axis = (tuple(axes) + (None,))[:2]
         if mesh is None or not isinstance(model_axis, str):
@@ -122,7 +131,8 @@ class MeshGroups:
         groups = {}
         for axis in (model_axis, data_axis):
             if axis is not None:
-                g = mesh.get_group(axis)
+                g = compat.mesh_group(
+                    mesh, axis if isinstance(axis, tuple) else (axis,))
                 groups[axis] = (g, dist.get_world_size(g), dist.get_rank(g))
         dg, nd, dr = groups.get(data_axis, (None, 1, 0))
         mg, nm, mr = groups[model_axis]
@@ -161,7 +171,8 @@ class EnsembleTrainer:
             model.grid_in.area_weights_2d().astype(np.float32)).to(dev)
         self.par = self.domain = None
         if tcfg.member_axes is not None or mesh is not None:
-            self.par = MeshGroups.of(tcfg.member_axes or DOMAIN_AXES, mesh)
+            self.par = MeshGroups.of(tcfg.member_axes or domain_axes(mesh),
+                                     mesh)
             if tcfg.member_axes is None:
                 self.domain = domain.DomainFCN3(model, self.par.model_group)
             elif tcfg.ensemble_size % self.par.n_model:

@@ -306,3 +306,39 @@ def crps_channels_rank(rank: int, world_size: int, setup: dict) -> dict:
     want = (crps_fused_ref(ens.reshape(e, -1), obs.reshape(-1), True)
             .reshape(c, s) * w).sum(dim=-1)
     return {"got": _np(got), "want": _np(want), "launches": ops.launches}
+
+
+def domain_kinds_rank(rank: int, world_size: int, sizes: tuple) -> dict:
+    """One domain-decomposed ``fcn3_smoke`` train step on a (data 1, model
+    R) mesh, as ``launch/dryrun.py`` builds it: (batch, ensemble,
+    rollout) = ``sizes``, random inputs on this rank's rows; returns each
+    kind of collective's output bytes on this rank (``compat``'s count)."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.configs.fcn3 import channel_weights
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import compat
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import trainer as ttr
+    b, e, t = sizes
+    mesh = make_mesh((1, world_size), ("data", "model"), "cpu")
+    cfg = tcfgs.fcn3_smoke()
+    model = FCN3(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(ensemble_size=e,
+                                                    rollout_steps=t),
+                             channel_weights(cfg.n_levels), mesh=mesh)
+    lo, hi = tr.domain.io_block
+    bufs = dict(tr.domain.make_buffers(), **tr.make_loss_buffers())
+    g = torch.Generator().manual_seed(1)
+    batch = {"state": torch.randn((b, cfg.n_state, hi - lo, cfg.nlon),
+                                  generator=g),
+             "targets": torch.randn((b, t, cfg.n_state, hi - lo, cfg.nlon),
+                                    generator=g),
+             "aux": torch.randn((b, t, cfg.n_aux, hi - lo, cfg.nlon),
+                                generator=g)}
+    opt = tr.optimizer.init(dict(model.named_parameters()))
+    compat.start_timing()
+    tr.train_step(bufs, opt, batch, GeneratorNoise(torch.Generator()))
+    return {"kinds": compat.timed_kinds(), "rows": (lo, hi),
+            "jax_loaded": "jax" in sys.modules}

@@ -1000,3 +1000,54 @@ def test_cuda_tuned_engine_matches_untuned(cuda):
         torch.testing.assert_close(b.scores[name], v, rtol=1e-4,
                                    atol=1e-5 if name == "rank_hist"
                                    else 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_dry_run_counts_the_launches_of_a_train_step(cuda):
+    """The dry run on fake CUDA tensors (``launch/dryrun.py``) against a
+    real ``fcn3_smoke`` train step on the card: each kernel family's
+    calls equal its launches, and the dry run itself launches nothing."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.launch import counting, dryrun, roofline
+    from repro_torch.train import trainer as ttr
+    cfg = tcfgs.fcn3_smoke()
+
+    def launches():
+        return {"disco_band_contract": disco_ops.launches,
+                "disco_band_transpose": disco_ops.transpose_launches,
+                "legendre_contract": legendre_ops.launches,
+                "crps_fused": crps_ops.launches,
+                "crps_fused_bwd": crps_ops.bwd_launches}
+
+    before = launches()
+    with counting.DryRun() as dry:
+        assert dry.device.type == "cuda"
+        case = dryrun.build_fcn3_case("train", None, dry, cfg=cfg,
+                                      sizes=(1, 2, 1))
+        rl, counts = roofline.analyze("smoke", case.step, case.args, 1,
+                                      case.model_flops, dry)
+    assert launches() == before
+    model = FCN3(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(ensemble_size=2),
+                             tcfgs.channel_weights(cfg.n_levels))
+    bufs = dict(model.make_buffers(), **tr.make_loss_buffers())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    hw = (cfg.nlat, cfg.nlon)
+    batch = {"state": torch.randn((1, cfg.n_state) + hw, generator=g,
+                                  device="cuda"),
+             "targets": torch.randn((1, 1, cfg.n_state) + hw, generator=g,
+                                    device="cuda"),
+             "aux": torch.randn((1, 1, cfg.n_aux) + hw, generator=g,
+                                device="cuda")}
+    opt = tr.optimizer.init(dict(model.named_parameters()))
+    before = launches()
+    tr.train_step(bufs, opt, batch, GeneratorNoise(
+        torch.Generator(device="cuda").manual_seed(2)))
+    torch.cuda.synchronize()
+    after = launches()
+    assert {f: v["calls"] for f, v in counts.kernels.items()} == {
+        k: after[k] - before[k] for k in after}
+    assert rl.t_compute > 0 and rl.t_memory > 0 and counts.peak_bytes > 0
