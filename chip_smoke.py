@@ -7,8 +7,10 @@ Phases, each printing its own lines; any failure ends the run with a
 non-zero exit code and no result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the ``nvcc`` build of every kernel source (one process each, in
-   parallel);
+   host checks of index arithmetic in numpy (``[host]`` lines: the
+   attention's query tiles at zamba2-2.7b's prefill and the SSD kernel's
+   grid at its 80 heads, a ragged last head tile of 8), and the ``nvcc``
+   build of every kernel source (one process each, in parallel);
 2. the main path: ``repro_torch.launch.serve``'s scored ensemble forecast
    (calibrated init, then members x leads against synthetic truth) with
    every kernel launch counter set to 0 just before and read just after;
@@ -135,8 +137,28 @@ non-zero exit code and no result line:
    for the steady time, 32 decode steps at ``decode_32k``'s batch of
    128 from an empty cache, and the prefill's logits for 256 tokens of
    2 sequences against 256 recurrent decode steps (``LM_CONSIST_TOL``);
-   no plain version may run on a CUDA tensor; then the ``mamba2-130m``
-   smoke widths with the SSD kernel against the reference scan;
+   no plain version may run on a CUDA tensor;
+6b. the attention LMs (``[lm-hybrid]`` lines), with the plain-version
+   guard set to 0 just before and read just after: ``zamba2-2.7b`` at
+   its published widths (54 Mamba-2 layers, 9 units closed by the shared
+   attention block, random weights): one prefill at ``prefill_32k`` with
+   its batch cut 32 -> 1 (both SSD launch counts set to 0 just before and
+   read just after: exactly 54 of each; logits finite), a second for the
+   steady time, a third under ``torch.profiler`` (busy share, kernels by
+   device time, device time by kind of kernel) and one unit's attention
+   timed alone, 32 decode steps at ``decode_32k`` with its batch cut 128
+   -> 4, twice, 4 more under ``torch.profiler`` (busy share, device time
+   by kind of kernel), and prefill against recurrent decode over 2 x 256
+   tokens (``LM_CONSIST_TOL``); then, each at its published widths
+   (``ATTN_FAMILY_CHECKS``), ``mistral-nemo-12b`` cut to 2 of its 40
+   layers (G = 4 query heads a KV head), ``whisper-small`` (the encoder
+   and cross-attention) and ``llava-next-34b`` cut to 2 of its 60 layers
+   (patches put before the tokens): a prefill at batch 1 and prefill
+   against decode over 2 x 128 tokens; then the ``mamba2-130m`` and
+   ``zamba2-2.7b`` smoke widths with the SSD kernel against the
+   reference scan, and both SSD kernels against their
+   plain versions on the operands of the hybrid prefill's first layer
+   (path ``lm_hybrid`` in the kernels JSON);
 7. every kernel against its plain torch version, on the card: the
    Legendre kernel at each table the forecast used (its largest batch),
    the band contraction timed at every distinct (psi, stride, batch) the
@@ -251,6 +273,11 @@ DIST_BACKEND, DIST_GRID, DIST_CHANNELS = "gloo", (2, 2), 644
 #: step, the second is the steady one (the first pays each process's
 #: warm-up, as the training phase's own first step does)
 DIST_TRAIN_RANKS, DIST_TRAIN_STEPS = 2, 2
+#: (d3)'s transposes on rank 0's rows are timed at their shape, but held
+#: to the plain version on their first DIST_PLAIN_PLANES planes only (the
+#: planes are independent): the whole plain version took 33 s there and
+#: repeats the whole band's, timed in phase 7
+DIST_PLAIN_PLANES = 8
 #: the single-process loss vs the distributed one
 DIST_LOSS_RTOL = 1e-5
 #: (d2) the domain step's forward at fcn3_small over 4 ranks (ragged IO
@@ -299,6 +326,33 @@ LM_ARCH, LM_PREFILL_BATCH, LM_DECODE_STEPS = "mamba2-130m", 2, 32
 #: multiplies 128 per-step decays; ~1e-5 relative per layer, through 24
 #: residual layers, with a margin of ~10x
 LM_CONSIST_TOKENS, LM_CONSIST_TOL = 256, 1e-3
+#: the hybrid LM path: zamba2-2.7b at its published widths (54 Mamba-2
+#: layers of 80 SSD heads, 9 units each closed by the one shared
+#: attention block, d_model 2560, vocab 32000); prefill_32k with its
+#: batch cut 32 -> 1 (logits 1 x 32768 x 32000 fp32 = 4.2 GB), decode_32k
+#: with its batch cut 128 -> 4 (KV caches 24.5 GB; 785 GB at 128) for
+#: LM_DECODE_STEPS steps; prefill vs recurrence over 2 x 256 tokens (two
+#: chunks of 128) at LM_CONSIST_TOL
+HYBRID_ARCH, HYBRID_PREFILL_BATCH, HYBRID_DECODE_BATCH = "zamba2-2.7b", 1, 4
+#: decode steps of the hybrid under torch.profiler
+HYBRID_PROFILED_STEPS = 4
+#: the other attention families, each at its published widths: (arch,
+#: decoder layers kept (None: all), prefill length at batch 1, tokens of
+#: the prefill vs decode check over 2 sequences at LM_CONSIST_TOL).
+#: mistral-nemo-12b cut to 2 of its 40 layers (the script's time, not
+#: memory, forces the cut: the times are a 2-layer slice's): dense GQA
+#: with G = 4 (32 query heads over 8 KV heads of 128, rope theta 1e6,
+#: vocab 131072), a prefill at 1 x 4096.  whisper-small, all 12 encoder and 12 decoder
+#: layers: the audio path (the non-causal encoder over 1500 frames,
+#: cross-attention in the prefill and, through ``enc_states``, in every
+#: decode step), prefill_32k's sequence at batch 1.  llava-next-34b cut
+#: to 2 of its 60 layers (the 60 are 137 GB fp32, more than the card
+#: holds): the VLM path, its 2880 patches put before 29,888 tokens at
+#: prefill_32k's sequence, batch 1, G = 7; decode takes no patches, so
+#: its prefill vs decode runs on text alone
+ATTN_FAMILY_CHECKS = (("mistral-nemo-12b", 2, 4096, 128),
+                      ("whisper-small", None, 32768, 128),
+                      ("llava-next-34b", 2, 32768, 128))
 
 
 def log(msg: str) -> None:
@@ -596,7 +650,8 @@ def check_disco(ent, name, full: bool) -> dict:
 
 
 def check_transpose(ent, name, library: bool = True,
-                    band: dict | None = None, tuned=None) -> dict:
+                    band: dict | None = None, tuned=None,
+                    plain_planes: int | None = None) -> dict:
     """Band transpose kernel vs its plain version at one training shape,
     its launches there, and with ``library`` the ``conv_transpose1d``
     yardstick's time (one call: it takes seconds, see PERF.md; timed once
@@ -607,7 +662,9 @@ def check_transpose(ent, name, library: bool = True,
     takes the first planes of both (the planes are independent), so the
     plain version runs, and is timed, once per band.  ``tuned``: the
     winning tile of [tune] at this shape (a ``BlockConfig``), held to the
-    same plain output."""
+    same plain output.  ``plain_planes``: the plain version runs, untimed,
+    on g's first planes only, and the kernel's first planes are held to
+    it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.disco import ops
@@ -633,10 +690,14 @@ def check_transpose(ent, name, library: bool = True,
     def plain():
         return disco_band_transpose_ref(g, psi, lat_idx, h_in, stride)
 
-    got = kernel()
+    out = kernel()
+    got = out[:plain_planes] if plain_planes else out
     plain_ms = None
     if reuse:
         ref = band["ref"][:b]
+    elif plain_planes:
+        ref = disco_band_transpose_ref(g[:plain_planes].contiguous(), psi,
+                                       lat_idx, h_in, stride)
     else:
         # the plain version: one timed call (seconds at these shapes)
         refs = []
@@ -645,8 +706,8 @@ def check_transpose(ent, name, library: bool = True,
         if band is not None:
             band.update(g=g, ref=ref)
     abs_err, rel_err = errors(got, ref)
-    deterministic = torch.equal(got, kernel())
-    del got
+    deterministic = torch.equal(out, kernel())
+    del got, out
     tuned_err = None
     if tuned is not None:
         tuned_err = errors(ops.disco_band_transpose(
@@ -695,7 +756,7 @@ def check_transpose(ent, name, library: bool = True,
                library_ms=lib_ms, library_rel_err=lib_err, flops=flops,
                flops_dense=flops_dense, bytes=nbytes,
                tflops=flops / ms / 1e9, dense_band_tflops=flops_dense / ms
-               / 1e9, **bound(flops, nbytes))
+               / 1e9, plain_planes=plain_planes, **bound(flops, nbytes))
     row["ms_over_bound"] = ms / row["bound_ms"]
     if tuned is not None:
         row["tuned_rel_err"] = tuned_err
@@ -704,7 +765,9 @@ def check_transpose(ent, name, library: bool = True,
         if not tuned_err <= REL_TOL:
             raise AssertionError(f"transpose {name}: the tuned tile "
                                  f"disagrees with plain (rel {tuned_err})")
-    plain_txt = "(the widest shape's)" if reuse else f"{plain_ms:.3f}"
+    plain_txt = ("(the widest shape's)" if reuse else
+                 f"(untimed, on the first {plain_planes} planes)"
+                 if plain_planes else f"{plain_ms:.3f}")
     log(f"[kernel] transpose {name} {row['shape']}: "
         f"launches={ent['launches']} abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} ms={ms:.3f} plain_ms={plain_txt} "
@@ -903,14 +966,74 @@ def any_stride_transpose(stride: int) -> dict:
             "launches": 0}
 
 
-def lm_small_input_check() -> float:
-    """mamba2-130m smoke widths on the card: the SSD kernel path vs the
-    reference scan, from the same weights and tokens."""
+def host_checks(report) -> None:
+    """Index arithmetic of this run's new shapes, in numpy before the
+    first card call: the attention's query tiles at zamba2-2.7b's prefill
+    (each row once, every key its rows may see, a tile's scores within
+    ``TILE_SCORE_BYTES``), and the SSD kernel's grid at its 80 heads
+    (``csrc/ssd.cu``: block -> chunk, group, head tile; heads in tiles of
+    ``HEADS_PER_BLOCK`` = 24, the last one ragged)."""
+    import numpy as np
+    from repro_torch.configs import archs
+    from repro_torch.kernels.config import BLOCK_DEFAULTS
+    from repro_torch.models import attention as attn
+    cfg = archs.get_arch(HYBRID_ARCH)
+    s, h = 32768, cfg.n_heads
+    rows = attn.query_rows(HYBRID_PREFILL_BATCH, h, s)
+    tiles = list(attn.query_tiles(s, s, rows, True, 0, True))
+    tile_bytes = 4 * HYBRID_PREFILL_BATCH * h * rows * s
+    seen = np.zeros(s, np.int64)
+    for q0, q1, k0, k1 in tiles:
+        seen[q0:q1] += 1
+        if not (k0 == 0 and k1 == q1):
+            raise AssertionError(f"causal tile {q0}:{q1} reads keys "
+                                 f"{k0}:{k1}, want 0:{q1}")
+    full = 4 * HYBRID_PREFILL_BATCH * h * s * s
+    if not ((seen == 1).all() and tile_bytes <= attn.TILE_SCORE_BYTES
+            and 2 * tile_bytes < 10e9):
+        raise AssertionError(f"query tiles: rows {rows}, {tile_bytes} B a "
+                             f"tile, rows covered {np.unique(seen)}")
+    report(f"[host] attention at {HYBRID_ARCH} prefill 1 x {s}, {h} heads: "
+           f"{rows} query rows a tile, {len(tiles)} tiles a layer, "
+           f"{tile_bytes / 2**30:.1f} GiB of scores a tile (~"
+           f"{2 * tile_bytes / 2**30:.1f} GiB with the probabilities) "
+           f"against {full / 1e9:.1f} GB untiled")
+    # csrc/ssd.cu's launch and block prologue, emulated
+    ssm = cfg.ssm
+    hpb = BLOCK_DEFAULTS["ssd"]["HEADS_PER_BLOCK"]
+    heads, g = ssm.n_heads, ssm.n_groups
+    rep = heads // g
+    ht = min(hpb, rep)
+    n_tiles = (rep + ht - 1) // ht
+    bc = 3                       # a few chunks; the grid repeats per chunk
+    cover = np.zeros((bc, heads), np.int64)
+    sizes = []
+    for block in range(bc * g * n_tiles):
+        per_chunk = g * n_tiles
+        c, grp, tile = (block // per_chunk, (block % per_chunk) // n_tiles,
+                        block % n_tiles)
+        h0 = grp * rep + tile * ht
+        nh = min(ht, rep - tile * ht)
+        if c == 0:
+            sizes.append(nh)
+        cover[c, h0:h0 + nh] += 1
+    if not ((cover == 1).all() and sizes == [24, 24, 24, 8]):
+        raise AssertionError(f"SSD grid at H={heads}: tiles {sizes}, heads "
+                             f"covered {np.unique(cover)}")
+    report(f"[host] SSD grid at H={heads}, G={g}: {n_tiles} head tiles a "
+           f"group of {sizes} heads (HEADS_PER_BLOCK={hpb}), every head of "
+           f"every chunk once; {s // ssm.chunk * n_tiles} blocks a "
+           f"sequence")
+
+
+def lm_small_input_check(arch: str = LM_ARCH) -> float:
+    """An architecture's smoke widths on the card: the SSD kernel path vs
+    the reference scan, from the same weights and tokens."""
     import torch
     from repro_torch.configs import archs
     from repro_torch.kernels.config import KernelConfig
     from repro_torch.models.transformer import LM
-    cfg = archs.smoke_config(LM_ARCH)
+    cfg = archs.smoke_config(arch)
     tokens = torch.randint(0, cfg.vocab_size, (2, 200), device="cuda",
                            generator=torch.Generator(
                                device="cuda").manual_seed(8))
@@ -968,18 +1091,216 @@ def lm_phase(report) -> dict:
         out[key] = d
     torch.cuda.empty_cache()
     # prefill logits vs the recurrence over the same tokens
-    tokens = lm_mod.random_tokens(model, (2, LM_CONSIST_TOKENS), seed=3)
     before = ssd_ops.launches
-    full = model(tokens)
+    c = _consistency(model, LM_CONSIST_TOKENS, seed=3)
     out["consist_launches"] = ssd_ops.launches - before
-    cache = model.init_cache(2, LM_CONSIST_TOKENS)
+    out["consist_err"], out["consist_scale"] = c["err"], c["scale"]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _consistency(model, n_tokens: int, seed: int) -> dict:
+    """Prefill logits of 2 x ``n_tokens`` random tokens against as many
+    decode steps through the caches: the largest difference and the
+    largest logit.  An audio model's prefill takes encoder frames, and
+    its decode steps the encoder's output over them."""
+    import torch
+    from repro_torch.launch import lm as lm_mod
+    tokens = lm_mod.random_tokens(model, (2, n_tokens), seed=seed)
+    pre, dec = {}, {}
+    if model.cfg.family == "audio":
+        pre = lm_mod.front_end_inputs(model, 2, "prefill", seed)
+        dec = {"enc_states": model.encode_audio(pre["enc_frames"])}
+    full = model(tokens, **pre)
+    cache = model.init_cache(2, n_tokens)
     diffs = []
-    for t in range(LM_CONSIST_TOKENS):
-        step, cache = model.decode_step(tokens[:, t:t + 1], cache, t)
+    for t in range(n_tokens):
+        step, cache = model.decode_step(tokens[:, t:t + 1], cache, t, **dec)
         diffs.append((step[:, 0] - full[:, t]).abs().max())
-    out["consist_err"] = float(torch.stack(diffs).max())
-    out["consist_scale"] = float(full.abs().max())
-    del model, full, cache
+    out = {"err": float(torch.stack(diffs).max()),
+           "scale": float(full.abs().max())}
+    del full, cache
+    return out
+
+
+def _profile_split(prof) -> dict:
+    """Device time (ms) of a profiled run by kind of kernel: the two SSD
+    kernels, cuBLAS GEMMs, softmax, copies (memcpy, ``copy_``, ``cat``),
+    the rest."""
+    import torch
+    split = dict.fromkeys(("ssd_intra_chunk", "ssd_state", "gemm",
+                           "softmax", "copy", "other"), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = ("ssd_intra_chunk" if "ssd_intra_chunk" in name
+                else "ssd_state" if "ssd_state" in name
+                else "gemm" if "gemm" in name
+                else "softmax" if "softmax" in name
+                else "copy" if "copy" in name else "other")
+        split[kind] += e.time_range.elapsed_us() / 1e3
+    return split
+
+
+def lm_hybrid_phase(report) -> dict:
+    """zamba2-2.7b's serving path at full width: prefill (counted),
+    prefill again (steady), one more under torch.profiler (device
+    activity), the shared block's attention timed alone, decode twice,
+    and prefill vs recurrence; with the host seconds of each part."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import lm as lm_mod
+    from repro_torch.models import attention as attn
+    from repro_torch.models import common as cm
+    pre = shapes.INPUT_SHAPES["prefill_32k"]
+    dec = shapes.INPUT_SHAPES["decode_32k"]
+    t0 = time.time()
+    model = lm_mod.build_model(HYBRID_ARCH, shape=pre.name, seed=0,
+                               device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = model.param_count()
+    report(f"[lm-hybrid] arch={cfg.name} layers={cfg.n_layers} "
+           f"units={model.n_units} (a shared attention block every "
+           f"{cfg.attn_every}) d_model={cfg.d_model} heads={cfg.n_heads} "
+           f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim} "
+           f"ssd_heads={cfg.ssm.n_heads} d_state={cfg.ssm.d_state} "
+           f"chunk={cfg.ssm.chunk} vocab={cfg.padded_vocab} "
+           f"params={n_params} ({4 * n_params / 1e9:.2f} GB fp32) "
+           f"setup_s={time.time() - t0:.1f}; cuts: prefill_32k batch "
+           f"{pre.global_batch} -> {HYBRID_PREFILL_BATCH}, decode_32k batch "
+           f"{dec.global_batch} -> {HYBRID_DECODE_BATCH}, random weights "
+           f"(seed 0), no depth cut")
+    out = {"n_layers": cfg.n_layers, "units": model.n_units,
+           "params": n_params}
+    parts = out["parts_s"] = {"setup": time.time() - t0}
+    t0 = time.time()
+    ssd_ops.reset_launches()
+    first = lm_mod.run_prefill(model, HYBRID_PREFILL_BATCH, pre.seq_len,
+                               seed=1, report=report)
+    out["launches"] = ssd_ops.launches
+    out["state_launches"] = ssd_ops.state_launches
+    logits = first.pop("logits")
+    out["logits_shape"] = tuple(logits.shape)
+    out["logits_finite"] = bool(torch.isfinite(logits).all())
+    out["logits_max"] = float(logits.abs().max())
+    del logits
+    out["prefill"] = first
+    steady = lm_mod.run_prefill(model, HYBRID_PREFILL_BATCH, pre.seq_len,
+                                seed=1, report=report)
+    del steady["logits"]
+    out["prefill_steady"] = steady
+    parts["prefills"] = time.time() - t0
+    t0 = time.time()
+    # device activity only: the report reads the device's events, and
+    # recording host ops would slow the launch of 7,000 kernels
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_run = lm_mod.run_prefill(model, HYBRID_PREFILL_BATCH,
+                                      pre.seq_len, seed=1, report=report)
+    del prof_run["logits"]
+    out["profile"] = lm_mod.report_profile(prof, prof_run["seconds"],
+                                           report, top=10)
+    out["split_ms"] = _profile_split(prof)
+    del prof
+    # one unit's attention alone (the shared block's GQA at the prefill's
+    # shape, its projections included), for the profile's split
+    h = torch.randn((HYBRID_PREFILL_BATCH, pre.seq_len, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    h = cm.rmsnorm(model.shared_attn.ln_attn, h, cfg.norm_eps)
+    p = model.shared_attn.attn.params()
+    acfg = cfg.attn_config()
+    out["attn_unit_ms"] = cuda_ms(lambda: attn.apply_gqa_train(p, acfg, h),
+                                  reps=3)
+    del h
+    torch.cuda.empty_cache()
+    parts["profile"] = time.time() - t0
+    t0 = time.time()
+    out["decode_finite"] = True
+    for key in ("decode", "decode_steady"):
+        d = lm_mod.run_decode(model, HYBRID_DECODE_BATCH, dec.seq_len,
+                              LM_DECODE_STEPS, seed=2, report=report)
+        out["decode_finite"] &= bool(torch.isfinite(d.pop("logits")).all())
+        out["cache_gb"] = sum(t.numel() * t.element_size() for t in
+                              d.pop("cache")["shared_attn"]["self"].values()
+                              ) / 1e9
+        out[key] = d
+    torch.cuda.empty_cache()
+    # HYBRID_PROFILED_STEPS decode steps under torch.profiler after one
+    # warm step, from a fresh cache: the device's busy share of a step and
+    # its time by kind of kernel
+    cache = model.init_cache(HYBRID_DECODE_BATCH, dec.seq_len)
+    tok = lm_mod.random_tokens(model, (HYBRID_DECODE_BATCH, 1), seed=2)
+    model.decode_step(tok, cache, 0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for pos in range(1, 1 + HYBRID_PROFILED_STEPS):
+            model.decode_step(tok, cache, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    del cache
+    out["decode_profile"] = lm_mod.report_profile(prof, wall, report, top=8)
+    out["decode_split_ms"] = _profile_split(prof)
+    del prof
+    torch.cuda.empty_cache()
+    parts["decode"] = time.time() - t0
+    t0 = time.time()
+    before = ssd_ops.launches
+    c = _consistency(model, LM_CONSIST_TOKENS, seed=3)
+    out["consist_launches"] = ssd_ops.launches - before
+    out["consist_err"], out["consist_scale"] = c["err"], c["scale"]
+    parts["consistency"] = time.time() - t0
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_family_phase(report, arch: str, layers: int | None,
+                           prefill_len: int, consist_tokens: int) -> dict:
+    """``arch`` at its published widths (``layers`` of its decoder layers
+    where given): a prefill at 1 x ``prefill_len`` with its front end's
+    stubs, and prefill vs decode over 2 x ``consist_tokens`` tokens."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.launch import lm as lm_mod
+    t0 = time.time()
+    resident = torch.cuda.memory_allocated() / 1e9
+    model = lm_mod.build_model(arch, shape="prefill_32k", seed=0,
+                               device="cuda", layers=layers)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = model.param_count()
+    front = (f" encoder_layers={cfg.n_encoder_layers} encoder_seq="
+             f"{cfg.encoder_seq}" if cfg.family == "audio" else
+             f" patches={cfg.n_patches}" if cfg.family == "vlm" else "")
+    report(f"[lm-hybrid] {cfg.family} arch={cfg.name} layers={cfg.n_layers} "
+           f"(of {archs.get_arch(arch).n_layers}){front} "
+           f"d_model={cfg.d_model} heads={cfg.n_heads} "
+           f"kv_heads={cfg.n_kv_heads} (G={cfg.n_heads // cfg.n_kv_heads}) "
+           f"head_dim={cfg.head_dim} rope_theta={cfg.rope_theta:g} "
+           f"vocab={cfg.padded_vocab} params={n_params} "
+           f"({4 * n_params / 1e9:.2f} GB fp32) resident_before_gb="
+           f"{resident:.2f} setup_s={time.time() - t0:.1f}")
+    out = {"arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "params": n_params, "prefill_len": prefill_len,
+           "consist_tokens": consist_tokens,
+           "want_logits": (1, prefill_len, cfg.padded_vocab)}
+    pf = lm_mod.run_prefill(model, 1, prefill_len, seed=1, report=report)
+    logits = pf.pop("logits")
+    out["logits_shape"] = tuple(logits.shape)
+    out["logits_finite"] = bool(torch.isfinite(logits).all())
+    del logits
+    out["prefill"] = pf
+    c = _consistency(model, consist_tokens, seed=3)
+    out["consist_err"], out["consist_scale"] = c["err"], c["scale"]
+    out["phase_s"] = time.time() - t0
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -2504,7 +2825,8 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
             # whole band's work, timed in phase 7
             row = check_transpose(dict(ent, shape=g,
                                        launches=sum(bwd.values())), what,
-                                  library=False)
+                                  library=False,
+                                  plain_planes=DIST_PLAIN_PLANES)
             rows.append(dict(row, kernel="disco_band_transpose",
                              path="dist_domain"))
             torch.cuda.empty_cache()
@@ -2978,6 +3300,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.configs import fcn3 as fcn3cfg
     from repro_torch.kernels import build
     from repro_torch.kernels.disco import ops as disco_ops
     from repro_torch.kernels.legendre import ops as legendre_ops
@@ -2987,12 +3310,21 @@ def main() -> int:
     set_precision()
     torch.backends.cudnn.benchmark = False
 
+    # host seconds of each phase, printed at the end against the limit
+    phase_s: dict = {}
+    t_lap = [time.time()]
+
+    def lap(name: str) -> None:
+        phase_s[name] = time.time() - t_lap[0]
+        t_lap[0] = time.time()
+
     # -- phase 1: card, versions, build ----------------------------------
     card = card_line()
     log(f"[card] {card}")
     log(f"[versions] python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
         f" count {torch.cuda.device_count()}")
+    host_checks(log)
     t0 = time.time()
     build.build_all()
     log(f"[build] {len(build.SOURCES)} kernels built in "
@@ -3007,6 +3339,7 @@ def main() -> int:
     dist_tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     atexit.register(shutil.rmtree, dist_tmp, ignore_errors=True)
 
+    lap("build")
     # -- phase 2: the main path -------------------------------------------
     guard = PlainGuard()
     rec = Recorder()
@@ -3101,6 +3434,7 @@ def main() -> int:
     if not fw["finite"]:
         raise AssertionError("the timed forward is not finite")
 
+    lap("main")
     # -- phase 2a: the kernel tiles tuned on this card, a tuned lead -------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3127,6 +3461,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("tune")
     # -- phase 2b: the engine's other paths on the same model --------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3198,6 +3533,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("engine")
     # -- phase 2d: the WB2 evaluation CLI from [main]'s parameters ---------
     ev = evaluate_phase(log, forecast["ckpt"], guard)
     log(f"[evaluate] config={CONFIG} members={EVAL_MEMBERS} leads="
@@ -3214,6 +3550,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("evaluate")
     # -- phase 2c: the forecast service (the forecast's model is gone) ------
     # packed with [tune]'s cache installed: the replica boots with its
     # tunings and their libraries
@@ -3287,12 +3624,14 @@ def main() -> int:
         f"plain_calls_on_cuda={svc['boot_plain']}")
     del svc
 
+    lap("service")
     # -- phase 3: small input against the reference path -------------------
     err = small_input_check()
     log(f"[check] fcn3_smoke kernel path vs reference path on the card: "
         f"max_abs_err={err:.3e} (rtol=1e-4, atol=1e-5)")
     torch.cuda.empty_cache()
 
+    lap("small_check")
     # -- phase 4: training (the forecast's model is gone) ----------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3340,6 +3679,7 @@ def main() -> int:
                 summary["step_launches"], summary["step_s"][-1],
                 summary["peak_mem_gb"])
 
+    lap("train")
     # -- phase 5: small-input gradients against the reference path ----------
     gerr = small_gradient_check()
     log(f"[check] fcn3_smoke train-step gradients, kernel path vs reference "
@@ -3347,6 +3687,7 @@ def main() -> int:
         f"(rtol={GRAD_RTOL}, atol={GRAD_ATOL})")
     torch.cuda.empty_cache()
 
+    lap("gradient_check")
     # -- phase 5b: distribution, every rank a process on the card ----------
     try:
         dist = dist_phase(log, summary.pop("step0"), dist_tmp, forecast)
@@ -3364,6 +3705,7 @@ def main() -> int:
     del forecast
     torch.cuda.empty_cache()
 
+    lap("dist")
     # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -3372,7 +3714,6 @@ def main() -> int:
     lm = lm_phase(log)
     lm_rec.close()
     lm_plain_calls = dict(guard.counts)
-    guard.close()
     pf, ps, dc, ds = (lm["prefill"], lm["prefill_steady"], lm["decode"],
                       lm["decode_steady"])
     consist_rel = lm["consist_err"] / lm["consist_scale"]
@@ -3407,11 +3748,109 @@ def main() -> int:
     if any(lm_plain_calls.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors on the LM "
                              f"path: {lm_plain_calls}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("lm")
+    # -- phase 6b: the attention LMs at their published widths ----------
+    hy_rec = Recorder()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    t_hy = time.time()
+    hy = lm_hybrid_phase(log)
+    hy_rec.close()
+    fams = [attention_family_phase(log, *c) for c in ATTN_FAMILY_CHECKS]
+    hy_s = time.time() - t_hy
+    hy_plain_calls = dict(guard.counts)
+    guard.close()
+    hpf, hps, hdc, hds = (hy["prefill"], hy["prefill_steady"], hy["decode"],
+                          hy["decode_steady"])
+    hy_rel = hy["consist_err"] / hy["consist_scale"]
+    split, busy = hy["split_ms"], hy["profile"]["busy_s"]
+    attn_ms = hy["attn_unit_ms"] * hy["units"]
+    log(f"[lm-hybrid] prefill batch={HYBRID_PREFILL_BATCH} seq_len=32768: "
+        f"seconds={hpf['seconds']:.3f} (steady {hps['seconds']:.3f}) "
+        f"tokens_per_s={hpf['tokens_per_s']:.0f} (steady "
+        f"{hps['tokens_per_s']:.0f}) peak_mem_gb={hpf['peak_mem_gb']} "
+        f"ssd_launches={hy['launches']} "
+        f"ssd_state_launches={hy['state_launches']} "
+        f"logits={hy['logits_shape']} finite={hy['logits_finite']} "
+        f"max_abs_logit={hy['logits_max']:.3f}")
+    log(f"[lm-hybrid] profiled prefill's device time by kernel kind: "
+        + " ".join(f"{k}={v:.1f}ms" for k, v in split.items())
+        + (f" of busy {1e3 * busy:.1f}ms" if busy else "")
+        + f"; one unit's attention alone {hy['attn_unit_ms']:.1f} ms "
+        f"(CUDA events), x{hy['units']} = {attn_ms:.1f} ms")
+    log(f"[lm-hybrid] decode batch={HYBRID_DECODE_BATCH} seq_len=32768 "
+        f"steps={LM_DECODE_STEPS}: ms_per_step={hdc['ms_per_step']:.3f} "
+        f"(steady {hds['ms_per_step']:.3f}) tokens_per_s="
+        f"{hdc['tokens_per_s']:.0f} (steady {hds['tokens_per_s']:.0f}) "
+        f"peak_mem_gb={hdc['peak_mem_gb']} kv_cache_gb={hy['cache_gb']:.2f} "
+        f"ssd_launches={hdc['ssd_launches']} finite={hy['decode_finite']}")
+    dbusy, dwall = hy["decode_profile"]["busy_s"], hy["decode_profile"][
+        "wall_s"]
+    log(f"[lm-hybrid] profiled decode, {HYBRID_PROFILED_STEPS} steps at batch "
+        f"{HYBRID_DECODE_BATCH}: wall {1e3 * dwall:.1f}ms"
+        + (f" busy {1e3 * dbusy:.1f}ms (share {dbusy / dwall:.3f})"
+           if dbusy else "") + "; device time by kernel kind: "
+        + " ".join(f"{k}={v:.1f}ms" for k, v in hy["decode_split_ms"].items()))
+    log(f"[lm-hybrid] prefill vs recurrence, 2 x {LM_CONSIST_TOKENS} tokens: "
+        f"max_abs_err={hy['consist_err']:.3e} max_abs_logit="
+        f"{hy['consist_scale']:.3f} rel={hy_rel:.3e} (bar "
+        f"{LM_CONSIST_TOL:g}) ssd_launches={hy['consist_launches']}")
+    fam_rel = {}
+    for f in fams:
+        fpf = f["prefill"]
+        fam_rel[f["arch"]] = f["consist_err"] / f["consist_scale"]
+        log(f"[lm-hybrid] {f['family']} {f['arch']} ({f['n_layers']} layers) "
+            f"prefill 1 x {f['prefill_len']}: seconds={fpf['seconds']:.3f} "
+            f"tokens_per_s={fpf['tokens_per_s']:.0f} peak_mem_gb="
+            f"{fpf['peak_mem_gb']} logits={f['logits_shape']} "
+            f"finite={f['logits_finite']}; prefill vs decode, 2 x "
+            f"{f['consist_tokens']} tokens: max_abs_err="
+            f"{f['consist_err']:.3e} max_abs_logit={f['consist_scale']:.3f} "
+            f"rel={fam_rel[f['arch']]:.3e} (bar {LM_CONSIST_TOL:g})")
+    log(f"[lm-hybrid] phase_s={hy_s:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in hy["parts_s"].items())
+        + "; " + ", ".join(f"{f['arch']} {f['phase_s']:.1f}" for f in fams)
+        + f") plain_calls_on_cuda={hy_plain_calls}")
+    if not hy["launches"] == hy["state_launches"] == hy["n_layers"]:
+        raise AssertionError(f"SSD kernels launched {hy['launches']} and "
+                             f"{hy['state_launches']} times in one hybrid "
+                             f"prefill, want one each per Mamba-2 layer")
+    if hy["logits_shape"] != (HYBRID_PREFILL_BATCH, 32768, 32000) or not (
+            hy["logits_finite"] and hy["decode_finite"]):
+        raise AssertionError(f"hybrid logits wrong shape or not finite: "
+                             f"{hy['logits_shape']}")
+    for f in fams:
+        if f["logits_shape"] != f["want_logits"] or not f["logits_finite"]:
+            raise AssertionError(f"{f['arch']} logits wrong shape or not "
+                                 f"finite: {f['logits_shape']}")
+    if not (hy_rel <= LM_CONSIST_TOL
+            and all(r <= LM_CONSIST_TOL for r in fam_rel.values())):
+        raise AssertionError(f"prefill and decode disagree: hybrid rel "
+                             f"{hy_rel:.3e}, others {fam_rel} > "
+                             f"{LM_CONSIST_TOL}")
+    if any(hy_plain_calls.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors on the "
+                             f"attention LM paths: {hy_plain_calls}")
     lerr = lm_small_input_check()
     log(f"[check] {LM_ARCH} smoke widths, SSD kernel vs reference scan on the "
         f"card: max_abs_err={lerr:.3e} (rtol=1e-4, atol=1e-5)")
+    herr = lm_small_input_check(HYBRID_ARCH)
+    log(f"[check] {HYBRID_ARCH} smoke widths, SSD kernel vs reference scan "
+        f"on the card: max_abs_err={herr:.3e} (rtol=1e-4, atol=1e-5)")
+    torch.cuda.empty_cache()
+    # the SSD kernels at zamba2's shape (80 heads: the ragged head tile)
+    hy_ssd_row, (states, decay) = check_ssd(hy_rec.ssd, HYBRID_PREFILL_BATCH)
+    hy_rec.ssd = None
+    hy_rows = {"ssd_intra_chunk": dict(hy_ssd_row, path="lm_hybrid",
+                                       launches=hy["launches"]),
+               "ssd_chunk_recurrence": dict(check_ssd_state(
+                   states, decay, hy["state_launches"]), path="lm_hybrid")}
+    del states, decay
     torch.cuda.empty_cache()
 
+    lap("lm_hybrid")
     # -- phase 7: kernels against their plain versions ---------------------
     ssd_row, (states, decay) = check_ssd(lm_rec.ssd, LM_PREFILL_BATCH)
     lm_rec.ssd = None
@@ -3421,6 +3860,8 @@ def main() -> int:
             "ssd_chunk_recurrence": [
                 check_ssd_state(states, decay, lm["state_launches"])]}
     del states, decay
+    for name, row in hy_rows.items():
+        rows[name].append(row)
     torch.cuda.empty_cache()
 
     def legendre_what(ent):
@@ -3485,8 +3926,11 @@ def main() -> int:
     # the conv_transpose1d yardstick and the plain version run at each
     # band's widest shape only: the narrower ones repeat their work
     # (PERF.md), and are held to the first planes of the plain output;
-    # [tune]'s winner for the transpose, where it is not the committed
-    # tile, is held to that plain output at its shape
+    # the yardstick not at the decoder's band (rows out: the full grid),
+    # where one call took 35-44 s of the script's time; [tune]'s winner
+    # for the transpose, where it is not the committed tile, is held to
+    # that plain output at its shape
+    io_rows = fcn3cfg.NAMED_CONFIGS[CONFIG]().nlat
     bwd_tuned = tuned["families"]["disco_bwd"]
     if bwd_tuned["blocks"] is None:
         bwd_tuned = None
@@ -3499,7 +3943,9 @@ def main() -> int:
                 f"{ent['shape'][-1] * ent['stride']}")
         band = bands.setdefault((tuple(ent["psi"].shape), ent["stride"]), {})
         rows["disco_band_transpose"].append(check_transpose(
-            ent, what, library="ref" not in band, band=band,
+            ent, what,
+            library="ref" not in band and ent["shape"][2] != io_rows,
+            band=band,
             tuned=bwd_tuned["blocks"] if bwd_tuned and (
                 ent["shape"][0], *ent["psi"].shape, ent["stride"]) == (
                 tb, tk, th, ts, td, tstride) else None))
@@ -3557,6 +4003,10 @@ def main() -> int:
                    "lm_prefill": {"ssd_intra_chunk": lm["launches"],
                                   "ssd_chunk_recurrence":
                                   lm["state_launches"]}.get(name, 0),
+                   "lm_hybrid_prefill": {
+                       "ssd_intra_chunk": hy["launches"],
+                       "ssd_chunk_recurrence": hy["state_launches"]}.get(
+                           name, 0),
                    # rank 0's, in Algorithms 1-2 and in its training run
                    "dist_geometry": dist["geometry"][0]["launches"].get(
                        name, 0),
@@ -3608,6 +4058,9 @@ def main() -> int:
         kernels.append(ent)
     log(f"[profile] forecast lead: busy_s={profile['busy_s']} "
         f"wall_s={profile['wall_s']:.3f}")
+    lap("kernels")
+    log(f"[time] phase_s={ {k: round(v, 1) for k, v in phase_s.items()} } "
+        f"total_s={sum(phase_s.values()):.1f} (limit 1200)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,14 @@
+"""Config for ``codeqwen1.5-7b`` (see ``repro_torch.configs.archs``)."""
+
+from repro_torch.configs import archs
+
+
+def config():
+    """Full-scale configuration: 32 layers, d_model 4096, 32 query and 32 KV
+    heads of 128."""
+    return archs.get_arch("codeqwen1.5-7b")
+
+
+def smoke():
+    """Reduced same-family variant for CPU tests."""
+    return archs.smoke_config("codeqwen1.5-7b")

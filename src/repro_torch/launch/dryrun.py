@@ -35,9 +35,9 @@ Usage::
 step) or ``ensemble`` (the members: ``TrainConfig.member_axes``).
 Refused, one line each naming the ROADMAP item (``--all`` counts them
 apart from failures): ``channel`` and an ensemble that does not split
-over the model axis in ``ensemble`` mode (A10.3), LM families other than
-``ssm`` and ``--moe-dispatch scatter`` (A13), an LM train step (the LM
-has no loss: A13.5).  ``--all`` runs every case in a process of its own;
+over the model axis in ``ensemble`` mode (A10.3), the ``moe`` family and
+``--moe-dispatch scatter`` (A13), an LM train step (the LM has no loss:
+A13.5).  ``--all`` runs every case in a process of its own;
 the fake default group is process-wide, and ``run_case`` destroys it
 before it returns.
 
@@ -292,20 +292,27 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
     info = {"params": _count(params), "active_params": n_active,
             "local_batch": b}
     if shape.mode == "prefill":
-        spec = shapelib.input_specs(
-            cfg, dataclasses.replace(shape, global_batch=b))["tokens"]
-        tokens = torch.empty_like(spec, device=dry.device)
-        dry.label(tokens, "inputs")
+        specs = shapelib.input_specs(
+            cfg, dataclasses.replace(shape, global_batch=b))
+        # the tokens, and the patches (vlm) or encoder frames (audio)
+        batch = {k: torch.empty_like(v, device=dry.device)
+                 for k, v in specs.items() if k != "labels"}
+        dry.label(batch, "inputs")
         mf = roof.model_flops_decode(n_active,
                                      shape.global_batch * shape.seq_len)
-        return Case(lambda tokens: model(tokens), (tokens,), mf, info)
+        return Case(lambda batch: model(**batch), (batch,), mf, info)
     tokens = torch.empty((b, 1), dtype=torch.int32, device=dry.device)
     cache = model.init_cache(b, shape.seq_len)
-    dry.label(tokens, "inputs")
+    extra = {}
+    if cfg.family == "audio":
+        extra["enc_states"] = torch.empty((b, cfg.encoder_seq, cfg.d_model),
+                                          device=dry.device)
+    dry.label((tokens, extra), "inputs")
     dry.label(cache, "buffers")
     mf = roof.model_flops_decode(n_active, shape.global_batch)
-    return Case(lambda tokens, cache: model.decode_step(tokens, cache, 0),
-                (tokens, cache), mf, info)
+    return Case(lambda tokens, cache, extra: model.decode_step(
+        tokens, cache, shape.seq_len - 1, **extra), (tokens, cache, extra),
+        mf, info)
 
 
 # ---------------------------------------------------------------------------

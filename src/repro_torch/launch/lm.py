@@ -4,8 +4,12 @@ The port's counterpart of the JAX package's ``launch/dryrun.py``
 ``build_lm_case``: the same ``prefill`` (full-sequence logits) and
 ``serve_step`` (one token against the cache) at the same
 ``configs/shapes.py`` shapes, run eagerly on real tensors instead of
-lowered and compiled.  Meshes and XLA cost analysis have no counterpart
-here yet (ROADMAP A12).  Weights are random, drawn from ``--seed``.
+lowered and compiled, for every architecture but the MoE ones (ROADMAP
+A13).  The VLM's ``patches`` and the audio encoder's ``enc_frames`` (for
+decode: its ``enc_states``) are stubs of their front ends, drawn from
+``--seed`` on the device at ``input_specs``' shapes; the VLM's text is
+the sequence less its patches.  Weights are random, drawn from
+``--seed``; the dry run on fake tensors is ``launch/dryrun.py``.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--batch`` and
 ``--seq-len`` cut the shape (``--smoke`` defaults them to 2 and 128);
@@ -16,6 +20,8 @@ its kernels by device time (``[profile]`` lines).
 
   PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
       --smoke --shape prefill_32k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.lm --arch zamba2-2.7b \
+      --smoke --shape decode_32k --device cpu
   PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
       --shape decode_32k --decode-steps 32
 """
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 
 import torch
@@ -31,35 +38,43 @@ import torch
 from repro_torch.configs import archs, shapes
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import FAMILIES, LM
 from repro_torch.runtime import resolve_device
 
 #: the cuts ``--smoke`` takes unless --batch / --seq-len say otherwise
 SMOKE_BATCH, SMOKE_SEQ_LEN = 2, 128
+#: the architectures whose family the port builds
+ARCHS = sorted(n for n, c in archs.ARCHS.items() if c.family in FAMILIES)
 
 
 def build_model(arch: str, smoke: bool = False, shape: str = "prefill_32k",
                 seed: int = 0, device: str = "cuda",
-                kernels: KernelConfig | None = None) -> LM:
-    """``arch`` (or its smoke variant) adapted to ``shape``, with random
-    weights drawn on the device from ``seed``."""
+                kernels: KernelConfig | None = None,
+                layers: int | None = None) -> LM:
+    """``arch`` (or its smoke variant) adapted to ``shape``, cut to
+    ``layers`` decoder (or SSM) layers where given, with random weights
+    drawn on the device from ``seed``."""
     dev = resolve_device(device)
     cfg = archs.smoke_config(arch) if smoke else archs.get_arch(arch)
     cfg = shapes.adapt_arch_for_shape(cfg, shapes.INPUT_SHAPES[shape])
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = LM(cfg, device=dev, kernels=kernels)
     model.init(torch.Generator(device=dev).manual_seed(seed))
     return model
 
 
-def prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, S, V_pad), the dry run's ``prefill``."""
-    return model(tokens)
+def prefill(model: LM, tokens: torch.Tensor, **extra) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_pad), the dry run's ``prefill``;
+    ``extra``: ``patches`` (vlm) or ``enc_frames`` (audio)."""
+    return model(tokens, **extra)
 
 
-def serve_step(model: LM, tokens: torch.Tensor, cache: dict, pos: int
-               ) -> tuple[torch.Tensor, dict]:
-    """One token (B, 1) against ``cache``, the dry run's ``serve_step``."""
-    return model.decode_step(tokens, cache, pos)
+def serve_step(model: LM, tokens: torch.Tensor, cache: dict, pos: int,
+               **extra) -> tuple[torch.Tensor, dict]:
+    """One token (B, 1) against ``cache``, the dry run's ``serve_step``;
+    ``extra``: ``enc_states`` (audio)."""
+    return model.decode_step(tokens, cache, pos, **extra)
 
 
 def random_tokens(model: LM, shape: tuple[int, ...], seed: int
@@ -68,6 +83,25 @@ def random_tokens(model: LM, shape: tuple[int, ...], seed: int
     gen = torch.Generator(device=model.device).manual_seed(seed)
     return torch.randint(0, model.cfg.vocab_size, shape, generator=gen,
                          device=model.device)
+
+
+def front_end_inputs(model: LM, batch: int, mode: str, seed: int) -> dict:
+    """The stubs of the front ends at ``input_specs``' shapes, standard
+    normal draws on the device: ``patches`` (B, n_patches, D) for a VLM
+    prefill, ``enc_frames`` (prefill) or ``enc_states`` (decode) (B,
+    encoder_seq, D) for audio; nothing for the other families."""
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+
+    def normal(n):
+        return torch.randn((batch, n, cfg.d_model), generator=gen,
+                           device=model.device)
+    if cfg.family == "vlm" and mode == "prefill":
+        return {"patches": normal(cfg.n_patches)}
+    if cfg.family == "audio":
+        key = "enc_frames" if mode == "prefill" else "enc_states"
+        return {key: normal(cfg.encoder_seq)}
+    return {}
 
 
 def _sync(dev: torch.device) -> None:
@@ -88,15 +122,19 @@ def _reset_peak(dev: torch.device) -> None:
 
 def run_prefill(model: LM, batch: int, seq_len: int, seed: int = 1,
                 report=print) -> dict:
-    """One timed prefill of random tokens; returns the logits and what the
-    ``[prefill]`` line reports."""
+    """One timed prefill of random tokens (and the front ends' stubs; a
+    VLM's text is ``seq_len`` less its patches); returns the logits and
+    what the ``[prefill]`` line reports."""
     dev = model.device
-    tokens = random_tokens(model, (batch, seq_len), seed)
+    extra = front_end_inputs(model, batch, "prefill", seed)
+    n_text = seq_len - (extra["patches"].shape[1] if "patches" in extra
+                        else 0)
+    tokens = random_tokens(model, (batch, n_text), seed)
     _sync(dev)
     _reset_peak(dev)
     before = ssd_ops.launches, ssd_ops.state_launches
     t0 = time.perf_counter()
-    logits = prefill(model, tokens)
+    logits = prefill(model, tokens, **extra)
     _sync(dev)
     sec = time.perf_counter() - t0
     out = {"seconds": sec, "tokens_per_s": batch * seq_len / sec,
@@ -121,12 +159,13 @@ def run_decode(model: LM, batch: int, seq_len: int, steps: int,
     dev = model.device
     cache = model.init_cache(batch, seq_len)
     tokens = random_tokens(model, (batch, 1), seed)
+    extra = front_end_inputs(model, batch, "decode", seed)
     _sync(dev)
     _reset_peak(dev)
     before = ssd_ops.launches
     t0 = time.perf_counter()
     for pos in range(steps):
-        logits, cache = serve_step(model, tokens, cache, pos)
+        logits, cache = serve_step(model, tokens, cache, pos, **extra)
         tokens = logits[:, -1, :model.cfg.vocab_size].argmax(-1, keepdim=True)
     _sync(dev)
     sec = time.perf_counter() - t0
@@ -168,7 +207,7 @@ def report_profile(prof, wall_s: float, report=print, top: int = 8) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     """The LM CLI's argument parser."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="mamba2-130m", choices=sorted(archs.ARCHS))
+    ap.add_argument("--arch", default="mamba2-130m", choices=ARCHS)
     ap.add_argument("--shape", default="prefill_32k",
                     choices=("prefill_32k", "decode_32k"))
     ap.add_argument("--batch", type=int, default=None,
@@ -196,7 +235,8 @@ def main(argv: list[str] | None = None) -> None:
                                else shape.seq_len)
     model = build_model(args.arch, args.smoke, args.shape, args.seed,
                         args.device)
-    print(f"[lm] arch={model.cfg.name} shape={shape.name} batch={batch} "
+    print(f"[lm] arch={model.cfg.name} layers={model.cfg.n_layers} "
+          f"shape={shape.name} batch={batch} "
           f"(of {shape.global_batch}) seq_len={seq_len} (of "
           f"{shape.seq_len}) params={model.param_count()} "
           f"device={model.device}")

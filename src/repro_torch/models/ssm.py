@@ -25,7 +25,6 @@ from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.models import common as cm
@@ -88,27 +87,18 @@ def init_mamba2(generator: torch.Generator, cfg: SSMConfig) -> dict:
     }
 
 
-class Mamba2(nn.Module):
+class Mamba2(cm.Params):
     """A mixer's parameters as an ``nn.Module`` (names as in the JAX tree:
     ``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``d_skip``,
     ``dt_bias``, ``norm``, ``out_proj``)."""
 
     def __init__(self, cfg: SSMConfig, device=None):
-        super().__init__()
+        super().__init__(_shapes(cfg), device)
         self.cfg = cfg
-        for name, shape in _shapes(cfg).items():
-            self.register_parameter(name, nn.Parameter(
-                torch.zeros(shape, device=device), requires_grad=False))
 
-    @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
         """Draw fresh parameters from ``generator``."""
-        for name, val in init_mamba2(generator, self.cfg).items():
-            getattr(self, name).copy_(val)
-
-    def params(self) -> dict[str, torch.Tensor]:
-        """The parameters by name, for the functional ``apply_*``."""
-        return dict(self.named_parameters())
+        self.load(init_mamba2(generator, self.cfg))
 
 
 def _shapes(cfg: SSMConfig) -> dict[str, tuple[int, ...]]:

@@ -1,21 +1,36 @@
 """LM assembly of the port: ``ArchConfig`` and the ``LM`` module.
 
 ``ArchConfig`` describes any of the JAX package's six families (dense /
-moe / ssm / hybrid / vlm / audio).  ``LM`` assembles the ``ssm`` family
-(Mamba-2 layers: pre-norm residual around the mixer) and refuses the
-others, which come with attention and the MoE FFN (ROADMAP A13).
+moe / ssm / hybrid / vlm / audio).  ``LM`` assembles five of them:
+
+* ``dense``: pre-norm decoder layers (attention, then a SwiGLU or GELU
+  MLP);
+* ``vlm``: the same, with the ``patches`` embeddings (the projector
+  output, a stub) prepended to the embedded tokens;
+* ``ssm``: Mamba-2 layers (pre-norm residual around the mixer);
+* ``hybrid`` (Zamba2): ``n_layers / attn_every`` units of
+  ``attn_every`` Mamba-2 layers, each unit followed by one *shared*
+  decoder layer (one parameter set, one KV cache per unit);
+* ``audio`` (Whisper): a non-causal encoder over ``enc_frames`` (a stub
+  of the conv front end), whose self-attention still takes RoPE, then
+  decoder layers that cross-attend to the encoder states.
+
+``moe`` waits for the MoE FFN (ROADMAP A13).
 
 * ``LM.forward`` is the JAX package's ``apply_train`` logits (the
   prefill of ``launch/dryrun.py``), under ``torch.no_grad``;
-* ``LM.decode_step`` is one token against the recurrent cache (its
-  ``serve_step``).  It writes each layer's new state into the cache in
-  place, where the JAX package returns a new cache: at a batch of 128
-  the ``mamba2-130m`` cache is 2.4 GB, and a copy per step would double
-  it.
+* ``LM.decode_step`` is one token against the caches (its
+  ``serve_step``).  It writes each layer's new state and key / value
+  into the cache in place, where the JAX package returns a new cache: at
+  a batch of 128 the ``mamba2-130m`` cache is 2.4 GB, and
+  ``zamba2-2.7b``'s KV caches at 4 x 32768 take 24.5 GB; a copy per step
+  would double them.
 
-Parameters carry the JAX tree's names with the stacked layer axis split:
+Parameters carry the JAX tree's names with the stacked layer axes split:
 ``layers/mixer/in_proj`` (24, 768, 3352) becomes
-``layers.{i}.mixer.in_proj`` (``models/params.py`` converts).
+``layers.{i}.mixer.in_proj``, ``enc_layers/attn/wq`` becomes
+``enc_layers.{i}.attn.wq``, and the hybrid's one ``shared_attn/attn/wq``
+is ``shared_attn.attn.wq`` (``models/params.py`` converts).
 """
 
 from __future__ import annotations
@@ -26,19 +41,20 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.config import KernelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.runtime import resolve_device
 
-#: the families ``LM`` assembles so far
-FAMILIES = ("ssm",)
+#: the families ``LM`` assembles so far (``moe``: ROADMAP A13)
+FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture of the LM zoo, as the JAX package's ``ArchConfig``
-    (its ``attn_config`` comes with attention, ROADMAP A13)."""
+    """One architecture of the LM zoo, as the JAX package's
+    ``ArchConfig``."""
 
     name: str
     family: str                  # dense | moe | ssm | hybrid | vlm | audio
@@ -79,6 +95,142 @@ class ArchConfig:
         """Vocab padded to a multiple of 256, as the JAX package pads it
         (Megatron-style) for the embedding and the LM head."""
         return -(-self.vocab_size // 256) * 256
+
+    def attn_config(self, causal: bool = True,
+                    sliding_window: int | None = None) -> attn.AttnConfig:
+        """The attention block's configuration (``head_dim`` defaults to
+        d_model / n_heads; ``sliding_window`` to the architecture's)."""
+        hd = self.head_dim or (self.d_model // max(self.n_heads, 1))
+        return attn.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=hd,
+            rope_theta=self.rope_theta, causal=causal,
+            sliding_window=(self.sliding_window if sliding_window is None
+                            else sliding_window),
+            mla=self.mla, kv_lora_rank=self.kv_lora_rank,
+            q_lora_rank=self.q_lora_rank, qk_rope_dim=self.qk_rope_dim,
+            qk_nope_dim=self.qk_nope_dim, v_head_dim=self.v_head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Decoder layers (attention + MLP, pre-norm residual)
+# ---------------------------------------------------------------------------
+
+def _attn_shapes(acfg: attn.AttnConfig) -> dict:
+    return attn.mla_shapes(acfg) if acfg.mla else attn.gqa_shapes(acfg)
+
+
+def _ffn_shapes(cfg: ArchConfig) -> dict:
+    if cfg.mlp_kind == "gelu":
+        return cm.gelu_mlp_shapes(cfg.d_model, cfg.d_ff)
+    return cm.swiglu_shapes(cfg.d_model, cfg.d_ff)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm decoder layer: ``ln_attn``, ``attn`` (GQA or MLA),
+    ``ln_ffn``, ``ffn`` and, with ``cross``, ``ln_cross`` and ``cross``
+    (GQA over encoder states)."""
+
+    def __init__(self, cfg: ArchConfig, cross: bool = False, device=None):
+        super().__init__()
+        d = cfg.d_model
+
+        def gain():
+            return nn.Parameter(cm.init_rmsnorm(d, device),
+                                requires_grad=False)
+        self.ln_attn = gain()
+        self.attn = cm.Params(_attn_shapes(cfg.attn_config()), device)
+        self.ln_ffn = gain()
+        self.ffn = cm.Params(_ffn_shapes(cfg), device)
+        if cross:
+            self.ln_cross = gain()
+            self.cross = cm.Params(
+                attn.gqa_shapes(cfg.attn_config(causal=False)), device)
+
+
+def init_decoder_layer(layer: DecoderLayer, cfg: ArchConfig,
+                       generator: torch.Generator) -> None:
+    """Fresh layer parameters: unit norm gains, attention and MLP weights
+    drawn as the JAX package's ``init_decoder_layer``."""
+    acfg = cfg.attn_config()
+    with torch.no_grad():
+        for name in ("ln_attn", "ln_ffn", "ln_cross"):
+            if hasattr(layer, name):
+                getattr(layer, name).fill_(1.0)
+    layer.attn.load(attn.init_mla(generator, acfg) if acfg.mla
+                    else attn.init_gqa(generator, acfg))
+    layer.ffn.load(
+        cm.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff)
+        if cfg.mlp_kind == "gelu"
+        else cm.init_swiglu(generator, cfg.d_model, cfg.d_ff))
+    if hasattr(layer, "cross"):
+        layer.cross.load(attn.init_gqa(generator,
+                                       cfg.attn_config(causal=False)))
+
+
+def _apply_ffn(layer: DecoderLayer, cfg: ArchConfig, x: torch.Tensor
+               ) -> torch.Tensor:
+    p = layer.ffn.params()
+    return cm.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else cm.swiglu(p, x)
+
+
+def apply_decoder_layer_train(layer: DecoderLayer, cfg: ArchConfig,
+                              x: torch.Tensor,
+                              enc: torch.Tensor | None = None,
+                              acfg: attn.AttnConfig | None = None
+                              ) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D) over the whole sequence; ``enc`` (B,
+    S_enc, D) feeds the cross block where the layer has one.  ``acfg``
+    overrides the self-attention's configuration (the audio encoder's:
+    not causal, no window)."""
+    acfg = acfg or cfg.attn_config()
+    h = cm.rmsnorm(layer.ln_attn, x, cfg.norm_eps)
+    if acfg.mla:
+        x = x + attn.apply_mla_train(layer.attn.params(), acfg, h)
+    else:
+        x = x + attn.apply_gqa_train(layer.attn.params(), acfg, h)
+    if enc is not None and hasattr(layer, "cross"):
+        h = cm.rmsnorm(layer.ln_cross, x, cfg.norm_eps)
+        x = x + attn.apply_gqa_train(layer.cross.params(),
+                                     cfg.attn_config(False), h,
+                                     kv_states=enc)
+    h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
+    return x + _apply_ffn(layer, cfg, h)
+
+
+def apply_decoder_layer_decode(layer: DecoderLayer, cfg: ArchConfig,
+                               x: torch.Tensor, cache: dict, pos,
+                               enc: torch.Tensor | None = None
+                               ) -> tuple[torch.Tensor, dict]:
+    """One token: x (B, 1, D) -> (B, 1, D); ``cache`` ({"self": ...}) is
+    updated in place and returned."""
+    acfg = cfg.attn_config()
+    h = cm.rmsnorm(layer.ln_attn, x, cfg.norm_eps)
+    if acfg.mla:
+        o, _ = attn.apply_mla_decode(layer.attn.params(), acfg, h,
+                                     cache["self"], pos)
+    else:
+        o, _ = attn.apply_gqa_decode(layer.attn.params(), acfg, h,
+                                     cache["self"], pos)
+    x = x + o
+    if enc is not None and hasattr(layer, "cross"):
+        h = cm.rmsnorm(layer.ln_cross, x, cfg.norm_eps)
+        o, _ = attn.apply_gqa_decode(layer.cross.params(),
+                                     cfg.attn_config(False), h, {}, pos,
+                                     kv_states=enc)
+        x = x + o
+    h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
+    return x + _apply_ffn(layer, cfg, h), cache
+
+
+def init_layer_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     device=None) -> dict:
+    """One decoder layer's empty cache: {"self": keys and values (GQA) or
+    latents and rotated keys (MLA)}."""
+    acfg = cfg.attn_config()
+    if acfg.mla:
+        return {"self": attn.init_mla_cache(acfg, batch, max_len, device)}
+    return {"self": attn.init_gqa_cache(acfg, batch, max_len, device)}
 
 
 # ---------------------------------------------------------------------------
@@ -124,11 +276,28 @@ def apply_ssm_layer_decode(layer: SSMLayer, cfg: ArchConfig, x: torch.Tensor,
 # The model
 # ---------------------------------------------------------------------------
 
+def _stack_views(stacked: dict, i: int) -> dict:
+    """Entry ``i`` of a cache stacked over layers (nested dicts): views,
+    so writes land in the stacked tensors."""
+    return {k: _stack_views(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _stack(one: dict, n: int) -> dict:
+    """``n`` copies of a cache stacked on a new leading axis."""
+    return {k: _stack(v, n) if isinstance(v, dict)
+            else v[None].repeat((n,) + (1,) * v.dim())
+            for k, v in one.items()}
+
+
 class LM(nn.Module):
-    """Decoder-only LM per ``ArchConfig``; family ``ssm`` so far.
+    """Decoder-only (or encoder-decoder) LM per ``ArchConfig``; every
+    family but ``moe``.
 
     Parameters: ``embed`` (V_pad, D), ``ln_out`` (D), ``lm_head`` (D,
-    V_pad) and ``layers`` (an ``nn.ModuleList`` of ``SSMLayer``).  Built
+    V_pad), ``layers`` (an ``nn.ModuleList`` of ``DecoderLayer`` or, for
+    ``ssm`` and ``hybrid``, ``SSMLayer``), the hybrid's ``shared_attn``
+    (one ``DecoderLayer``) and the audio family's ``enc_layers``.  Built
     on ``device`` (``cuda`` unless the caller asks for the CPU) with zero
     weights; ``init`` draws them.  ``kernels.ssd`` picks the prefill's
     chunked scan.
@@ -140,8 +309,7 @@ class LM(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"LM family {cfg.family!r} ({cfg.name}) is not ported yet; "
-                f"the port has {FAMILIES} (attention, dense, MoE, hybrid, "
-                "VLM and audio families are ROADMAP A13)")
+                f"the port has {FAMILIES} (the MoE family is ROADMAP A13)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.kernels = kernels or KernelConfig()
@@ -152,8 +320,27 @@ class LM(nn.Module):
                                    requires_grad=False)
         self.lm_head = nn.Parameter(torch.zeros((d, v), device=dev),
                                     requires_grad=False)
-        self.layers = nn.ModuleList(SSMLayer(cfg, dev)
-                                    for _ in range(cfg.n_layers))
+        fam = cfg.family
+        self.n_units = 0
+        if fam in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(SSMLayer(cfg, dev)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(
+                DecoderLayer(cfg, cross=fam == "audio", device=dev)
+                for _ in range(cfg.n_layers))
+        if fam == "hybrid":
+            if not cfg.attn_every or cfg.n_layers % cfg.attn_every:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is "
+                                 f"not a multiple of attn_every "
+                                 f"{cfg.attn_every}")
+            self.n_units = cfg.n_layers // cfg.attn_every
+            # Zamba2: one *shared* attention block reused across units
+            self.shared_attn = DecoderLayer(cfg, device=dev)
+        if fam == "audio":
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, device=dev)
+                for _ in range(cfg.n_encoder_layers))
 
     @property
     def device(self) -> torch.device:
@@ -171,42 +358,110 @@ class LM(nn.Module):
         self.lm_head.copy_(cm.init_linear(generator, cfg.d_model,
                                           cfg.padded_vocab))
         for layer in self.layers:
-            init_ssm_layer(layer, generator)
+            if isinstance(layer, SSMLayer):
+                init_ssm_layer(layer, generator)
+            else:
+                init_decoder_layer(layer, cfg, generator)
+        if self.n_units:
+            init_decoder_layer(self.shared_attn, cfg, generator)
+        for layer in getattr(self, "enc_layers", ()):
+            init_decoder_layer(layer, cfg, generator)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits: tokens (B, S) int -> (B, S, V_pad) fp32."""
+    def encode_audio(self, frames: torch.Tensor) -> torch.Tensor:
+        """The Whisper encoder over precomputed conv front-end frames (a
+        stub): self-attention not causal, no window, RoPE kept."""
+        cfg = self.cfg
+        acfg = cfg.attn_config(causal=False, sliding_window=0)
+        x = frames
+        for layer in self.enc_layers:
+            x = apply_decoder_layer_train(layer, cfg, x, acfg=acfg)
+        return x
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor,
+                patches: torch.Tensor | None = None,
+                enc_frames: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence logits: tokens (B, S) int -> (B, S', V_pad) fp32.
+
+        ``vlm``: ``patches`` (B, P, D) are prepended (S' = P + S).
+        ``audio``: ``enc_frames`` (B, S_enc, D) go through the encoder
+        first, and every decoder layer cross-attends to its output.
+        """
         cfg = self.cfg
         x = cm.embed(self.embed, tokens)
-        for layer in self.layers:
-            x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
+        fam = cfg.family
+        if fam == "vlm" and patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        if fam == "ssm":
+            for layer in self.layers:
+                x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
+        elif fam == "hybrid":
+            ae = cfg.attn_every
+            for u in range(self.n_units):
+                for layer in self.layers[u * ae:(u + 1) * ae]:
+                    x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
+                x = apply_decoder_layer_train(self.shared_attn, cfg, x)
+        else:
+            enc = self.encode_audio(enc_frames) if fam == "audio" else None
+            for layer in self.layers:
+                x = apply_decoder_layer_train(layer, cfg, x, enc=enc)
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
         return cm.linear(self.lm_head, x)
 
     def init_cache(self, batch: int, max_len: int = 0) -> dict:
         """Empty caches, stacked over layers as in the JAX package:
+        ``{"layers": {"self": {"k", "v"}}}`` (n_layers, B, size, H_kv, D)
+        for the attention families (``c_kv`` / ``k_rope`` under MLA);
         ``{"layers": {"ssm": (n_layers, B, H, P, N), "conv": (n_layers,
-        B, K-1, C)}}``.  The SSM cache does not grow with ``max_len``."""
-        one = ssmlib.init_mamba2_cache(self.cfg.ssm, batch, self.device)
-        return {"layers": {k: v[None].repeat((self.cfg.n_layers,)
-                                             + (1,) * v.dim())
-                           for k, v in one.items()}}
+        B, K-1, C)}}`` for ``ssm``, and for ``hybrid`` beside it
+        ``"shared_attn": {"self": {"k", "v"}}`` (n_units, B, max_len,
+        H_kv, D).  The SSM cache does not grow with ``max_len``."""
+        cfg, dev = self.cfg, self.device
+        if cfg.family in ("ssm", "hybrid"):
+            cache = {"layers": _stack(
+                ssmlib.init_mamba2_cache(cfg.ssm, batch, dev), cfg.n_layers)}
+            if self.n_units:
+                cache["shared_attn"] = _stack(
+                    init_layer_cache(cfg, batch, max_len, dev), self.n_units)
+            return cache
+        return {"layers": _stack(init_layer_cache(cfg, batch, max_len, dev),
+                                 cfg.n_layers)}
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, cache: dict,
-                    pos: torch.Tensor | int | None = None
+    def decode_step(self, tokens: torch.Tensor, cache: dict, pos=None,
+                    enc_states: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> logits (B, 1, V_pad) and ``cache``, updated in
-        place.  ``pos`` is accepted for the JAX signature; the recurrent
-        state does not need it."""
+        place.  ``pos`` is the absolute position of the token (an int or
+        a 0-d tensor; the recurrent state does not need it).  ``audio``:
+        ``enc_states`` (B, S_enc, D) are the encoder's output
+        (``encode_audio``), whose keys and values every step computes
+        again, as the JAX package does; ``vlm`` takes no patches here."""
         cfg = self.cfg
+        fam = cfg.family
+        if pos is None and fam != "ssm":
+            raise ValueError(f"{cfg.name}: decode_step needs the token's "
+                             "position")
         x = cm.embed(self.embed, tokens)
-        stacked = cache["layers"]
-        for i, layer in enumerate(self.layers):
-            x, new = apply_ssm_layer_decode(
-                layer, cfg, x, {k: v[i] for k, v in stacked.items()})
-            for k, v in new.items():
-                stacked[k][i].copy_(v)
+        if fam in ("ssm", "hybrid"):
+            stacked = cache["layers"]
+            ae = cfg.attn_every if fam == "hybrid" else cfg.n_layers
+            for i, layer in enumerate(self.layers):
+                x, new = apply_ssm_layer_decode(layer, cfg, x,
+                                                _stack_views(stacked, i))
+                for k, v in new.items():
+                    stacked[k][i].copy_(v)
+                if fam == "hybrid" and (i + 1) % ae == 0:
+                    x, _ = apply_decoder_layer_decode(
+                        self.shared_attn, cfg, x,
+                        _stack_views(cache["shared_attn"], i // ae), pos)
+        else:
+            enc = enc_states if fam == "audio" else None
+            for i, layer in enumerate(self.layers):
+                x, _ = apply_decoder_layer_decode(
+                    layer, cfg, x, _stack_views(cache["layers"], i), pos,
+                    enc=enc)
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
         return cm.linear(self.lm_head, x), cache
 

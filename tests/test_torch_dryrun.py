@@ -48,6 +48,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import counting, dryrun
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import roofline
+from repro_torch.models import attention as tattn
 from repro_torch.train import trainer as ttr
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -107,6 +108,11 @@ def _specs_pairs():
              for shape in ("train_4k", "prefill_32k")]
     pairs += [(ARCH, shape, smoke) for shape in tshapes.INPUT_SHAPES
               for smoke in (False, True)]
+    # the attention families' caches, a ring buffer of 8192 at long_500k
+    pairs += [(arch, shape, smoke) for arch in sorted(tarchs.ARCHS)
+              if tarchs.ARCHS[arch].family not in ("ssm", "moe")
+              for shape in ("decode_32k", "long_500k")
+              for smoke in (False, True)]
     return pairs
 
 
@@ -123,7 +129,7 @@ def test_input_specs_match_jax(arch, shape, smoke):
 
 
 def test_decode_specs_of_an_unported_family_raise_the_models_error():
-    cfg = tarchs.get_arch("phi3-mini-3.8b")
+    cfg = tarchs.get_arch("deepseek-v2-236b")
     with pytest.raises(NotImplementedError, match="A13"):
         tshapes.input_specs(cfg, tshapes.INPUT_SHAPES["decode_32k"])
 
@@ -497,6 +503,54 @@ def test_a_dry_run_launches_nothing_and_runs_no_plain_version(monkeypatch):
             ssd_ops.state_launches) == (0,) * 7
 
 
+#: the architectures of the dense, hybrid, VLM and audio families
+ATTN_ARCHS = sorted(n for n, c in tarchs.ARCHS.items()
+                    if c.family not in ("ssm", "moe"))
+
+
+def _lm_counts(arch, shape, cfg=None):
+    with counting.DryRun("cpu") as dry:
+        case = dryrun.build_lm_case(arch, shape, None, dry, cfg=cfg)
+        rl, counts = roofline.analyze("x", case.step, case.args, 1,
+                                      case.model_flops, dry)
+    return case, rl, counts
+
+
+def test_zamba2_prefill_dry_run_counts_one_ssd_call_a_layer(monkeypatch):
+    # zamba2-2.7b at full width, prefill_32k (batch 32): both SSD kernels
+    # once per Mamba-2 layer at the 80-head shape; one query tile a layer
+    # keeps the fake run short (the SSD counts do not depend on it)
+    monkeypatch.setattr(tattn, "TILE_SCORE_BYTES", 1 << 50)
+    case, _, counts = _lm_counts("zamba2-2.7b", "prefill_32k")
+    k = counts.kernels
+    assert k["ssd_intra_chunk"]["calls"] == 54
+    assert k["ssd_chunk_recurrence"]["calls"] == 54
+    bc = 32 * 32768 // 128
+    assert k["ssd_intra_chunk"]["flops"] == 54 * ssd_ops.work(
+        (bc, 128, 80, 64), 1, 64)["flops"]
+    assert case.info["params"] == 2_422_670_240
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_family_dry_runs_at_smoke_widths(arch, shape,
+                                                   monkeypatch):
+    # every ported family's cases on fake tensors at the shapes' batch and
+    # sequence, smoke widths; one query tile a layer
+    monkeypatch.setattr(tattn, "TILE_SCORE_BYTES", 1 << 50)
+    cfg = tshapes.adapt_arch_for_shape(tarchs.smoke_config(arch),
+                                       tshapes.INPUT_SHAPES[shape])
+    _, rl, counts = _lm_counts(arch, shape, cfg)
+    ssd = counts.kernels.get("ssd_intra_chunk", {}).get("calls", 0)
+    want = cfg.n_layers if (cfg.family == "hybrid"
+                            and shape == "prefill_32k") else 0
+    assert ssd == want
+    assert counts.aten_flops > 0 and counts.at_peak["parameters"] > 0
+    rec = rl.to_dict()
+    assert np.isfinite(rec["t_memory_s"]) and rec["t_memory_s"] > 0
+
+
 def test_the_16_rank_fcn3_small_layout_gathers_every_halo():
     # 181 IO rows and 90 latent rows over 16 ranks: blocks of 11-12 and
     # 5-6 rows; every rank's halo of each band must come from the ranks
@@ -523,7 +577,7 @@ def test_the_16_rank_fcn3_small_layout_gathers_every_halo():
 
 @pytest.mark.parametrize("arch,shape,kw,item", [
     ("fcn3", "train", {"fcn3_mode": "channel"}, "A10.3"),
-    ("phi3-mini-3.8b", "prefill_32k", {}, "A13"),
+    ("deepseek-v2-236b", "prefill_32k", {}, "A13"),
     ("mamba2-130m", "train_4k", {}, "A13.5"),
     ("mamba2-130m", "decode_32k", {"moe_dispatch": "scatter"}, "A13"),
 ])
