@@ -3,7 +3,7 @@
 Pure data: each entry cites its source.  ``get_arch`` returns the
 full-scale ``ArchConfig`` and ``smoke_config`` a reduced same-family
 variant (<=2 layers, d_model<=512, <=4 experts) for CPU tests.  The
-port's ``LM`` builds the ``ssm`` family (``mamba2-130m``) so far.
+port's ``LM`` builds every one of them.
 """
 
 from __future__ import annotations

@@ -62,11 +62,10 @@ def input_specs(cfg: ArchConfig, shape: InputShape,
     """``meta`` stand-ins for every model input of one step.
 
     Train and prefill: ``tokens`` and ``labels`` (B, S_text) int32, with
-    ``patches`` (vlm) and ``enc_frames`` (audio); they need no model, so
-    every architecture has them.  Decode: ``tokens`` (B, 1), ``pos`` ()
-    and the cache ``LM.init_cache(B, S)`` on ``meta`` (an architecture
-    whose family the port lacks raises the model's NotImplementedError,
-    ROADMAP A13), with ``enc_states`` (audio).
+    ``patches`` (vlm) and ``enc_frames`` (audio).  Decode: ``tokens`` (B,
+    1), ``pos`` () and the cache ``LM.init_cache(B, S)`` on ``meta`` (the
+    MoE family's with its ``dense_layers`` and ``unit_dense`` stacks),
+    with ``enc_states`` (audio).
     """
     b, s = shape.global_batch, shape.seq_len
     if shape.mode in ("train", "prefill"):

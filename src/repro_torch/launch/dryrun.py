@@ -35,9 +35,11 @@ Usage::
 step) or ``ensemble`` (the members: ``TrainConfig.member_axes``).
 Refused, one line each naming the ROADMAP item (``--all`` counts them
 apart from failures): ``channel`` and an ensemble that does not split
-over the model axis in ``ensemble`` mode (A10.3), the ``moe`` family and
-``--moe-dispatch scatter`` (A13), an LM train step (the LM has no loss:
-A13.5).  ``--all`` runs every case in a process of its own;
+over the model axis in ``ensemble`` mode (A10.3), an LM train step (the
+LM has no loss: A13.5).  ``--moe-dispatch`` (dense or scatter) is the
+MoE layers' dispatch; the experts are whole on every rank (the JAX dry
+run places them over the model axis: a difference by design, ROADMAP
+C).  ``--all`` runs every case in a process of its own;
 the fake default group is process-wide, and ``run_case`` destroys it
 before it returns.
 
@@ -268,29 +270,43 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
     """One LM step on fake tensors inside ``dry``: the prefill or one
     decode step on rank 0's slice of the batch (the batch over the data
     axes; the port's LM has no tensor parallelism, so the model axis
-    holds replicas)."""
-    from repro_torch.models.transformer import FAMILIES, LM
+    holds replicas).
+
+    A MoE architecture's layers take ``moe_dispatch``: ``scatter``
+    dispatches over the data ranks where the batch splits over them
+    (``moe.scatter_group``), each rank's capacity from its own slice; a
+    batch that does not split is whole on every rank and takes the dense
+    path, as the JAX package's ``apply_moe`` chooses.  The experts are
+    whole on every rank, where the JAX dry run places them over the model
+    axis (``distributed/sharding.py``'s expert rule)."""
+    from repro_torch.distributed import compat
+    from repro_torch.models import moe as moelib
+    from repro_torch.models.transformer import LM
     shape = shapelib.INPUT_SHAPES[shape_name]
     if cfg is None:
         cfg = shapelib.adapt_arch_for_shape(archlib.get_arch(arch), shape)
-    if moe_dispatch != "dense":
-        raise Refused(f"--moe-dispatch {moe_dispatch}: the port has no MoE "
-                      "layers yet (ROADMAP A13)")
-    if cfg.family not in FAMILIES:
-        raise Refused(f"{cfg.name}: LM family {cfg.family!r} is not ported "
-                      "yet (ROADMAP A13)")
     if shape.mode == "train":
         raise Refused(f"{cfg.name} {shape.name}: the port's LM has no loss "
                       "and the SSD kernel no backward yet (ROADMAP A13.5)")
+    dp = meshlib.data_axes(mesh) if mesh is not None else ()
+    if cfg.moe and moe_dispatch != "dense":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=moe_dispatch, dp_axes=dp))
     model = LM(cfg, device=dry.device)
     params = dict(model.named_parameters())
     dry.label(params, "parameters")
     n_active = active_param_count(cfg, params)
-    dp = meshlib.data_axes(mesh) if mesh is not None else ()
     n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in dp)
     b = _local(shape.global_batch, n_dp)
+    moe_group = None
+    if cfg.moe and dp:
+        moe_group = moelib.scatter_group(
+            cfg.moe, compat.mesh_group(mesh, dp), shape.global_batch,
+            1 if shape.mode == "decode" else shape.seq_len)
     info = {"params": _count(params), "active_params": n_active,
             "local_batch": b}
+    if cfg.moe:
+        info["moe_dispatch"] = "scatter" if moe_group is not None else "dense"
     if shape.mode == "prefill":
         specs = shapelib.input_specs(
             cfg, dataclasses.replace(shape, global_batch=b))
@@ -300,7 +316,8 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
         dry.label(batch, "inputs")
         mf = roof.model_flops_decode(n_active,
                                      shape.global_batch * shape.seq_len)
-        return Case(lambda batch: model(**batch), (batch,), mf, info)
+        return Case(lambda batch: model(**batch, moe_group=moe_group),
+                    (batch,), mf, info)
     tokens = torch.empty((b, 1), dtype=torch.int32, device=dry.device)
     cache = model.init_cache(b, shape.seq_len)
     extra = {}
@@ -311,8 +328,8 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
     dry.label(cache, "buffers")
     mf = roof.model_flops_decode(n_active, shape.global_batch)
     return Case(lambda tokens, cache, extra: model.decode_step(
-        tokens, cache, shape.seq_len - 1, **extra), (tokens, cache, extra),
-        mf, info)
+        tokens, cache, shape.seq_len - 1, moe_group=moe_group, **extra),
+        (tokens, cache, extra), mf, info)
 
 
 # ---------------------------------------------------------------------------

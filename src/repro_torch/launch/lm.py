@@ -4,8 +4,7 @@ The port's counterpart of the JAX package's ``launch/dryrun.py``
 ``build_lm_case``: the same ``prefill`` (full-sequence logits) and
 ``serve_step`` (one token against the cache) at the same
 ``configs/shapes.py`` shapes, run eagerly on real tensors instead of
-lowered and compiled, for every architecture but the MoE ones (ROADMAP
-A13).  The VLM's ``patches`` and the audio encoder's ``enc_frames`` (for
+lowered and compiled, for every architecture of the zoo.  The VLM's ``patches`` and the audio encoder's ``enc_frames`` (for
 decode: its ``enc_states``) are stubs of their front ends, drawn from
 ``--seed`` on the device at ``input_specs``' shapes; the VLM's text is
 the sequence less its patches.  Weights are random, drawn from
@@ -14,7 +13,8 @@ the sequence less its patches.  Weights are random, drawn from
 Runs on the CUDA card unless ``--device cpu`` is given.  ``--batch`` and
 ``--seq-len`` cut the shape (``--smoke`` defaults them to 2 and 128);
 prints one line per phase with seconds, tokens/s, peak device memory and
-the SSD kernel's launches.  ``--profile`` runs the phase once more under
+the SSD kernel's launches; a MoE prefill's line adds the share of its
+(token, k) pairs that their experts' capacity dropped.  ``--profile`` runs the phase once more under
 ``torch.profiler`` and prints the device's busy share of that run and
 its kernels by device time (``[profile]`` lines).
 
@@ -22,6 +22,8 @@ its kernels by device time (``[profile]`` lines).
       --smoke --shape prefill_32k --device cpu
   PYTHONPATH=src python -m repro_torch.launch.lm --arch zamba2-2.7b \
       --smoke --shape decode_32k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.lm --arch deepseek-v2-236b \
+      --smoke --shape prefill_32k --device cpu
   PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
       --shape decode_32k --decode-steps 32
 """
@@ -38,13 +40,28 @@ import torch
 from repro_torch.configs import archs, shapes
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.models.transformer import FAMILIES, LM
+from repro_torch.models import moe
+from repro_torch.models.transformer import LM
 from repro_torch.runtime import resolve_device
 
 #: the cuts ``--smoke`` takes unless --batch / --seq-len say otherwise
 SMOKE_BATCH, SMOKE_SEQ_LEN = 2, 128
-#: the architectures whose family the port builds
-ARCHS = sorted(n for n, c in archs.ARCHS.items() if c.family in FAMILIES)
+#: the zoo's architectures, every one of which the port builds
+ARCHS = sorted(archs.ARCHS)
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers.  A MoE stack keeps its
+    ``n_dense_layers`` and needs the rest a positive multiple of
+    ``moe_every`` (whole units); another cut raises ``ValueError``."""
+    if cfg.family == "moe":
+        rest = layers - cfg.n_dense_layers
+        if rest <= 0 or rest % cfg.moe_every:
+            raise ValueError(
+                f"{cfg.name}: {layers} layers is no MoE stack: it keeps "
+                f"the {cfg.n_dense_layers} dense layers and needs the rest "
+                f"a positive multiple of moe_every {cfg.moe_every}")
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def build_model(arch: str, smoke: bool = False, shape: str = "prefill_32k",
@@ -52,13 +69,13 @@ def build_model(arch: str, smoke: bool = False, shape: str = "prefill_32k",
                 kernels: KernelConfig | None = None,
                 layers: int | None = None) -> LM:
     """``arch`` (or its smoke variant) adapted to ``shape``, cut to
-    ``layers`` decoder (or SSM) layers where given, with random weights
-    drawn on the device from ``seed``."""
+    ``layers`` decoder (or SSM) layers where given (``cut_depth``), with
+    random weights drawn on the device from ``seed``."""
     dev = resolve_device(device)
     cfg = archs.smoke_config(arch) if smoke else archs.get_arch(arch)
     cfg = shapes.adapt_arch_for_shape(cfg, shapes.INPUT_SHAPES[shape])
     if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = cut_depth(cfg, layers)
     model = LM(cfg, device=dev, kernels=kernels)
     model.init(torch.Generator(device=dev).manual_seed(seed))
     return model
@@ -133,8 +150,10 @@ def run_prefill(model: LM, batch: int, seq_len: int, seed: int = 1,
     _sync(dev)
     _reset_peak(dev)
     before = ssd_ops.launches, ssd_ops.state_launches
+    kept = []          # each MoE layer's kept pairs and all its pairs
     t0 = time.perf_counter()
-    logits = prefill(model, tokens, **extra)
+    with moe.observe(lambda r: kept.append((r.keep.sum(), r.keep.numel()))):
+        logits = prefill(model, tokens, **extra)
     _sync(dev)
     sec = time.perf_counter() - t0
     out = {"seconds": sec, "tokens_per_s": batch * seq_len / sec,
@@ -142,12 +161,20 @@ def run_prefill(model: LM, batch: int, seq_len: int, seed: int = 1,
            "ssd_launches": ssd_ops.launches - before[0],
            "ssd_state_launches": ssd_ops.state_launches - before[1],
            "logits": logits}
+    drops = ""
+    if kept:
+        pairs = sum(n for _, n in kept)
+        out["moe_pairs"] = pairs
+        out["moe_dropped"] = pairs - int(sum(int(k) for k, _ in kept))
+        out["moe_drop_share"] = out["moe_dropped"] / pairs
+        drops = (f" moe_drop_share={out['moe_drop_share']:.4f} "
+                 f"(of {pairs} pairs in {len(kept)} MoE layers)")
     report(f"[prefill] arch={model.cfg.name} batch={batch} seq_len={seq_len} "
            f"seconds={sec:.3f} tokens_per_s={out['tokens_per_s']:.1f} "
            f"peak_mem_gb={out['peak_mem_gb']} "
            f"ssd_launches={out['ssd_launches']} "
            f"ssd_state_launches={out['ssd_state_launches']} "
-           f"logits={tuple(logits.shape)}")
+           f"logits={tuple(logits.shape)}{drops}")
     return out
 
 

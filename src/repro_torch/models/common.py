@@ -48,13 +48,6 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * g
 
 
-def init_embedding(generator: torch.Generator, vocab: int, d: int
-                   ) -> torch.Tensor:
-    """(vocab, d) normal table times 0.02."""
-    return torch.randn((vocab, d), generator=generator,
-                       device=generator.device) * 0.02
-
-
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``tokens`` (any integer shape) -> (..., d)."""
     return table[tokens]

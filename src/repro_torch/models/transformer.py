@@ -1,12 +1,18 @@
 """LM assembly of the port: ``ArchConfig`` and the ``LM`` module.
 
-``ArchConfig`` describes any of the JAX package's six families (dense /
-moe / ssm / hybrid / vlm / audio).  ``LM`` assembles five of them:
+``ArchConfig`` describes any of the JAX package's six families, and
+``LM`` assembles each of them:
 
 * ``dense``: pre-norm decoder layers (attention, then a SwiGLU or GELU
   MLP);
-* ``vlm``: the same, with the ``patches`` embeddings (the projector
-  output, a stub) prepended to the embedded tokens;
+* ``moe``: ``n_dense_layers`` leading dense layers (``dense_layers``),
+  then decoder layers whose FFN is the mixture of experts
+  (``models/moe.py``): ``n_layers - n_dense_layers`` of them
+  (deepseek-v2, ``layers``), or with ``moe_every > 1`` units of
+  ``moe_every - 1`` dense layers (``unit_dense``) each followed by one
+  MoE layer (llama4, ``layers``);
+* ``vlm``: the same as ``dense``, with the ``patches`` embeddings (the
+  projector output, a stub) prepended to the embedded tokens;
 * ``ssm``: Mamba-2 layers (pre-norm residual around the mixer);
 * ``hybrid`` (Zamba2): ``n_layers / attn_every`` units of
   ``attn_every`` Mamba-2 layers, each unit followed by one *shared*
@@ -15,10 +21,10 @@ moe / ssm / hybrid / vlm / audio).  ``LM`` assembles five of them:
   of the conv front end), whose self-attention still takes RoPE, then
   decoder layers that cross-attend to the encoder states.
 
-``moe`` waits for the MoE FFN (ROADMAP A13).
-
-* ``LM.forward`` is the JAX package's ``apply_train`` logits (the
-  prefill of ``launch/dryrun.py``), under ``torch.no_grad``;
+* ``LM.apply_train`` is the JAX package's ``apply_train``: logits and the
+  aux (the MoE layers' mean load-balance loss and router entropy, zeros
+  for the other families); ``LM.forward`` its logits alone (the prefill
+  of ``launch/dryrun.py``), under ``torch.no_grad``;
 * ``LM.decode_step`` is one token against the caches (its
   ``serve_step``).  It writes each layer's new state and key / value
   into the cache in place, where the JAX package returns a new cache: at
@@ -26,16 +32,23 @@ moe / ssm / hybrid / vlm / audio).  ``LM`` assembles five of them:
   ``zamba2-2.7b``'s KV caches at 4 x 32768 take 24.5 GB; a copy per step
   would double them.
 
+Both take ``moe_group``: the data ranks of which the call's batch is
+this rank's slice (``moe.scatter_group``); MoE layers of
+``dispatch="scatter"`` dispatch over them.
+
 Parameters carry the JAX tree's names with the stacked layer axes split:
 ``layers/mixer/in_proj`` (24, 768, 3352) becomes
 ``layers.{i}.mixer.in_proj``, ``enc_layers/attn/wq`` becomes
-``enc_layers.{i}.attn.wq``, and the hybrid's one ``shared_attn/attn/wq``
-is ``shared_attn.attn.wq`` (``models/params.py`` converts).
+``enc_layers.{i}.attn.wq``, llama4's ``unit_dense/attn/wq`` (units, 1,
+D, H hd) ``unit_dense.{u}.{i}.attn.wq``, and the hybrid's one
+``shared_attn/attn/wq`` is ``shared_attn.attn.wq`` (``models/params.py``
+converts).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -47,8 +60,8 @@ from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.runtime import resolve_device
 
-#: the families ``LM`` assembles so far (``moe``: ROADMAP A13)
-FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
+#: the families ``LM`` assembles: all of the JAX package's
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,10 +141,12 @@ def _ffn_shapes(cfg: ArchConfig) -> dict:
 
 class DecoderLayer(nn.Module):
     """Pre-norm decoder layer: ``ln_attn``, ``attn`` (GQA or MLA),
-    ``ln_ffn``, ``ffn`` and, with ``cross``, ``ln_cross`` and ``cross``
-    (GQA over encoder states)."""
+    ``ln_ffn``, ``ffn`` (the MLP, or with ``use_moe`` the mixture of
+    experts) and, with ``cross``, ``ln_cross`` and ``cross`` (GQA over
+    encoder states)."""
 
-    def __init__(self, cfg: ArchConfig, cross: bool = False, device=None):
+    def __init__(self, cfg: ArchConfig, cross: bool = False, device=None,
+                 use_moe: bool = False):
         super().__init__()
         d = cfg.d_model
 
@@ -141,7 +156,8 @@ class DecoderLayer(nn.Module):
         self.ln_attn = gain()
         self.attn = cm.Params(_attn_shapes(cfg.attn_config()), device)
         self.ln_ffn = gain()
-        self.ffn = cm.Params(_ffn_shapes(cfg), device)
+        self.ffn = (moelib.MoE(cfg.moe, device) if use_moe
+                    else cm.Params(_ffn_shapes(cfg), device))
         if cross:
             self.ln_cross = gain()
             self.cross = cm.Params(
@@ -150,8 +166,9 @@ class DecoderLayer(nn.Module):
 
 def init_decoder_layer(layer: DecoderLayer, cfg: ArchConfig,
                        generator: torch.Generator) -> None:
-    """Fresh layer parameters: unit norm gains, attention and MLP weights
-    drawn as the JAX package's ``init_decoder_layer``."""
+    """Fresh layer parameters: unit norm gains, attention and MLP (or
+    experts, drawn in place) weights drawn as the JAX package's
+    ``init_decoder_layer``."""
     acfg = cfg.attn_config()
     with torch.no_grad():
         for name in ("ln_attn", "ln_ffn", "ln_cross"):
@@ -159,30 +176,38 @@ def init_decoder_layer(layer: DecoderLayer, cfg: ArchConfig,
                 getattr(layer, name).fill_(1.0)
     layer.attn.load(attn.init_mla(generator, acfg) if acfg.mla
                     else attn.init_gqa(generator, acfg))
-    layer.ffn.load(
-        cm.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff)
-        if cfg.mlp_kind == "gelu"
-        else cm.init_swiglu(generator, cfg.d_model, cfg.d_ff))
+    if isinstance(layer.ffn, moelib.MoE):
+        moelib.init_moe(layer.ffn, generator)
+    else:
+        layer.ffn.load(
+            cm.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff)
+            if cfg.mlp_kind == "gelu"
+            else cm.init_swiglu(generator, cfg.d_model, cfg.d_ff))
     if hasattr(layer, "cross"):
         layer.cross.load(attn.init_gqa(generator,
                                        cfg.attn_config(causal=False)))
 
 
-def _apply_ffn(layer: DecoderLayer, cfg: ArchConfig, x: torch.Tensor
-               ) -> torch.Tensor:
+def _apply_ffn(layer: DecoderLayer, cfg: ArchConfig, x: torch.Tensor,
+               moe_group=None) -> tuple[torch.Tensor, dict]:
+    """The layer's FFN and its aux (zeros without experts)."""
     p = layer.ffn.params()
-    return cm.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else cm.swiglu(p, x)
+    if isinstance(layer.ffn, moelib.MoE):
+        return moelib.apply_moe(p, cfg.moe, x, moe_group)
+    y = cm.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else cm.swiglu(p, x)
+    return y, moelib.zero_aux(x.device)
 
 
 def apply_decoder_layer_train(layer: DecoderLayer, cfg: ArchConfig,
                               x: torch.Tensor,
                               enc: torch.Tensor | None = None,
-                              acfg: attn.AttnConfig | None = None
-                              ) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D) over the whole sequence; ``enc`` (B,
-    S_enc, D) feeds the cross block where the layer has one.  ``acfg``
-    overrides the self-attention's configuration (the audio encoder's:
-    not causal, no window)."""
+                              acfg: attn.AttnConfig | None = None,
+                              moe_group=None
+                              ) -> tuple[torch.Tensor, dict]:
+    """x (B, S, D) -> (B, S, D) over the whole sequence, and the FFN's
+    aux; ``enc`` (B, S_enc, D) feeds the cross block where the layer has
+    one.  ``acfg`` overrides the self-attention's configuration (the
+    audio encoder's: not causal, no window)."""
     acfg = acfg or cfg.attn_config()
     h = cm.rmsnorm(layer.ln_attn, x, cfg.norm_eps)
     if acfg.mla:
@@ -195,12 +220,14 @@ def apply_decoder_layer_train(layer: DecoderLayer, cfg: ArchConfig,
                                      cfg.attn_config(False), h,
                                      kv_states=enc)
     h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
-    return x + _apply_ffn(layer, cfg, h)
+    y, aux = _apply_ffn(layer, cfg, h, moe_group)
+    return x + y, aux
 
 
 def apply_decoder_layer_decode(layer: DecoderLayer, cfg: ArchConfig,
                                x: torch.Tensor, cache: dict, pos,
-                               enc: torch.Tensor | None = None
+                               enc: torch.Tensor | None = None,
+                               moe_group=None
                                ) -> tuple[torch.Tensor, dict]:
     """One token: x (B, 1, D) -> (B, 1, D); ``cache`` ({"self": ...}) is
     updated in place and returned."""
@@ -220,7 +247,8 @@ def apply_decoder_layer_decode(layer: DecoderLayer, cfg: ArchConfig,
                                      kv_states=enc)
         x = x + o
     h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
-    return x + _apply_ffn(layer, cfg, h), cache
+    y, _ = _apply_ffn(layer, cfg, h, moe_group)
+    return x + y, cache
 
 
 def init_layer_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -283,20 +311,24 @@ def _stack_views(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
-def _stack(one: dict, n: int) -> dict:
-    """``n`` copies of a cache stacked on a new leading axis."""
-    return {k: _stack(v, n) if isinstance(v, dict)
-            else v[None].repeat((n,) + (1,) * v.dim())
+def _stack(one: dict, *dims: int) -> dict:
+    """Copies of a cache stacked on new leading axes of sizes ``dims``
+    (one allocation each: llama4's stacks over (units, moe_every - 1)
+    take no nested temporary)."""
+    return {k: _stack(v, *dims) if isinstance(v, dict)
+            else v.expand(dims + tuple(v.shape)).clone()
             for k, v in one.items()}
 
 
 class LM(nn.Module):
-    """Decoder-only (or encoder-decoder) LM per ``ArchConfig``; every
-    family but ``moe``.
+    """Decoder-only (or encoder-decoder) LM per ``ArchConfig``, every
+    family of the JAX package.
 
     Parameters: ``embed`` (V_pad, D), ``ln_out`` (D), ``lm_head`` (D,
     V_pad), ``layers`` (an ``nn.ModuleList`` of ``DecoderLayer`` or, for
-    ``ssm`` and ``hybrid``, ``SSMLayer``), the hybrid's ``shared_attn``
+    ``ssm`` and ``hybrid``, ``SSMLayer``; for ``moe`` the MoE layers),
+    the MoE family's ``dense_layers`` and ``unit_dense`` (a list of
+    units, each a list of dense layers), the hybrid's ``shared_attn``
     (one ``DecoderLayer``) and the audio family's ``enc_layers``.  Built
     on ``device`` (``cuda`` unless the caller asks for the CPU) with zero
     weights; ``init`` draws them.  ``kernels.ssd`` picks the prefill's
@@ -307,9 +339,8 @@ class LM(nn.Module):
                  kernels: KernelConfig | None = None):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"LM family {cfg.family!r} ({cfg.name}) is not ported yet; "
-                f"the port has {FAMILIES} (the MoE family is ROADMAP A13)")
+            raise ValueError(f"{cfg.name}: unknown LM family "
+                             f"{cfg.family!r}; have {FAMILIES}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.kernels = kernels or KernelConfig()
@@ -322,13 +353,33 @@ class LM(nn.Module):
                                     requires_grad=False)
         fam = cfg.family
         self.n_units = 0
+
+        def decoder_layers(n, **kw):
+            return nn.ModuleList(DecoderLayer(cfg, device=dev, **kw)
+                                 for _ in range(n))
         if fam in ("ssm", "hybrid"):
             self.layers = nn.ModuleList(SSMLayer(cfg, dev)
                                         for _ in range(cfg.n_layers))
+        elif fam == "moe":
+            nd, every = cfg.n_dense_layers, cfg.moe_every
+            n_rest = cfg.n_layers - nd
+            if cfg.moe is None or n_rest <= 0 or n_rest % every:
+                raise ValueError(
+                    f"{cfg.name}: a MoE stack needs experts and n_layers - "
+                    f"n_dense_layers ({cfg.n_layers} - {nd}) a positive "
+                    f"multiple of moe_every {every}")
+            if nd:
+                self.dense_layers = decoder_layers(nd)
+            if every > 1:
+                # llama4: units of (moe_every - 1) dense layers, each
+                # followed by one MoE layer
+                self.n_units = n_rest // every
+                self.unit_dense = nn.ModuleList(
+                    decoder_layers(every - 1) for _ in range(self.n_units))
+            self.layers = decoder_layers(self.n_units or n_rest,
+                                         use_moe=True)
         else:
-            self.layers = nn.ModuleList(
-                DecoderLayer(cfg, cross=fam == "audio", device=dev)
-                for _ in range(cfg.n_layers))
+            self.layers = decoder_layers(cfg.n_layers, cross=fam == "audio")
         if fam == "hybrid":
             if not cfg.attn_every or cfg.n_layers % cfg.attn_every:
                 raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is "
@@ -338,31 +389,42 @@ class LM(nn.Module):
             # Zamba2: one *shared* attention block reused across units
             self.shared_attn = DecoderLayer(cfg, device=dev)
         if fam == "audio":
-            self.enc_layers = nn.ModuleList(
-                DecoderLayer(cfg, device=dev)
-                for _ in range(cfg.n_encoder_layers))
+            self.enc_layers = decoder_layers(cfg.n_encoder_layers)
 
     @property
     def device(self) -> torch.device:
         """The device the parameters live on."""
         return self.embed.device
 
+    def _decoder_layers(self) -> list[DecoderLayer]:
+        """Every decoder layer but the shared and encoder ones, in the
+        order a forward runs them."""
+        out = list(getattr(self, "dense_layers", ()))
+        if hasattr(self, "unit_dense"):
+            for unit, moe_layer in zip(self.unit_dense, self.layers):
+                out += list(unit) + [moe_layer]
+        else:
+            out += list(self.layers)
+        return out
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` (on the model's device),
-        with the JAX package's distributions."""
+        with the JAX package's distributions; the embedding, the head and
+        the experts are drawn in place (no temporary of their size)."""
         cfg = self.cfg
-        self.embed.copy_(cm.init_embedding(generator, cfg.padded_vocab,
-                                           cfg.d_model))
+        # the JAX package's init_embedding (normal x 0.02) and the head's
+        # init_linear (normal x 1/sqrt(D))
+        self.embed.normal_(generator=generator).mul_(0.02)
         self.ln_out.fill_(1.0)
-        self.lm_head.copy_(cm.init_linear(generator, cfg.d_model,
-                                          cfg.padded_vocab))
-        for layer in self.layers:
+        self.lm_head.normal_(generator=generator).mul_(
+            1.0 / math.sqrt(cfg.d_model))
+        for layer in self._decoder_layers():
             if isinstance(layer, SSMLayer):
                 init_ssm_layer(layer, generator)
             else:
                 init_decoder_layer(layer, cfg, generator)
-        if self.n_units:
+        if hasattr(self, "shared_attn"):
             init_decoder_layer(self.shared_attn, cfg, generator)
         for layer in getattr(self, "enc_layers", ()):
             init_decoder_layer(layer, cfg, generator)
@@ -375,22 +437,28 @@ class LM(nn.Module):
         acfg = cfg.attn_config(causal=False, sliding_window=0)
         x = frames
         for layer in self.enc_layers:
-            x = apply_decoder_layer_train(layer, cfg, x, acfg=acfg)
+            x, _ = apply_decoder_layer_train(layer, cfg, x, acfg=acfg)
         return x
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor,
-                patches: torch.Tensor | None = None,
-                enc_frames: torch.Tensor | None = None) -> torch.Tensor:
-        """Full-sequence logits: tokens (B, S) int -> (B, S', V_pad) fp32.
+    def apply_train(self, tokens: torch.Tensor,
+                    patches: torch.Tensor | None = None,
+                    enc_frames: torch.Tensor | None = None,
+                    moe_group=None) -> tuple[torch.Tensor, dict]:
+        """Full-sequence logits and aux, as the JAX package's
+        ``apply_train``: tokens (B, S) int -> (B, S', V_pad) fp32, and
+        {"lb_loss", "router_entropy"}, the mean over the MoE layers (zeros
+        for the other families).
 
         ``vlm``: ``patches`` (B, P, D) are prepended (S' = P + S).
         ``audio``: ``enc_frames`` (B, S_enc, D) go through the encoder
         first, and every decoder layer cross-attends to its output.
+        ``moe_group``: see the module docstring.
         """
         cfg = self.cfg
         x = cm.embed(self.embed, tokens)
         fam = cfg.family
+        auxs = []
         if fam == "vlm" and patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         if fam == "ssm":
@@ -401,22 +469,40 @@ class LM(nn.Module):
             for u in range(self.n_units):
                 for layer in self.layers[u * ae:(u + 1) * ae]:
                     x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
-                x = apply_decoder_layer_train(self.shared_attn, cfg, x)
+                x, _ = apply_decoder_layer_train(self.shared_attn, cfg, x)
         else:
             enc = self.encode_audio(enc_frames) if fam == "audio" else None
-            for layer in self.layers:
-                x = apply_decoder_layer_train(layer, cfg, x, enc=enc)
+            for layer in self._decoder_layers():
+                x, aux = apply_decoder_layer_train(layer, cfg, x, enc=enc,
+                                                   moe_group=moe_group)
+                if isinstance(layer.ffn, moelib.MoE):
+                    auxs.append(aux)
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
-        return cm.linear(self.lm_head, x)
+        logits = cm.linear(self.lm_head, x)
+        if not auxs:
+            return logits, moelib.zero_aux(logits.device)
+        return logits, {k: torch.stack([a[k] for a in auxs]).mean()
+                        for k in auxs[0]}
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor,
+                patches: torch.Tensor | None = None,
+                enc_frames: torch.Tensor | None = None,
+                moe_group=None) -> torch.Tensor:
+        """``apply_train``'s logits alone."""
+        return self.apply_train(tokens, patches, enc_frames, moe_group)[0]
 
     def init_cache(self, batch: int, max_len: int = 0) -> dict:
         """Empty caches, stacked over layers as in the JAX package:
         ``{"layers": {"self": {"k", "v"}}}`` (n_layers, B, size, H_kv, D)
-        for the attention families (``c_kv`` / ``k_rope`` under MLA);
-        ``{"layers": {"ssm": (n_layers, B, H, P, N), "conv": (n_layers,
-        B, K-1, C)}}`` for ``ssm``, and for ``hybrid`` beside it
-        ``"shared_attn": {"self": {"k", "v"}}`` (n_units, B, max_len,
-        H_kv, D).  The SSM cache does not grow with ``max_len``."""
+        for the attention families (``c_kv`` / ``k_rope`` under MLA; for
+        ``moe`` ``layers`` holds the MoE layers' caches, beside
+        ``dense_layers`` (n_dense_layers, ...) and ``unit_dense`` (units,
+        moe_every - 1, ...)); ``{"layers": {"ssm": (n_layers, B, H, P,
+        N), "conv": (n_layers, B, K-1, C)}}`` for ``ssm``, and for
+        ``hybrid`` beside it ``"shared_attn": {"self": {"k", "v"}}``
+        (n_units, B, max_len, H_kv, D).  The SSM cache does not grow with
+        ``max_len``."""
         cfg, dev = self.cfg, self.device
         if cfg.family in ("ssm", "hybrid"):
             cache = {"layers": _stack(
@@ -425,19 +511,26 @@ class LM(nn.Module):
                 cache["shared_attn"] = _stack(
                     init_layer_cache(cfg, batch, max_len, dev), self.n_units)
             return cache
-        return {"layers": _stack(init_layer_cache(cfg, batch, max_len, dev),
-                                 cfg.n_layers)}
+        one = init_layer_cache(cfg, batch, max_len, dev)
+        cache = {"layers": _stack(one, len(self.layers))}
+        if hasattr(self, "unit_dense"):
+            cache["unit_dense"] = _stack(one, self.n_units,
+                                         cfg.moe_every - 1)
+        if hasattr(self, "dense_layers"):
+            cache["dense_layers"] = _stack(one, len(self.dense_layers))
+        return cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, pos=None,
-                    enc_states: torch.Tensor | None = None
+                    enc_states: torch.Tensor | None = None, moe_group=None
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> logits (B, 1, V_pad) and ``cache``, updated in
         place.  ``pos`` is the absolute position of the token (an int or
         a 0-d tensor; the recurrent state does not need it).  ``audio``:
         ``enc_states`` (B, S_enc, D) are the encoder's output
         (``encode_audio``), whose keys and values every step computes
-        again, as the JAX package does; ``vlm`` takes no patches here."""
+        again, as the JAX package does; ``vlm`` takes no patches here.
+        ``moe_group``: see the module docstring."""
         cfg = self.cfg
         fam = cfg.family
         if pos is None and fam != "ssm":
@@ -458,10 +551,19 @@ class LM(nn.Module):
                         _stack_views(cache["shared_attn"], i // ae), pos)
         else:
             enc = enc_states if fam == "audio" else None
+
+            def step(layer, x, layer_cache):
+                return apply_decoder_layer_decode(layer, cfg, x, layer_cache,
+                                                  pos, enc=enc,
+                                                  moe_group=moe_group)[0]
+            for i, layer in enumerate(getattr(self, "dense_layers", ())):
+                x = step(layer, x, _stack_views(cache["dense_layers"], i))
             for i, layer in enumerate(self.layers):
-                x, _ = apply_decoder_layer_decode(
-                    layer, cfg, x, _stack_views(cache["layers"], i), pos,
-                    enc=enc)
+                if hasattr(self, "unit_dense"):
+                    unit = _stack_views(cache["unit_dense"], i)
+                    for j, dense in enumerate(self.unit_dense[i]):
+                        x = step(dense, x, _stack_views(unit, j))
+                x = step(layer, x, _stack_views(cache["layers"], i))
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
         return cm.linear(self.lm_head, x), cache
 

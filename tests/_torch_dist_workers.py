@@ -342,3 +342,42 @@ def domain_kinds_rank(rank: int, world_size: int, sizes: tuple) -> dict:
     tr.train_step(bufs, opt, batch, GeneratorNoise(torch.Generator()))
     return {"kinds": compat.timed_kinds(), "rows": (lo, hi),
             "jax_loaded": "jax" in sys.modules}
+
+
+def moe_scatter_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """The MoE layer on this rank's slice of the batch over a data mesh of
+    every rank (the scatter dispatch), and a decode-shaped input that
+    every rank holds whole (the dense path); the routing each call saw."""
+    import dataclasses
+    from repro_torch.launch.mesh import data_axes, make_mesh
+    from repro_torch.models import moe
+    mesh = make_mesh((world_size,), ("data",), "cpu")
+    group = mesh.get_group(data_axes(mesh)[0])
+    out = {"jax_loaded": "jax" in sys.modules}
+    params = {k: (torch.from_numpy(v) if not isinstance(v, dict) else
+                  {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+              for k, v in setup["params"].items()}
+    for cf in setup["capacity_factors"]:
+        cfg = dataclasses.replace(moe.MoEConfig(**setup["cfg"]),
+                                  capacity_factor=cf, dispatch="scatter",
+                                  dp_axes=("data",))
+        x = setup["x"]
+        b = x.shape[0] // world_size
+        mine = torch.from_numpy(x[rank * b:(rank + 1) * b])
+        seen = []
+        g = moe.scatter_group(cfg, group, x.shape[0], x.shape[1])
+        with moe.observe(seen.append):
+            y, aux = moe.apply_moe(params, cfg, mine, g)
+        r = seen[0]
+        out[cf] = {"scatter": g is not None, "y": _np(y),
+                   "aux": {k: float(v) for k, v in aux.items()},
+                   "gate_idx": _np(r.gate_idx), "keep": _np(r.keep),
+                   "ranks": r.ranks, "slot": _np(r.slot)}
+        small = torch.from_numpy(setup["small"])
+        g = moe.scatter_group(cfg, group, *small.shape[:2])
+        seen = []
+        with moe.observe(seen.append):
+            y, _ = moe.apply_moe(params, cfg, small, g)
+        out[cf]["small"] = {"scatter": g is not None, "y": _np(y),
+                            "dense": seen[0].dispatch is not None}
+    return out

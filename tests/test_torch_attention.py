@@ -42,6 +42,8 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 #: the seven architectures of the dense, hybrid, VLM and audio families
 ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b", "yi-6b", "codeqwen1.5-7b",
          "zamba2-2.7b", "llava-next-34b", "whisper-small")
+#: the MoE family's two (``tests/test_torch_moe.py``)
+MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
 
 
 def _rng(seed):
@@ -474,15 +476,10 @@ def test_lm_cli_runs_the_attention_families_on_cpu(arch, shape, phase):
         assert "logits=(2, 40, 256)" in lines[0]
 
 
-def test_lm_cli_refuses_the_moe_architectures():
-    proc = _run_cli("--arch", "deepseek-v2-236b", "--smoke", "--device",
-                    "cpu")
-    assert proc.returncode != 0 and "invalid choice" in proc.stderr
-
-
 @pytest.mark.parametrize("module", [
     "phi3_mini_3_8b", "mistral_nemo_12b", "yi_6b", "codeqwen1_5_7b",
-    "zamba2_2_7b", "llava_next_34b", "whisper_small"])
+    "zamba2_2_7b", "llava_next_34b", "whisper_small", "deepseek_v2_236b",
+    "llama4_maverick_400b_a17b"])
 def test_config_modules_match_jax(module):
     import importlib
     jmod = importlib.import_module(f"repro.configs.{module}")
@@ -490,7 +487,7 @@ def test_config_modules_match_jax(module):
     for fn in ("config", "smoke"):
         want, got = getattr(jmod, fn)(), getattr(tmod, fn)()
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert tmod.config().name in ARCHS
+    assert tmod.config().name in ARCHS + MOE_ARCHS
 
 
 @pytest.mark.parametrize("arch", ARCHS)
