@@ -140,6 +140,22 @@ non-zero exit code and no result line:
    128 from an empty cache, and the prefill's logits for 256 tokens of
    2 sequences against 256 recurrent decode steps (``LM_CONSIST_TOL``);
    no plain version may run on a CUDA tensor;
+6a. LM training (``[lm-train]`` lines): (a) ``mamba2-130m`` at its
+   published widths trains for ``LM_TRAIN_STEPS`` Adam steps on one
+   batch of ``LM_TRAIN_BATCH`` x 4096 (``train_4k``'s sequence, its
+   batch of 256 cut) with remat, through ``train/lm.py``, every launch
+   counter set to 0 before each step and read after it: 48 launches of
+   each SSD forward kernel (remat runs each twice) and 24 of each
+   backward kernel a step, the loss finite and falling, no plain version
+   on a CUDA tensor; per step its seconds and tokens/s, the peak; the
+   same step dry-run (calls = launches, the live-set peak within
+   ``DRYRUN_PEAK_BAND``); (b) both SSD backward kernels against autograd
+   of their plain versions in float64 at the gradient bar, at
+   ``SSD_BWD_CHECKS`` (a second run bitwise the same, every gradient
+   finite), timed beside the plain version and their bounds; (c) one
+   loss and backward of each family's smoke config on the card against
+   the CPU (``LM_TRAIN_LOSS_RTOL``, the gradient bar); the model and
+   optimizer freed before 6b;
 6b. the attention LMs (``[lm-hybrid]`` lines), with the plain-version
    guard set to 0 just before and read just after: ``zamba2-2.7b`` at
    its published widths (54 Mamba-2 layers, 9 units closed by the shared
@@ -215,7 +231,8 @@ non-zero exit code and no result line:
    shape (i) or (ii) counted must carry the same FLOPs and bytes a call;
 8. the ``kernels`` JSON line (each entry with [tune]'s ``tuned_dims``,
    ``tuned_ms`` and ``default_ms`` at ``tuned_at``, null for the
-   recurrence, whose tile is not tuned), then the result line.
+   recurrence and the backwards, whose tiles are not tuned; the SSD
+   backwards with [lm-train]'s (b) rows), then the result line.
 
 Exits non-zero without CUDA, and in a directory without the repository.
 """
@@ -372,6 +389,30 @@ HYBRID_PROFILED_STEPS = 4
 ATTN_FAMILY_CHECKS = (("mistral-nemo-12b", 2, 4096, 128),
                       ("whisper-small", None, 32768, 128),
                       ("llava-next-34b", 2, 32768, 128))
+
+#: [lm-train]: mamba2-130m at its published widths (24 layers, d_model 768,
+#: 24 SSD heads, d_state 128, chunk 128) trains on train_4k's sequence of
+#: 4096 tokens with its global batch cut 256 -> 8 (one card and the
+#: script's time), LM_TRAIN_STEPS Adam steps with remat on one batch (the
+#: loss must fall)
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 2, 1e-4
+#: (b) both SSD backward kernels against autograd of their plain versions:
+#: (tag, the intra-chunk step's (BC, L, H, P, G, N), the recurrence's (B,
+#: nc, H, P, N), dA scale): (a)'s shape (8 sequences of 32 chunks), the
+#: prefill's (PERF.md's SSD row), zamba2-2.7b's 80 heads a group (past the
+#: forward's head tile of 24) and chunks whose |dA| sums pass 88
+SSD_BWD_CHECKS = (
+    ("train", (256, 128, 24, 64, 1, 128), (8, 32, 24, 64, 128), 0.1),
+    ("prefill", (512, 128, 24, 64, 1, 128), (2, 256, 24, 64, 128), 0.1),
+    ("zamba2-80-heads", (256, 128, 80, 64, 1, 64), (2, 128, 80, 64, 64),
+     0.1),
+    ("large-decay", (8, 128, 24, 64, 1, 128), (8, 4, 24, 64, 128), 2.0))
+#: (c) one loss and backward of each family's smoke config, on the card
+#: against the same model on the CPU: the loss at LM_TRAIN_LOSS_RTOL, the
+#: gradients at the gradient bar
+LM_FAMILY_ARCHS = ("mamba2-130m", "zamba2-2.7b", "mistral-nemo-12b",
+                   "llava-next-34b", "whisper-small", "deepseek-v2-236b")
+LM_TRAIN_LOSS_RTOL = 1e-4
 
 #: [lm-moe]: the two MoE architectures at their published widths, each
 #: cut in depth only: (arch, layers kept, prefill length at batch 1).
@@ -1382,6 +1423,248 @@ def _dispatch_invariants(found: list):
             "dispatch_sum": float(disp.sum()),
             "values_01": bool(((disp == 0) | (disp == 1)).all())})
     return check
+
+
+def _ssd_bwd_operands(intra: tuple, rec: tuple, da_scale: float, seed: int):
+    """Random operands of both backward kernels on the card: the
+    intra-chunk step's (x, da_cs, B, C) and output gradients at ``intra``
+    = (BC, L, H, P, G, N); the recurrence's states, decays (exp of each
+    chunk's dA sum) and incoming state with its output gradients at
+    ``rec`` = (B, nc, H, P, N).  ``da_scale`` 2.0: chunks whose |dA| sums
+    pass 88."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+    bc, l, h, p, g, n = intra
+    da = -randn(bc, l, h).abs() * da_scale
+    da_cs = torch.cumsum(da, dim=1)
+    ins = (randn(bc, l, h, p), da_cs, randn(bc, l, g, n), randn(bc, l, g, n))
+    cots = (randn(bc, l, h, p), randn(bc, h, p, n))
+    b, nc, hh, pp, nn = rec
+    decay = torch.exp(-(randn(b, nc, hh).abs() * da_scale * l))
+    rins = (randn(b, nc, hh, pp, nn), decay, randn(b, hh, pp, nn))
+    rcots = (randn(b, nc, hh, pp, nn), randn(b, hh, pp, nn))
+    return ins, cots, rins, rcots
+
+
+def check_ssd_bwd(tag: str, intra: tuple, rec: tuple, da_scale: float
+                  ) -> tuple[dict, dict]:
+    """Both SSD backward kernels against autograd of their plain versions
+    at the gradient bar, run twice (bitwise the same), timed beside the
+    plain version (its forward and autograd's backward) and their bounds;
+    every gradient finite.  No single torch call computes either: no
+    yardstick."""
+    import torch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
+                                             ssd_intra_chunk_ref)
+    ins, cots, rins, rcots = _ssd_bwd_operands(intra, rec, da_scale,
+                                               seed=len(tag))
+
+    def plain_intra(dt=torch.float32):
+        ts = [t.detach().to(dt).requires_grad_(True) for t in ins]
+        return torch.autograd.grad(ssd_intra_chunk_ref(*ts), ts,
+                                   [c.to(dt) for c in cots])
+
+    def plain_rec(dt=torch.float32):
+        ts = [t.detach().to(dt).requires_grad_(True) for t in rins]
+        return torch.autograd.grad(chunk_recurrence_ref(*ts), ts,
+                                   [c.to(dt) for c in rcots])
+
+    prev = ops.chunk_recurrence(*rins)[0]
+    kernels = {
+        "ssd_intra_chunk_bwd": (
+            lambda: ops.ssd_intra_chunk_bwd(*ins, *cots), plain_intra,
+            ops.bwd_work(tuple(ins[0].shape), intra[4], intra[5]),
+            ("ssd_intra_chunk_bwd",
+             (tuple(ins[0].shape), tuple(ins[2].shape))),
+            f"x{tuple(ins[0].shape)} B,C{tuple(ins[2].shape)}"),
+        "ssd_chunk_recurrence_bwd": (
+            # dstates, ddecay, dinit: autograd's order is states, decay,
+            # init
+            lambda: ops.chunk_recurrence_bwd(rcots[0], rcots[1], prev,
+                                             rins[1]), plain_rec,
+            ops.state_bwd_work(tuple(rins[0].shape)),
+            ("ssd_chunk_recurrence_bwd", (tuple(rins[0].shape),)),
+            f"states{tuple(rins[0].shape)}")}
+    def excess(got, want):
+        # the largest |got - want| beyond rtol |want|: within atol passes
+        return max(float(((a.double() - r).abs() - GRAD_RTOL * r.abs()
+                          ).max()) for a, r in zip(got, want))
+
+    rows = {}
+    for name, (run, plain, w, call, shape) in kernels.items():
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        # the yardstick: autograd of the plain version in float64; the
+        # float32 plain version rounds about as much as the kernel does
+        want = plain(torch.float64)
+        worst_plain = excess(plain(), want)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst = excess(got, want)
+        abs_err = max(float((a.double() - r).abs().max())
+                      for a, r in zip(got, want))
+        rel_err = max(errors(a.double(), r)[1] for a, r in zip(got, want))
+        del got, again, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(run, reps=5)
+        plain_ms = cuda_ms(plain, reps=2)
+        flops, nbytes = w["flops"], w["bytes"]
+        row = dict(shape=shape, what=tag, call=call, max_abs_err=abs_err,
+                   max_rel_err=rel_err, excess=worst,
+                   plain_fp32_excess=worst_plain, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, flops=flops, bytes=nbytes,
+                   deterministic=bitwise, **bound(flops, nbytes))
+        row["ms_over_bound"] = ms / row["bound_ms"]
+        log(f"[lm-train] (b) {name} {tag} {shape}: vs float64 autograd "
+            f"of the plain version abs_err={abs_err:.3e} rel_err="
+            f"{rel_err:.3e} excess over rtol {worst:.3e} (rtol={GRAD_RTOL}"
+            f" atol={GRAD_ATOL}; the float32 plain version's "
+            f"{worst_plain:.3e}) finite={finite} bitwise_rerun={bitwise} "
+            f"kernel_ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} (autograd of the plain version) "
+            f"library_ms=none bound_ms={row['bound_ms']:.3f} "
+            f"({row['bound_by']}) bound_tc_ms={row['bound_tc_ms']:.3f} "
+            f"ms/bound_ms={row['ms_over_bound']:.2f} "
+            f"tflops={flops / ms / 1e9:.2f} GB/s={nbytes / ms / 1e6:.0f}")
+        if not (finite and bitwise and worst <= GRAD_ATOL):
+            raise AssertionError(f"{name} {tag}: off the gradient bar "
+                                 f"({worst:.3e} past rtol), finite={finite},"
+                                 f" bitwise={bitwise}")
+        rows[name] = row
+    del ins, cots, rins, rcots, prev
+    torch.cuda.empty_cache()
+    return rows["ssd_intra_chunk_bwd"], rows["ssd_chunk_recurrence_bwd"]
+
+
+def dryrun_lm_train(guard) -> dict:
+    """[lm-train]'s step dry-run on one rank: mamba2-130m, LM_TRAIN_BATCH x
+    4096, remat."""
+    import dataclasses
+    from repro_torch.configs import archs, shapes
+    from repro_torch.launch import dryrun
+    shape = dataclasses.replace(shapes.INPUT_SHAPES["train_4k"],
+                                global_batch=LM_TRAIN_BATCH)
+    return dry_count("mamba2-130m/lm-train", lambda dry, mesh: (
+        dryrun.build_lm_case(LM_ARCH, shape, mesh, dry,
+                             cfg=archs.get_arch(LM_ARCH))), guard)
+
+
+def lm_train_phase(report, guard) -> dict:
+    """(a) mamba2-130m at its published widths trains for LM_TRAIN_STEPS
+    Adam steps on one batch of LM_TRAIN_BATCH x 4096 (train_4k's
+    sequence) with remat, each step's launches counted, then the same
+    step dry-run and held to them; (b) both SSD backward kernels against
+    autograd of their plain versions at SSD_BWD_CHECKS; (c) one loss and
+    backward of each family's smoke config on the card against the CPU."""
+    import torch
+    from repro_torch.configs import archs, shapes
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import lm as lm_mod
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import adam as adamlib
+    from repro_torch.train import lm as lmtrain
+    out: dict = {"parts_s": {}}
+    t0 = time.time()
+    seq = shapes.INPUT_SHAPES["train_4k"].seq_len
+    model = lm_mod.build_model(LM_ARCH, shape="train_4k", seed=0,
+                               device="cuda")
+    opt = adamlib.Adam(lr=LM_TRAIN_LR)
+    state = opt.init(dict(model.named_parameters()))
+    tokens = lm_mod.random_tokens(model, (LM_TRAIN_BATCH, seq), seed=4)
+    batch = {"tokens": tokens, "labels": tokens}
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    steps = []
+    for i in range(LM_TRAIN_STEPS):
+        ssd_ops.reset_launches()
+        t1 = time.time()
+        state, diag = lmtrain.train_step(model, opt, state, batch)
+        torch.cuda.synchronize()
+        sec = time.time() - t1
+        steps.append({
+            "seconds": sec, "loss": float(diag["loss"]),
+            "grad_norm": float(diag["grad_norm"]),
+            "launches": {"ssd_intra_chunk": ssd_ops.launches,
+                         "ssd_chunk_recurrence": ssd_ops.state_launches,
+                         "ssd_intra_chunk_bwd": ssd_ops.bwd_launches,
+                         "ssd_chunk_recurrence_bwd":
+                         ssd_ops.state_bwd_launches}})
+        report(f"[lm-train] step {i} loss={steps[-1]['loss']:.6f} "
+               f"|g|={steps[-1]['grad_norm']:.6f} step_s={sec:.3f} "
+               f"tokens_per_s={LM_TRAIN_BATCH * seq / sec:.0f} "
+               f"launches={steps[-1]['launches']}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["plain"] = dict(guard.counts)
+    out.update(steps=steps, setup_s=setup_s, resident_gb=resident,
+               n_layers=cfg.n_layers, params=model.param_count(),
+               cfg=cfg)
+    del model, opt, state, batch, tokens, diag
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parts_s"]["(a) train"] = time.time() - t0
+    # the same step counted on fake tensors: its calls against a step's
+    # launches, its live-set peak against the card's
+    t0 = time.time()
+    out["dry"] = dryrun_lm_train(guard)
+    out["parts_s"]["(a) dry run"] = time.time() - t0
+
+    t0 = time.time()
+    out["bwd_rows"] = [check_ssd_bwd(*c) for c in SSD_BWD_CHECKS]
+    out["parts_s"]["(b) kernels"] = time.time() - t0
+
+    # (c) each family's smoke config: loss and gradients on the card
+    # against the CPU from the same weights and inputs
+    t0 = time.time()
+    fams = []
+    for arch in LM_FAMILY_ARCHS:
+        scfg = archs.smoke_config(arch)
+        gen = torch.Generator().manual_seed(5)
+        cpu = LM(scfg, device="cpu")
+        cpu.init(gen)
+        card = LM(scfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        s_text = 64 - (scfg.n_patches if scfg.family == "vlm" else 0)
+        tok = torch.randint(0, scfg.vocab_size, (2, s_text), generator=gen)
+        b = {"tokens": tok, "labels": tok}
+        if scfg.family == "vlm":
+            b["patches"] = torch.randn((2, scfg.n_patches, scfg.d_model),
+                                       generator=gen)
+        if scfg.family == "audio":
+            b["enc_frames"] = torch.randn(
+                (2, scfg.encoder_seq, scfg.d_model), generator=gen)
+        ssd_ops.reset_launches()
+        loss, _, grads = lmtrain.loss_and_grads(
+            card, {k: v.cuda() for k, v in b.items()})
+        torch.cuda.synchronize()
+        bwd = ssd_ops.bwd_launches
+        ref, _, ref_grads = lmtrain.loss_and_grads(cpu, b)
+        rel = abs(float(loss) - float(ref)) / abs(float(ref))
+        worst = max(float(((g.cpu() - ref_grads[k]).abs()
+                           - GRAD_RTOL * ref_grads[k].abs()).max())
+                    for k, g in grads.items())
+        fams.append({"arch": arch, "family": scfg.family,
+                     "loss": float(loss), "cpu_loss": float(ref),
+                     "rel": rel, "grad_worst": worst, "ssd_bwd": bwd})
+        report(f"[lm-train] (c) {scfg.family} {arch} smoke: loss on the card "
+               f"{float(loss):.6f} on the CPU {float(ref):.6f} rel={rel:.2e} "
+               f"(bar {LM_TRAIN_LOSS_RTOL:g}); gradients: worst excess over "
+               f"rtol {GRAD_RTOL} = {worst:.2e} (atol {GRAD_ATOL}); SSD "
+               f"backward launches {bwd}")
+        del cpu, card, grads, ref_grads
+    torch.cuda.empty_cache()
+    out["families"] = fams
+    out["parts_s"]["(c) families"] = time.time() - t0
+    return out
 
 
 def lm_moe_phase(report, arch: str, layers: int, prefill_len: int) -> dict:
@@ -3234,7 +3517,9 @@ def launch_counts() -> dict:
             "crps_fused": crps_ops.launches,
             "crps_fused_bwd": crps_ops.bwd_launches,
             "ssd_intra_chunk": ssd_ops.launches,
-            "ssd_chunk_recurrence": ssd_ops.state_launches}
+            "ssd_chunk_recurrence": ssd_ops.state_launches,
+            "ssd_intra_chunk_bwd": ssd_ops.bwd_launches,
+            "ssd_chunk_recurrence_bwd": ssd_ops.state_bwd_launches}
 
 
 def _launched(before: dict, after: dict) -> dict:
@@ -3953,6 +4238,72 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("lm")
+    # -- phase 6a: LM training at full width, the SSD backward kernels ------
+    lt = lm_train_phase(log, guard)
+    lt_plain = lt["plain"]
+    steps = lt["steps"]
+    ltcfg = lt["cfg"]
+    want_launches = {"ssd_intra_chunk": 2 * lt["n_layers"],
+                     "ssd_chunk_recurrence": 2 * lt["n_layers"],
+                     "ssd_intra_chunk_bwd": lt["n_layers"],
+                     "ssd_chunk_recurrence_bwd": lt["n_layers"]}
+    seq = 4096
+    log(f"[lm-train] arch={ltcfg.name} layers={ltcfg.n_layers} d_model="
+        f"{ltcfg.d_model} heads={ltcfg.ssm.n_heads} d_state="
+        f"{ltcfg.ssm.d_state} chunk={ltcfg.ssm.chunk} params={lt['params']} "
+        f"batch={LM_TRAIN_BATCH} (train_4k's 256 cut) seq_len={seq} "
+        f"steps={LM_TRAIN_STEPS} remat=True lr={LM_TRAIN_LR:g}: setup_s="
+        f"{lt['setup_s']:.1f} step_s={[round(x['seconds'], 3) for x in steps]}"
+        f" tokens_per_s={[round(LM_TRAIN_BATCH * seq / x['seconds']) for x in steps]}"
+        f" loss={[round(x['loss'], 6) for x in steps]} peak_mem_gb="
+        f"{lt['peak_gb']:.2f} ({lt['resident_gb']:.2f} GB resident before:"
+        f" parameters and Adam's moments) launches a step="
+        f"{steps[-1]['launches']} plain_calls_on_cuda={lt_plain}")
+    held_lt = dryrun_hold(
+        log, f"(lm-train) {LM_ARCH} train step, batch {LM_TRAIN_BATCH} x "
+        f"{seq}, remat", lt["dry"], steps[-1]["launches"],
+        steps[-1]["seconds"], lt["peak_gb"])
+    lt_rows = {"ssd_intra_chunk_bwd": [], "ssd_chunk_recurrence_bwd": []}
+    for intra_row, rec_row in lt["bwd_rows"]:
+        for name, row in (("ssd_intra_chunk_bwd", intra_row),
+                          ("ssd_chunk_recurrence_bwd", rec_row)):
+            # (a)'s shape is the kernels' main path; the others by tag
+            row = dict(row, path=None if row["what"] == "train"
+                       else f"lm_train_{row['what']}")
+            lt_rows[name].append(row)
+    if dryrun_rows(log, {"(lm-train)": lt["dry"]}, lt_rows) < 2:
+        raise AssertionError("the [lm-train] dry run did not count the "
+                             "backward kernels at (b)'s train shape")
+    log(f"[lm-train] card: {card}; host s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in lt["parts_s"].items())
+        + f"; dry run calls = launches {held_lt['calls'] == want_launches}")
+    for i, st in enumerate(steps):
+        if st["launches"] != want_launches:
+            raise AssertionError(f"[lm-train] step {i} launched "
+                                 f"{st['launches']}, want {want_launches}")
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+                and st["grad_norm"] > 0):
+            raise AssertionError(f"[lm-train] step {i} diverged: {st}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"[lm-train] the loss did not fall: "
+                             f"{[x['loss'] for x in steps]}")
+    if any(lt_plain.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors in LM "
+                             f"training: {lt_plain}")
+    for f in lt["families"]:
+        if not (f["rel"] <= LM_TRAIN_LOSS_RTOL
+                and f["grad_worst"] <= GRAD_ATOL):
+            raise AssertionError(f"[lm-train] (c) {f['arch']}: the card's "
+                                 f"loss or gradients are off the CPU's: {f}")
+        if f["family"] in ("ssm", "hybrid") and f["ssd_bwd"] <= 0:
+            raise AssertionError(f"[lm-train] (c) {f['arch']}: no SSD "
+                                 "backward launch")
+    lm_train_launches = steps[-1]["launches"]
+    del lt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("lm_train")
     # -- phase 6b: the attention LMs at their published widths ----------
     hy_rec = Recorder()
     guard.counts = dict.fromkeys(guard.counts, 0)
@@ -4134,6 +4485,7 @@ def main() -> int:
     del states, decay
     for name, row in hy_rows.items():
         rows[name].append(row)
+    rows.update(lt_rows)
     torch.cuda.empty_cache()
 
     def legendre_what(ent):
@@ -4260,6 +4612,13 @@ def main() -> int:
         # ssd_chunked_pallas, which XLA compiles to one loop on the device
         "ssd_chunk_recurrence": ("cuda", "src/repro_torch/csrc/ssd_state.cu",
                                  "src/repro/kernels/ssd/ops.py:53"),
+        # no TPU kernel: the Pallas SSD kernel has no VJP; JAX's LM
+        # training differentiates the plain chunked scan
+        "ssd_intra_chunk_bwd": ("cuda", "src/repro_torch/csrc/ssd_bwd.cu",
+                                "src/repro/models/ssm.py:84"),
+        "ssd_chunk_recurrence_bwd": ("cuda",
+                                     "src/repro_torch/csrc/ssd_state_bwd.cu",
+                                     "src/repro/models/ssm.py:133"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -4288,16 +4647,19 @@ def main() -> int:
                    "evaluate": ev["launches"].get(name, 0),
                    "dist_engine": dist["engine"][0]["launches"].get(name, 0),
                    "dist_domain_eval": dist["domain"][0]["eval"][
-                       "launches"].get(name, 0)}
+                       "launches"].get(name, 0),
+                   # one step of [lm-train] (remat: the SSD forwards twice)
+                   "lm_train": lm_train_launches.get(name, 0)}
         ent = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "tpu_kernel": None if name == "ssd_chunk_recurrence" else replaces,
+            "tpu_kernel": None if name.startswith(
+                ("ssd_chunk_recurrence", "ssd_intra_chunk_bwd")) else replaces,
             # each kernel's main path: the forward kernels' is the
             # forecast, the transpose and CRPS kernels' is training, the
-            # SSD kernels' is the LM prefill
+            # SSD kernels' is the LM prefill, their backwards' LM training
             "launches": (by_path["serve"] or by_path["train"]
-                         or by_path["lm_prefill"]),
+                         or by_path["lm_prefill"] or by_path["lm_train"]),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                if r["max_abs_err"] is not None),

@@ -45,7 +45,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` (``build/`` is git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("legendre", "disco_band", "disco_band_bwd", "crps", "ssd",
-           "ssd_state")
+           "ssd_state", "ssd_bwd", "ssd_state_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

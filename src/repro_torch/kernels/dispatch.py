@@ -9,8 +9,9 @@ are linear in x, so neither saves x.  The tables, ``psi_band`` and the
 index buffers (the tables' order extents, the band's live taps and
 their lists by input row) are constants: neither backward returns a
 gradient for them.  The wrappers themselves decide CPU (plain version) versus CUDA
-(kernel launch) by where the tensors lie.  The SSD kernel has no
-backward yet (ROADMAP A13): ``ssd_chunked`` serves the prefill only.
+(kernel launch) by where the tensors lie.  ``ssd_chunked``'s two
+kernels sit in autograd functions of their own (``kernels/ssd/ops.py``),
+whose backwards are the SSD backward kernels.
 Each entry point takes the caller's ``KernelConfig`` and launches every
 kernel at its ``blocks`` tile (the backwards too: each autograd function
 keeps the tile of its forward).

@@ -35,8 +35,11 @@ Usage::
 step) or ``ensemble`` (the members: ``TrainConfig.member_axes``).
 Refused, one line each naming the ROADMAP item (``--all`` counts them
 apart from failures): ``channel`` and an ensemble that does not split
-over the model axis in ``ensemble`` mode (A10.3), an LM train step (the
-LM has no loss: A13.5).  ``--moe-dispatch`` (dense or scatter) is the
+over the model axis in ``ensemble`` mode (A10.3).  An LM train step is
+the loss, its backward (with the layers checkpointed, as the JAX
+``LM``'s: each SSD forward kernel is counted twice, the backward
+kernels once), the gradients' all-reduce over the data ranks and the
+Adam update (``train/lm.py``).  ``--moe-dispatch`` (dense or scatter) is the
 MoE layers' dispatch; the experts are whole on every rank (the JAX dry
 run places them over the model axis: a difference by design, ROADMAP
 C).  ``--all`` runs every case in a process of its own;
@@ -265,12 +268,12 @@ def build_fcn3_case(shape_name: str, mesh, dry: counting.DryRun,
 # LMs
 # ---------------------------------------------------------------------------
 
-def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
+def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
                   moe_dispatch: str = "dense", cfg=None) -> Case:
-    """One LM step on fake tensors inside ``dry``: the prefill or one
-    decode step on rank 0's slice of the batch (the batch over the data
-    axes; the port's LM has no tensor parallelism, so the model axis
-    holds replicas).
+    """One LM step on fake tensors inside ``dry``: the train step, the
+    prefill or one decode step on rank 0's slice of the batch (the batch
+    over the data axes; the port's LM has no tensor parallelism, so the
+    model axis holds replicas).
 
     A MoE architecture's layers take ``moe_dispatch``: ``scatter``
     dispatches over the data ranks where the batch splits over them
@@ -278,16 +281,16 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
     batch that does not split is whole on every rank and takes the dense
     path, as the JAX package's ``apply_moe`` chooses.  The experts are
     whole on every rank, where the JAX dry run places them over the model
-    axis (``distributed/sharding.py``'s expert rule)."""
+    axis (``distributed/sharding.py``'s expert rule).  ``shape_name``
+    names one of ``shapes.INPUT_SHAPES`` or is an ``InputShape`` of its
+    own (the smoke test's)."""
     from repro_torch.distributed import compat
     from repro_torch.models import moe as moelib
     from repro_torch.models.transformer import LM
-    shape = shapelib.INPUT_SHAPES[shape_name]
+    shape = (shapelib.INPUT_SHAPES[shape_name]
+             if isinstance(shape_name, str) else shape_name)
     if cfg is None:
         cfg = shapelib.adapt_arch_for_shape(archlib.get_arch(arch), shape)
-    if shape.mode == "train":
-        raise Refused(f"{cfg.name} {shape.name}: the port's LM has no loss "
-                      "and the SSD kernel no backward yet (ROADMAP A13.5)")
     dp = meshlib.data_axes(mesh) if mesh is not None else ()
     if cfg.moe and moe_dispatch != "dense":
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -307,6 +310,30 @@ def build_lm_case(arch: str, shape_name: str, mesh, dry: counting.DryRun,
             "local_batch": b}
     if cfg.moe:
         info["moe_dispatch"] = "scatter" if moe_group is not None else "dense"
+    if shape.mode == "train":
+        from repro_torch.optim import adam as adamlib
+        from repro_torch.train import lm as lmtrain
+        specs = shapelib.input_specs(
+            cfg, dataclasses.replace(shape, global_batch=b))
+        batch = {k: torch.empty_like(v, device=dry.device)
+                 for k, v in specs.items()}
+        dry.label(batch, "inputs")
+        model.requires_grad_(True)
+        opt = adamlib.Adam(lr=1e-4)
+        opt_state = opt.init(params)
+        dry.label(opt_state, "optimizer")
+        data_group = compat.mesh_group(mesh, dp) if dp else None
+
+        def train_step(opt_state, batch):
+            loss, _, grads = lmtrain.loss_and_grads(model, batch, data_group,
+                                                    moe_group)
+            dry.label(grads, "gradients")
+            opt.update(params, grads, opt_state)
+            return loss
+
+        mf = roof.model_flops_train(n_active,
+                                    shape.global_batch * shape.seq_len)
+        return Case(train_step, (opt_state, batch), mf, info)
     if shape.mode == "prefill":
         specs = shapelib.input_specs(
             cfg, dataclasses.replace(shape, global_batch=b))

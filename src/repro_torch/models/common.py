@@ -6,7 +6,7 @@ and applies as ``x @ w``.  Initialisation draws from an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s; the
 distributions are the same).  ``Params`` holds a block's named weights
 as an ``nn.Module``, so the ``state_dict`` keys follow the JAX tree.
-The cross-entropy loss comes with LM training (ROADMAP A13.5).
+``cross_entropy_loss`` is the LM's training loss.
 """
 
 from __future__ import annotations
@@ -86,6 +86,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean next-token cross-entropy, as the JAX package's: logits (B, S,
+    V), labels (B, S) int; the log-softmax in float32, labels equal to
+    ``ignore_index`` left out, the mean over the valid ones (at least
+    one in the denominator)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, safe[..., None])[..., 0]
+    return -(ll * valid).sum() / valid.sum().clamp_min(1)
 
 
 def swiglu_shapes(d: int, d_ff: int) -> dict[str, tuple[int, ...]]:

@@ -23,8 +23,18 @@
 
 * ``LM.apply_train`` is the JAX package's ``apply_train``: logits and the
   aux (the MoE layers' mean load-balance loss and router entropy, zeros
-  for the other families); ``LM.forward`` its logits alone (the prefill
-  of ``launch/dryrun.py``), under ``torch.no_grad``;
+  for the other families), differentiable; with ``remat`` (on by
+  default, as the JAX ``LM``'s) and grad enabled, each layer -- each
+  hybrid unit, each llama4 unit -- runs under
+  ``torch.utils.checkpoint`` and runs again in the backward (the JAX
+  package's ``jax.checkpoint`` over its layer scans; the audio encoder
+  is not checkpointed there either);
+* ``LM.loss`` is its ``loss``: the next-token cross-entropy on the text
+  logits plus 0.01 x the load-balance loss, and {"ce", "lb_loss",
+  "router_entropy"};
+* ``LM.forward`` is ``apply_train``'s logits alone (the prefill of
+  ``launch/lm.py`` and ``launch/dryrun.py``), under ``torch.no_grad``,
+  so that no prefill keeps activations for a backward;
 * ``LM.decode_step`` is one token against the caches (its
   ``serve_step``).  It writes each layer's new state and key / value
   into the cache in place, where the JAX package returns a new cache: at
@@ -52,6 +62,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.models import attention as attn
@@ -320,6 +331,17 @@ def _stack(one: dict, *dims: int) -> dict:
             for k, v in one.items()}
 
 
+def _chain(group: list, x: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """x through each callable of ``group`` in turn, and the auxes they
+    gave (``LM.apply_train``'s checkpointed body)."""
+    auxs = []
+    for f in group:
+        x, aux = f(x)
+        if aux is not None:
+            auxs.append(aux)
+    return x, auxs
+
+
 class LM(nn.Module):
     """Decoder-only (or encoder-decoder) LM per ``ArchConfig``, every
     family of the JAX package.
@@ -331,12 +353,14 @@ class LM(nn.Module):
     units, each a list of dense layers), the hybrid's ``shared_attn``
     (one ``DecoderLayer``) and the audio family's ``enc_layers``.  Built
     on ``device`` (``cuda`` unless the caller asks for the CPU) with zero
-    weights; ``init`` draws them.  ``kernels.ssd`` picks the prefill's
-    chunked scan.
+    weights; ``init`` draws them.  ``kernels.ssd`` picks the chunked
+    scan; ``remat`` checkpoints the layers on the grad path.  The
+    parameters do not require grad until the caller asks for it
+    (``requires_grad_``, as ``train/lm.py`` does).
     """
 
     def __init__(self, cfg: ArchConfig, device=None,
-                 kernels: KernelConfig | None = None):
+                 kernels: KernelConfig | None = None, remat: bool = True):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: unknown LM family "
@@ -344,6 +368,7 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.kernels = kernels or KernelConfig()
+        self.remat = remat
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.zeros((v, d), device=dev),
                                   requires_grad=False)
@@ -429,10 +454,7 @@ class LM(nn.Module):
         for layer in getattr(self, "enc_layers", ()):
             init_decoder_layer(layer, cfg, generator)
 
-    @torch.no_grad()
-    def encode_audio(self, frames: torch.Tensor) -> torch.Tensor:
-        """The Whisper encoder over precomputed conv front-end frames (a
-        stub): self-attention not causal, no window, RoPE kept."""
+    def _encode_audio(self, frames: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         acfg = cfg.attn_config(causal=False, sliding_window=0)
         x = frames
@@ -441,6 +463,11 @@ class LM(nn.Module):
         return x
 
     @torch.no_grad()
+    def encode_audio(self, frames: torch.Tensor) -> torch.Tensor:
+        """The Whisper encoder over precomputed conv front-end frames (a
+        stub): self-attention not causal, no window, RoPE kept."""
+        return self._encode_audio(frames)
+
     def apply_train(self, tokens: torch.Tensor,
                     patches: torch.Tensor | None = None,
                     enc_frames: torch.Tensor | None = None,
@@ -458,24 +485,55 @@ class LM(nn.Module):
         cfg = self.cfg
         x = cm.embed(self.embed, tokens)
         fam = cfg.family
-        auxs = []
         if fam == "vlm" and patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
+
+        # the layers in groups, the JAX package's scan bodies: lists of
+        # callables x -> (x, aux or None)
+        def ssm(layer):
+            return lambda x: (apply_ssm_layer_train(layer, cfg, x,
+                                                    self.kernels), None)
+
+        def dec(layer, enc=None, moe=False):
+            def f(x):
+                y, aux = apply_decoder_layer_train(layer, cfg, x, enc=enc,
+                                                   moe_group=moe_group)
+                return y, aux if moe else None
+            return f
+
         if fam == "ssm":
-            for layer in self.layers:
-                x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
+            groups = [[ssm(layer)] for layer in self.layers]
         elif fam == "hybrid":
             ae = cfg.attn_every
-            for u in range(self.n_units):
-                for layer in self.layers[u * ae:(u + 1) * ae]:
-                    x = apply_ssm_layer_train(layer, cfg, x, self.kernels)
-                x, _ = apply_decoder_layer_train(self.shared_attn, cfg, x)
+            groups = [[ssm(layer) for layer in self.layers[u * ae:
+                                                           (u + 1) * ae]]
+                      + [dec(self.shared_attn)] for u in range(self.n_units)]
+        elif fam == "moe":
+            groups = [[dec(layer)]
+                      for layer in getattr(self, "dense_layers", ())]
+            for i, layer in enumerate(self.layers):
+                unit = self.unit_dense[i] if hasattr(self, "unit_dense") else ()
+                groups.append([dec(d) for d in unit] + [dec(layer, moe=True)])
         else:
-            enc = self.encode_audio(enc_frames) if fam == "audio" else None
-            for layer in self._decoder_layers():
-                x, aux = apply_decoder_layer_train(layer, cfg, x, enc=enc,
-                                                   moe_group=moe_group)
-                if isinstance(layer.ffn, moelib.MoE):
+            enc = (self._encode_audio(enc_frames) if fam == "audio"
+                   else None)
+            groups = [[dec(layer, enc)] for layer in self.layers]
+        remat = self.remat and torch.is_grad_enabled()
+        auxs = []
+        for group in groups:
+            if remat:
+                # nothing inside is kept for the backward, which runs the
+                # group again
+                x, aux = ckpt.checkpoint(_chain, group, x,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
+                auxs += aux
+                continue
+            # a flat loop: no reference to a layer's input outlives it (a
+            # prefill holds one residual stream at a time)
+            for f in group:
+                x, aux = f(x)
+                if aux is not None:
                     auxs.append(aux)
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
         logits = cm.linear(self.lm_head, x)
@@ -483,6 +541,21 @@ class LM(nn.Module):
             return logits, moelib.zero_aux(logits.device)
         return logits, {k: torch.stack([a[k] for a in auxs]).mean()
                         for k in auxs[0]}
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             patches: torch.Tensor | None = None,
+             enc_frames: torch.Tensor | None = None, moe_group=None
+             ) -> tuple[torch.Tensor, dict]:
+        """The JAX package's ``LM.loss``: next-token cross-entropy on the
+        text logits (the last S of them: a VLM's patches come first),
+        logits at t against labels at t + 1, plus 0.01 x the MoE layers'
+        load-balance loss.  Returns (loss, {"ce", "lb_loss",
+        "router_entropy"})."""
+        logits, aux = self.apply_train(tokens, patches, enc_frames,
+                                       moe_group)
+        s = tokens.shape[1]
+        ce = cm.cross_entropy_loss(logits[:, -s:][:, :-1], labels[:, 1:])
+        return ce + 0.01 * aux["lb_loss"], {"ce": ce, **aux}
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,

@@ -373,17 +373,17 @@ class ForecastStream:
                 self._base += 1
             self._ev_cond.notify_all()
 
-    def put_terminal(self, ev: dict) -> bool:
-        """Enqueue a terminal event at most once per stream: the first
-        caller wins (worker done/error, deadline shed, cancel-at-pickup
-        and shutdown unblocking all funnel through here), later callers
-        get False.  Guarantees ``events()``/``result()`` always unblock
-        and never see two terminals."""
+    def claim_terminal(self) -> bool:
+        """Claim the stream's one terminal event: the first caller wins
+        (worker done/error, deadline shed, cancel-at-pickup and shutdown
+        unblocking all funnel through here), later callers get False.
+        The winner then enqueues it with ``put``, so that the stream
+        never sees two terminals and ``events()``/``result()`` always
+        unblock."""
         with self._term_lock:
             if self._terminal:
                 return False
             self._terminal = True
-        self.put(ev)
         return True
 
     def cancel(self) -> None:
@@ -643,19 +643,32 @@ class ForecastScheduler:
     def _finish(self, stream: ForecastStream, ev: dict) -> bool:
         """Push a terminal event (at most once per stream), retire the
         stream from the open-streams registry, and close its trace and
-        flight entry with an honest outcome."""
-        delivered = stream.put_terminal(ev)
+        flight entry with an honest outcome.
+
+        The claim comes first, then the trace is closed (and dumped) and
+        the outcome recorded, and only then is the terminal enqueued: a
+        consumer whose ``result()`` returns finds the trace file on
+        disk, and a second ``_finish`` neither dumps the trace again nor
+        delivers a second terminal."""
+        delivered = stream.claim_terminal()
         with self._lock:
             self._open.discard(stream)
-        if delivered and self.obs.enabled:
+        if not delivered:
+            return False
+        if self.obs.enabled:
             outcome = ev.get("event", "done")
             if outcome == "done" and ev.get("cancelled"):
                 outcome = "cancelled"
             elif outcome == "error":
                 outcome = ev.get("reason") or "error"
-            self.obs.flight_finish(stream.request_id, outcome)
-            self.obs.finish_trace(stream.trace)
-        return delivered
+            try:
+                self.obs.flight_finish(stream.request_id, outcome)
+                self.obs.finish_trace(stream.trace)
+            finally:
+                stream.put(ev)
+        else:
+            stream.put(ev)
+        return True
 
     def warmup(self, spec: RequestSpec, batch: int | None = None) -> dict:
         """Build the engine and warm its keys without running a rollout

@@ -635,7 +635,6 @@ def test_the_16_rank_fcn3_small_layout_gathers_every_halo():
 
 @pytest.mark.parametrize("arch,shape,kw,item", [
     ("fcn3", "train", {"fcn3_mode": "channel"}, "A10.3"),
-    ("mamba2-130m", "train_4k", {}, "A13.5"),
 ])
 def test_refusals_name_their_roadmap_item(arch, shape, kw, item):
     with counting.DryRun("cpu") as dry:

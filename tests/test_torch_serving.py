@@ -360,6 +360,27 @@ class TestObservability:
         assert "compile" in names
         assert (tmp_path / f"{res.request_id}.trace.json").exists()
 
+    def test_trace_on_disk_when_result_returns(self, pool, tmp_path):
+        # the trace is dumped before the terminal event is delivered: the
+        # file is there as soon as result() returns, without close()
+        s = ForecastScheduler(pool=pool, cache=ExecutableCache(),
+                              observability=ObservabilityConfig(
+                                  trace_dir=str(tmp_path)))
+        try:
+            for seed in range(4):
+                stream = s.submit(_spec(seed=seed, lead_steps=1,
+                                        lead_chunk=1))
+                res = _served(stream)
+                path = tmp_path / f"{res.request_id}.trace.json"
+                assert path.exists(), seed
+                assert json.loads(path.read_text())["traceEvents"]
+                # a second finish neither delivers nor dumps again
+                mtime = path.stat().st_mtime_ns
+                assert not s._finish(stream, {"event": "done"})
+                assert path.stat().st_mtime_ns == mtime
+        finally:
+            s.close(timeout=30)
+
     def test_profiled_request_exports_a_chrome_trace(self, pool, direct,
                                                      tmp_path):
         s = ForecastScheduler(pool=pool, cache=ExecutableCache(),
