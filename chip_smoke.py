@@ -152,7 +152,10 @@ non-zero exit code and no result line:
    ``DRYRUN_PEAK_BAND``); (b) both SSD backward kernels against autograd
    of their plain versions in float64 at the gradient bar, at
    ``SSD_BWD_CHECKS`` (a second run bitwise the same, every gradient
-   finite), timed beside the plain version and their bounds; (c) one
+   finite), timed beside the plain version, their bounds and their first
+   design's time (``SSD_BWD_FIRST_MS``: the intra-chunk backward at most
+   2 kernel launches a call, counted in a CUDA graph of one, faster than
+   its first design everywhere and at most half of it at (a)'s shape); (c) one
    loss and backward of each family's smoke config on the card against
    the CPU (``LM_TRAIN_LOSS_RTOL``, the gradient bar); the model and
    optimizer freed before 6b;
@@ -407,6 +410,17 @@ SSD_BWD_CHECKS = (
     ("zamba2-80-heads", (256, 128, 80, 64, 1, 64), (2, 128, 80, 64, 64),
      0.1),
     ("large-decay", (8, 128, 24, 64, 1, 128), (8, 4, 24, 64, 128), 2.0))
+#: the backward kernels' first design (fp32 on the CUDA cores; the
+#: intra-chunk step's in four launches with a (BC, H, L, L) scratch), ms
+#: at SSD_BWD_CHECKS on one H100 80GB HBM3 at 700 W (PERF.md): each row
+#: prints it beside its time, and the redesigned intra-chunk backward must
+#: beat it at every check and take at most half of it at "train"
+SSD_BWD_FIRST_MS = {
+    "ssd_intra_chunk_bwd": {"train": 5.431, "prefill": 10.508,
+                            "zamba2-80-heads": 15.996, "large-decay": 1.306},
+    "ssd_chunk_recurrence_bwd": {"train": 0.330, "prefill": 0.628,
+                                 "zamba2-80-heads": 0.507,
+                                 "large-decay": 0.104}}
 #: (c) one loss and backward of each family's smoke config, on the card
 #: against the same model on the CPU: the loss at LM_TRAIN_LOSS_RTOL, the
 #: gradients at the gradient bar
@@ -1449,12 +1463,43 @@ def _ssd_bwd_operands(intra: tuple, rec: tuple, da_scale: float, seed: int):
     return ins, cots, rins, rcots
 
 
+def kernel_launches(fn) -> int:
+    """The kernels one call of ``fn`` enqueues: the call captured into a
+    CUDA graph (nothing runs), its kernel nodes counted through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  torch.profiler is no
+    count here: in a window of one call after the dry run's fake tensors
+    it saw 0 or 1 of the call's 2 kernels on the H100, now and then."""
+    import ctypes
+    import torch
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if drv.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0     # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
 def check_ssd_bwd(tag: str, intra: tuple, rec: tuple, da_scale: float
                   ) -> tuple[dict, dict]:
     """Both SSD backward kernels against autograd of their plain versions
     at the gradient bar, run twice (bitwise the same), timed beside the
-    plain version (its forward and autograd's backward) and their bounds;
-    every gradient finite.  No single torch call computes either: no
+    plain version (its forward and autograd's backward), their bounds and
+    their first design's time (SSD_BWD_FIRST_MS); every gradient finite;
+    the kernels one call launches counted in a CUDA graph of it
+    (``launches_per_call``).  No single torch call computes either: no
     yardstick."""
     import torch
     from repro_torch.kernels.ssd import ops
@@ -1499,6 +1544,7 @@ def check_ssd_bwd(tag: str, intra: tuple, rec: tuple, da_scale: float
         got = run()
         again = run()
         torch.cuda.synchronize()
+        per_call = kernel_launches(run)
         # the yardstick: autograd of the plain version in float64; the
         # float32 plain version rounds about as much as the kernel does
         want = plain(torch.float64)
@@ -1515,11 +1561,13 @@ def check_ssd_bwd(tag: str, intra: tuple, rec: tuple, da_scale: float
         ms = cuda_ms(run, reps=5)
         plain_ms = cuda_ms(plain, reps=2)
         flops, nbytes = w["flops"], w["bytes"]
+        first_ms = SSD_BWD_FIRST_MS[name][tag]
         row = dict(shape=shape, what=tag, call=call, max_abs_err=abs_err,
                    max_rel_err=rel_err, excess=worst,
                    plain_fp32_excess=worst_plain, ms=ms, plain_ms=plain_ms,
                    library_ms=None, flops=flops, bytes=nbytes,
-                   deterministic=bitwise, **bound(flops, nbytes))
+                   deterministic=bitwise, launches_per_call=per_call,
+                   **bound(flops, nbytes))
         row["ms_over_bound"] = ms / row["bound_ms"]
         log(f"[lm-train] (b) {name} {tag} {shape}: vs float64 autograd "
             f"of the plain version abs_err={abs_err:.3e} rel_err="
@@ -1531,11 +1579,21 @@ def check_ssd_bwd(tag: str, intra: tuple, rec: tuple, da_scale: float
             f"library_ms=none bound_ms={row['bound_ms']:.3f} "
             f"({row['bound_by']}) bound_tc_ms={row['bound_tc_ms']:.3f} "
             f"ms/bound_ms={row['ms_over_bound']:.2f} "
-            f"tflops={flops / ms / 1e9:.2f} GB/s={nbytes / ms / 1e6:.0f}")
-        if not (finite and bitwise and worst <= GRAD_ATOL):
+            f"tflops={flops / ms / 1e9:.2f} GB/s={nbytes / ms / 1e6:.0f} "
+            f"launches_per_call={per_call} first_design_ms={first_ms:.3f} "
+            f"({first_ms / ms:.2f}x)")
+        if not (finite and bitwise and worst <= GRAD_ATOL and per_call >= 1):
             raise AssertionError(f"{name} {tag}: off the gradient bar "
                                  f"({worst:.3e} past rtol), finite={finite},"
-                                 f" bitwise={bitwise}")
+                                 f" bitwise={bitwise}, launches a call "
+                                 f"{per_call}")
+        if name == "ssd_intra_chunk_bwd" and not (
+                per_call <= 2 and ms < first_ms
+                and (tag != "train" or ms <= 0.5 * first_ms)):
+            raise AssertionError(f"{name} {tag}: {ms:.3f} ms in {per_call} "
+                                 f"launches against the first design's "
+                                 f"{first_ms:.3f} ms (at most 2 launches, "
+                                 f"faster, half at train)")
         rows[name] = row
     del ins, cots, rins, rcots, prev
     torch.cuda.empty_cache()
@@ -4665,7 +4723,8 @@ def main() -> int:
                                if r["max_abs_err"] is not None),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             **{key: top[key] for key in ("tflops", "dense_band_tflops",
-                                         "ms_over_bound") if key in top},
+                                         "ms_over_bound", "launches_per_call")
+                 if key in top},
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "bound_tc_ms": top["bound_tc_ms"],
             "library_ms": top["library_ms"], "at": top["shape"],

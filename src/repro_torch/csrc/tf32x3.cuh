@@ -28,6 +28,15 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
     lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
+// v = hi + lo with hi rounded to the nearest TF32 value (ties away from
+// zero: one more integer add than split).  |lo| <= 2^-11 |v|, half of
+// split's bound, so the cut of lo and the dropped lo * lo leave ~2^-22 of
+// |a*b| per product: ssd_bwd.cu takes it for sums that cancel.
+__device__ __forceinline__ void split_rn(float v, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
 // Not volatile: the compiler may interleave independent products.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {

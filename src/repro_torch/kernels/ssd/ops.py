@@ -166,11 +166,15 @@ def _state_lib():
 
 
 def _bwd_lib():
-    fn = build.load_library("ssd_bwd").ssd_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+    lib = build.load_library("ssd_bwd")
+    fn = lib.ssd_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    scratch = lib.ssd_bwd_scratch
+    scratch.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 2
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _state_bwd_lib():
@@ -217,8 +221,10 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, da_cs: torch.Tensor,
                         ) -> tuple[torch.Tensor, ...]:
     """Gradients of ``ssd_intra_chunk`` in x, da_cs, b_mat and c_mat, given
     those of its outputs: dy (BC, L, H, P) and dstates (BC, H, P, N).  One
-    launch of ``csrc/ssd_bwd.cu`` on CUDA tensors; autograd of the plain
-    version on CPU tensors."""
+    call of ``csrc/ssd_bwd.cu`` on CUDA tensors (two launches: the heads,
+    then the groups; one count); autograd of the plain version on CPU
+    tensors.  Its scratch holds a partial of dCB and of dB's state part
+    per (chunk, group, tile of heads), the size the library reports."""
     global bwd_launches
     _check(x, da_cs, b_mat, c_mat)
     bc, l, h, p = x.shape
@@ -247,12 +253,13 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, da_cs: torch.Tensor,
     outs = [torch.empty_like(t) for t in (x, da_cs, b_mat, c_mat)]
     if x.numel() == 0:
         return tuple(o.zero_() for o in outs)
-    cb = torch.empty((bc, g, l, l), dtype=torch.float32, device=x.device)
-    dcbh = torch.empty((bc, h, l, l), dtype=torch.float32, device=x.device)
-    err = _bwd_lib()(x.data_ptr(), da_cs.data_ptr(), b_mat.data_ptr(),
-                     c_mat.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
-                     *(o.data_ptr() for o in outs), cb.data_ptr(),
-                     dcbh.data_ptr(), bc, l, h, p, g, n, _stream(x))
+    fn, scratch = _bwd_lib()
+    part = torch.empty((scratch(bc, h, g),), dtype=torch.float32,
+                       device=x.device)
+    err = fn(x.data_ptr(), da_cs.data_ptr(), b_mat.data_ptr(),
+             c_mat.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
+             *(o.data_ptr() for o in outs), part.data_ptr(), bc, l, h, p, g,
+             n, _stream(x))
     build.check_launch(err, "ssd_intra_chunk_bwd")
     bwd_launches += 1
     return tuple(outs)

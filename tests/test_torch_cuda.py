@@ -543,10 +543,12 @@ def test_cuda_ssd_refuses_grad_and_bad_inputs(cuda):
 #: the gradient bar of tests/test_kernel_dispatch.py's grad-parity test
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 #: (BC, L, H, P, G, N) of the backward kernels: small, two groups with a
-#: ragged L, P and N, zamba2-2.7b's 80 heads a group (past the forward's
-#: head tile of 24), the mamba2-130m tile
+#: ragged L, P and N, zamba2-2.7b's 80 heads a group (past the head tile
+#: of 24: tiles of 24, 24, 24 and a ragged 8), the mamba2-130m tile; 80
+#: heads at N = 128 and 24 heads in two groups of 12 (one tile a group)
 SSD_BWD_SHAPES = [(2, 16, 4, 8, 1, 16), (3, 100, 6, 40, 2, 72),
-                  (2, 128, 80, 64, 1, 64), (4, 128, 24, 64, 1, 128)]
+                  (2, 128, 80, 64, 1, 64), (4, 128, 24, 64, 1, 128),
+                  (1, 128, 80, 64, 1, 128), (2, 128, 24, 64, 2, 128)]
 
 
 def _intra_grads_ref(ins, dy, dst):
@@ -585,6 +587,31 @@ def test_cuda_ssd_bwd_kernel(cuda, shape, big):
         assert torch.equal(a, b_)
         torch.testing.assert_close(a.double(), w, rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_kernel_is_one_step_without_a_head_scratch(cuda):
+    # one call is one bwd_launches step, and what it allocates beyond its
+    # four outputs (the scratch of per-tile partials) stays below one
+    # (BC, H, L, L) tensor, which the first design's scratch held
+    shape = (16, 128, 24, 64, 1, 128)
+    bc, l, h, p, g, n = shape
+    ins = _ssd_inputs(shape, cuda, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dy = torch.randn((bc, l, h, p), generator=gen, device=cuda)
+    dst = torch.randn((bc, h, p, n), generator=gen, device=cuda)
+    ssd_ops.ssd_intra_chunk_bwd(*ins, dy, dst)    # the library loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = ssd_ops.bwd_launches
+    got = ssd_ops.ssd_intra_chunk_bwd(*ins, dy, dst)
+    torch.cuda.synchronize()
+    assert ssd_ops.bwd_launches == before + 1
+    outs = sum(4 * t.numel() for t in got)
+    extra = torch.cuda.max_memory_allocated(cuda) - base - outs
+    assert extra < 4 * bc * h * l * l, extra
+    assert extra < (4 * bc * (g + h) * l * l) // 8, extra
 
 
 @pytest.mark.cuda

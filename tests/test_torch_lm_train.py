@@ -295,7 +295,8 @@ def test_backward_wrappers_on_cpu_match_autograd():
     init = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(
         np.float32)).requires_grad_(True)
     prev, fin = ssd_ref.chunk_recurrence_ref(states, decay, init)
-    dprev, dfin = torch.randn_like(prev), torch.randn_like(fin)
+    dprev, dfin = (torch.from_numpy(rng.normal(size=t.shape).astype(
+        np.float32)) for t in (prev, fin))
     want = torch.autograd.grad((prev, fin), (states, decay, init),
                                (dprev, dfin))
     got = ssd_ops.chunk_recurrence_bwd(dprev, dfin, prev.detach(),

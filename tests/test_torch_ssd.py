@@ -22,7 +22,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import (chunk_recurrence_ref,
                                          ssd_intra_chunk_ref)
 from repro_torch.models import ssm as tssm
-from test_torch_cuda import SSD_SHAPES
+from test_torch_cuda import GRAD_ATOL, GRAD_RTOL, SSD_BWD_SHAPES, SSD_SHAPES
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 #: (BC, L, H, P, G, N): the shapes of tests/test_kernels_ssd.py:20-26
@@ -315,3 +315,157 @@ def test_kernel_tile_walk_matches_the_oracle(shape, da_scale):
         assert err > 1e-3 * np.abs(y_ref.numpy()).max()
     with pytest.raises(KeyError):
         _emulate_ssd(x, da_cs, b, c, read_above=True)
+
+
+def _emulate_ssd_bwd(x, da_cs, b, c, dy, dst, heads=24, skip=None,
+                     read_above=False):
+    """csrc/ssd_bwd.cu's walk in numpy (float64).  Launch 1, block by block
+    (chunk, group, tile of ``heads`` heads): (B C^T)'s causal 16 x 8 tiles
+    (s-tile i, l-block j >= 2 i, within the chunk) formed once; then per
+    head, in order, Z += (w X) dst; dX = (w B) dst^T, tw from it and X,
+    then + att^T dy over the causal l-blocks only; datt^T on the causal
+    tiles only, dCB_h = datt^T * decay with the decay masked before exp,
+    M's row and column sums by tile, dCB_h summed over the tile's heads;
+    dcs from the tiles' sums.  Each block leaves a partial of dCB (by
+    tile) and of Z.  Launch 2, per (chunk, group): the partials summed in
+    head-tile order, dC = dCB B and dB = Z + dCB^T C over the causal
+    tiles.  Returns (dx, dda, db, dc, the blocks in launch order, the
+    tiles formed).  ``skip`` (i, j): the walk leaves that causal tile out;
+    ``read_above``: att^T dy also reads the l-block 2 i - 1, wholly above
+    the diagonal (a KeyError: no such tile).  A test holds both to fail.
+    """
+    bc, l, h, p = x.shape
+    g, n = b.shape[2:]
+    rep, lr, lb = h // g, -(-l // 16) * 16, -(-l // 8)
+    tiles = [(i, j) for i in range(lr // 16) for j in range(2 * i, lb)]
+    dx = np.zeros(x.shape)
+    dda = np.zeros(da_cs.shape)
+    db = np.zeros(b.shape)
+    dc = np.zeros(c.shape)
+    blocks, formed = [], set()
+    rows = np.arange(lr)
+
+    def pad(a):
+        out = np.zeros((lr,) + a.shape[1:])
+        out[:a.shape[0]] = a
+        return out
+
+    for q in range(bc):
+        for gg in range(g):
+            bm, cm = pad(b[q, :, gg]), pad(c[q, :, gg])
+            cbt = {}
+            for i, j in tiles:
+                cbt[i, j] = bm[16 * i:16 * i + 16] @ cm[8 * j:8 * j + 8].T
+                formed.add((i, j))
+            parts = []
+            for t0 in range(gg * rep, (gg + 1) * rep, heads):
+                blocks.append((q, gg, t0))
+                dcb = {k: np.zeros((16, 8)) for k in tiles}
+                z = np.zeros((lr, n))
+                for hh in range(t0, min(t0 + heads, (gg + 1) * rep)):
+                    xs, ys = pad(x[q, :, hh]), pad(dy[q, :, hh])
+                    cs = pad(da_cs[q, :, hh])
+                    w = np.where(rows < l, np.exp(cs[l - 1] - cs), 0.0)
+                    z += (w[:, None] * xs) @ dst[q, hh]
+                    dxs = (w[:, None] * bm) @ dst[q, hh].T
+                    tw = (xs * dxs).sum(1)
+                    rowp, colp = {}, {}
+                    for i in range(lr // 16):
+                        s_ = 16 * i + np.arange(16)
+                        walked = [j for j in range(2 * i, lb)
+                                  if (i, j) != skip]
+                        for j in walked + [2 * i - 1] * read_above:
+                            l_ = 8 * j + np.arange(8)
+                            mask = (s_[:, None] <= l_[None, :]) & (
+                                l_[None, :] < l)
+                            # the mask first: exp only on the taps
+                            dec = np.exp(np.where(mask, cs[l_][None, :]
+                                                  - cs[s_][:, None], -np.inf))
+                            dxs[s_] += (cbt[i, j] * dec) @ ys[l_]
+                            datt = xs[s_] @ ys[l_].T
+                            m = datt * dec * cbt[i, j]
+                            dcb[i, j] += datt * dec
+                            rowp[i, j], colp[i, j] = m.sum(1), m.sum(0)
+                    dx[q, :, hh] = dxs[:l]
+                    for xx in range(l):
+                        jx, ix = xx // 8, xx // 16
+                        col = sum(colp[i, jx][xx % 8]
+                                  for i in range(jx // 2 + 1)
+                                  if (i, jx) in colp)
+                        row = sum(rowp[ix, j][xx % 16]
+                                  for j in range(2 * ix, lb)
+                                  if (ix, j) in rowp)
+                        dda[q, xx, hh] = col - row - tw[xx]
+                    dda[q, l - 1, hh] += tw[:l].sum()
+                parts.append((dcb, z))
+            # launch 2: the partials in head-tile order
+            dcbt = np.zeros((lr, lr))
+            zs = np.zeros((lr, n))
+            for part, zp in parts:
+                for (i, j), v in part.items():
+                    dcbt[16 * i:16 * i + 16, 8 * j:8 * j + 8] += v
+                zs += zp
+            for i in range(lr // 16):
+                r_ = 16 * i + np.arange(16)
+                ks = 8 * np.arange(min(2 * i + 2, lb))
+                s_ = (ks[:, None] + np.arange(8)).ravel()
+                dc[q, r_[r_ < l], gg] = (dcbt[s_][:, r_].T @ bm[s_])[r_ < l]
+                l_ = np.arange(16 * i, 8 * lb)
+                db[q, r_[r_ < l], gg] = (zs[r_] + dcbt[r_][:, l_] @ cm[l_])[
+                    r_ < l]
+    return dx, dda, db, dc, blocks, formed
+
+
+def _bwd_inputs(shape, da_scale, seed):
+    bc, l, h, p, g, n = shape
+    x, da_cs, b, c = _intra_inputs(shape, seed, scale=da_scale)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(bc, l, h, p)).astype(np.float32)
+    dst = rng.normal(size=(bc, h, p, n)).astype(np.float32)
+    return (x, da_cs, b, c), (dy, dst)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["", "large-decay"])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES,
+                         ids=[str(s) for s in SSD_BWD_SHAPES])
+def test_backward_kernel_tile_walk_matches_autograd(shape, big):
+    # the walk of csrc/ssd_bwd.cu (tests/test_torch_cuda.py runs the kernel
+    # itself at these shapes): blocks per (chunk, group, head tile), the
+    # causal tiles only, the decay masked before exp (finite where chunk
+    # |dA| sums pass 88), the partials summed in head-tile order
+    bc, l, h, p, g, n = shape
+    ins, cots = _bwd_inputs(shape, 256.0 / l if big else 0.1,
+                            seed=sum(shape))
+    if big:
+        assert float(-ins[1][:, -1].max()) > 88.0
+    dx, dda, db, dc, blocks, formed = _emulate_ssd_bwd(*ins, *cots)
+    lb = -(-l // 8)
+    assert formed == {(i, j) for i in range(-(-l // 16))
+                      for j in range(2 * i, lb)}
+    rep = h // g
+    assert blocks == [(q, gg, t0) for q in range(bc) for gg in range(g)
+                      for t0 in range(gg * rep, (gg + 1) * rep, 24)]
+    got = (dx, dda, db, dc)
+    assert all(np.isfinite(a).all() for a in got)
+    # float64 autograd of the plain version, and the port's own plain
+    # backward (float32, ssd_intra_chunk_bwd_ref) at the gradient bar
+    ts = [torch.from_numpy(a).double().requires_grad_(True) for a in ins]
+    want = torch.autograd.grad(ssd_intra_chunk_ref(*ts), ts,
+                               [torch.from_numpy(a).double() for a in cots])
+    plain = ssd_ops.ssd_intra_chunk_bwd(*_t(*ins), *_t(*cots))
+    for a, w, f in zip(got, want, plain):
+        np.testing.assert_allclose(a, w.numpy(), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(a, f.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+    if bc * h > 18 or big:
+        return
+    # the walk holds the kernel to the plain version: leaving out a causal
+    # tile (the first, or the last s-tile's last) changes the gradients,
+    # and a read above the diagonal finds no tile there
+    lt = -(-l // 16)
+    for skip in ((0, 0), (lt - 1, lb - 1)):
+        off = _emulate_ssd_bwd(*ins, *cots, skip=skip)[:4]
+        assert max(np.abs(a - w.numpy()).max() - GRAD_RTOL * np.abs(
+            w.numpy()).max() for a, w in zip(off, want)) > GRAD_ATOL
+    with pytest.raises(KeyError):
+        _emulate_ssd_bwd(*ins, *cots, read_above=True)
