@@ -128,8 +128,38 @@ non-zero exit code and no result line:
    with per rank the seconds a lead, the share in collectives, the score
    all-to-all's bytes, the peak and the launches (the CRPS forward on
    both ranks), then the CRPS kernel against its plain version at rank
-   0's operand shape.  The plans reach the ranks through
-   ``export_plan`` / ``install_plan`` payloads, not built again;
+   0's operand shape; (f) channel parallelism: ``launch/train.py
+   --fcn3-sharding channel --mesh-model 2`` at ``fcn3_full``'s widths
+   cut to ``CHANNEL_BLOCKS`` blocks, from the training phase's initial
+   parameters and first step's draws, one step against one process's
+   first step of the same model on the card (loss ``DIST_LOSS_RTOL``,
+   the gathered gradients at the gradient bar, the split leaves' updated
+   blocks equal to the slices of one process's updated leaves wherever
+   its gradient exceeds the bar's atol), per rank the step's seconds,
+   its share in collectives, its bytes by kind, launches and peak; then
+   in the same world one ``fcn3_smoke`` channel step (every block's
+   conv, spectral filter and MLP split) against one process on the
+   card; (g) the expert placement: the smoke MoE LMs of
+   ``tests/test_torch_moe.py``, both dispatches, on a (data 2, model 2)
+   world of 4 ranks, the experts over the model axis against whole
+   experts in the same world and one process on each data slice, with
+   the all-gather's bytes and the kept pairs per rank; then at full
+   width one MoE layer of ``deepseek-v2-236b`` (160 experts at d_model
+   5120, the dense dispatch) on 2 ranks, whole on each rank in turn,
+   then 80 experts a rank placed over the model axis, outputs and aux
+   at ``EXPERT_RTOL``, the input, router, shared and block gradients at
+   the gradient bar.  A world's start costs 15-35 s of host time, so the
+   later parts ride earlier worlds of the same size as follow-ons
+   (``run_world_then``): (g) and (d2) in (b)'s world after its checks;
+   (f), (g) at full width, (d1) with (d4) and (e) in (c)'s, each after
+   the previous part's state is freed.
+   The plans reach the ranks through ``export_plan`` / ``install_plan``
+   payloads, installed once a process, not built again;
+[examples] ``examples/quickstart_torch.py`` and
+   ``examples/storm_case_study_torch.py`` on the card, each to its last
+   line (the storm case through the engine's ``diagnostics`` callback),
+   with every launch counter and the plain-version guard read just
+   before and just after: every FCN3 kernel launched, no plain version;
 6. the LM path: ``repro_torch.launch.lm`` at the full width of
    ``mamba2-130m`` (24 layers, d_model 768, vocab 50432, d_state 128,
    random weights): one prefill at ``prefill_32k`` with its batch cut
@@ -230,8 +260,11 @@ non-zero exit code and no result line:
    ``all_to_all_v`` bytes must equal (d1) rank 0's ``timed_bytes`` in
    every step (the other kinds printed beside (d1)'s); then the CLI's
    ``--arch fcn3 --shape train`` (rank 0 of 16 x 16, domain) with
-   ``--out``: collective bytes > 0, finite terms.  Phase 7's rows at a
-   shape (i) or (ii) counted must carry the same FLOPs and bytes a call;
+   ``--out``: collective bytes > 0, finite terms; (iv) after (f), its
+   step as rank 0 of a fake 1 x 2 mesh, held to (f) rank 0's launches
+   and peak as (i) is, its all-reduce and all-gather bytes equal to
+   (f)'s.  Phase 7's rows at a shape (i) or (ii) counted must carry the
+   same FLOPs and bytes a call;
 8. the ``kernels`` JSON line (each entry with [tune]'s ``tuned_dims``,
    ``tuned_ms`` and ``default_ms`` at ``tuned_at``, null for the
    recurrence and the backwards, whose tiles are not tuned; the SSD
@@ -302,11 +335,12 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 #: (NCCL refuses two ranks on one device): (a) the selftest's world of 8;
 #: (b) Algorithms 1 and 2 at the fcn3_full latent (360x720 Gauss, the
 #: global block's lmax = mmax = 360, the latent DISCO plan) over (lat 2,
-#: lon 2) = 4 ranks on 164 channels, a multiple of both axes: the
+#: lon 2) = 4 ranks on 82 channels, a multiple of both axes: the
 #: channels are independent planes, and the latent's 641 (padded to 644)
 #: took 45.6 s of the script's time, its reference paths and plain
-#: versions growing with them (cut for the script's time; PERF.md)
-DIST_BACKEND, DIST_GRID, DIST_CHANNELS = "gloo", (2, 2), 164
+#: versions growing with them (cut to 164, then to 82 for the script's
+#: time; PERF.md)
+DIST_BACKEND, DIST_GRID, DIST_CHANNELS = "gloo", (2, 2), 82
 #: (c) and (d1) take 1 step each, the one held to the training phase's
 #: first step; a second, steady step (12-14 s a rank in (c), 27-28 s in
 #: (d1), on one H100 80GB HBM3 at 700 W) checked nothing the first does
@@ -332,6 +366,36 @@ EVAL_RTOL = 1e-4
 #: sample, noise seed, 2 members, 3 leads) over 2 ranks, one member each
 #: (the +/- pair straddles the ranks)
 DIST_ENGINE_RANKS = 2
+#: (f) channel parallelism (``launch/train.py --fcn3-sharding channel``)
+#: over 2 ranks of the card at fcn3_full's widths, from the training
+#: phase's initial parameters and first step's batch and draws, held to
+#: one process's first step of the same model on the card.  Its depth is
+#: cut to CHANNEL_BLOCKS of the 10 blocks (block 0 global, block 1
+#: local): a channel rank holds every member on the whole fields, as one
+#: process does (the training phase's single process peaks at 48.76 GB,
+#: PERF.md), and two such ranks do not fit the card's 80 GB side by side
+#: (PERF.md).  At fcn3_full the 641 latent channels (a prime) keep every
+#: conv and spectral weight whole, so the same world then takes one
+#: fcn3_smoke channel step (its 34 channels split the global block's
+#: spectral filter, the local block's DISCO conv and both MLPs; a
+#: Legendre launch on a rank's block of channels), held to one process
+#: on the card; its noise drawn from CHANNEL_SMALL_SEED
+CHANNEL_RANKS, CHANNEL_BLOCKS, CHANNEL_SMALL_SEED = 2, 2, 11
+#: (g) the expert placement: the smoke widths of tests/test_torch_moe.py's
+#: MoE LMs, each with the dense and the scatter dispatch, on 4 ranks of the
+#: card (data 2 x model 2: the experts over the model axis, a rank's slice
+#: of EXPERT_TOKENS' batch over the data axis), against whole experts in
+#: the same world and one process with whole experts on each data slice
+EXPERT_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+EXPERT_MESH, EXPERT_TOKENS = (2, 2), (4, 64)
+#: the placed experts against whole ones: outputs and aux relative
+EXPERT_RTOL = 1e-5
+#: (g) at full width, in (c)'s world of 2 ranks after (f): one MoE layer
+#: of this arch (its 160 experts at d_model 5120; depth 60 -> 1 layer) on
+#: EXPERT_FULL_TOKENS tokens, its experts whole on each rank in turn, then
+#: placed over the 2 model ranks (80 a rank), the dense dispatch (a
+#: world of one data rank has no scatter)
+EXPERT_FULL_ARCH, EXPERT_FULL_TOKENS = "deepseek-v2-236b", 1024
 #: phase 2d: launch/evaluate.py at fcn3_full from [main]'s parameters
 EVAL_MEMBERS, EVAL_LEADS, EVAL_ICS = 2, 2, 2
 #: two values closer than this, relative, are counted as a near-tie
@@ -2234,6 +2298,7 @@ def service_phase(report, config: str = "full", device: str = "cuda",
                                         timeout=SERVICE_TIMEOUT_S)
                 if cuda:
                     torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
                 served = [client.forecast(specs[0])]
                 pair: list = [None, None]
 
@@ -2249,17 +2314,20 @@ def service_phase(report, config: str = "full", device: str = "cuda",
                 if any(t.is_alive() for t in threads) or None in pair:
                     raise AssertionError("a coalesced request did not end")
                 served += pair
+                out["serve_s"] = time.time() - t0
                 out["launches"], out["plain"] = counts()
                 out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                                   if cuda else 0.0)
                 stats = client.stats()
                 metrics = parse_prometheus(client.metrics())
             finally:
+                t0 = time.time()
                 srv.shutdown()
                 srv.server_close()
                 thread.join(timeout=60)
         finally:
             sched.close(timeout=120)
+            out["close_s"] = time.time() - t0
         out["info"] = sched.bundle_info
     out["stats"] = stats
     out["served"] = served
@@ -2305,6 +2373,7 @@ def service_phase(report, config: str = "full", device: str = "cuda",
     if [r.batch_size for r in served] != [1, 2, 2]:
         raise AssertionError(f"batch sizes {[r.batch_size for r in served]}")
     # -- direct engines on the replica's model ----------------------------
+    t0 = time.time()
     b = pool.get(config)
     direct = []
     for spec in specs:
@@ -2336,6 +2405,7 @@ def service_phase(report, config: str = "full", device: str = "cuda",
             worst[name] = max(worst.get(name, 0.0),
                               float(np.abs(res.scores[name] - v).max()))
     out["coalesced_vs_serial"] = worst
+    out["direct_s"] = time.time() - t0
     # the pool's budget: every engine's estimate (one engine here, its
     # serial and batch-2 keys) and the model they share
     out["estimated_bytes"] = sum(e["estimated_bytes"]
@@ -2551,14 +2621,22 @@ def _plan_payloads(names: tuple[str, ...], shts: tuple[str, ...],
     return Path(path).stat().st_size
 
 
+#: the payload files installed in this process
+_INSTALLED: set = set()
+
+
 def _install_payloads(path: str) -> None:
     """Install ``_plan_payloads``' plans and tables in this process, as a
-    replica installs a bundle's."""
+    replica installs a bundle's (once a file: a world's later parts find
+    them installed)."""
     import pickle
     from repro_torch.serving.bundle import _install_plan_payload
+    if path in _INSTALLED:
+        return
     with open(path, "rb") as f:
         for p in pickle.load(f):
             _install_plan_payload(p)
+    _INSTALLED.add(path)
 
 
 def _replicas_equal(tensors) -> bool:
@@ -2575,11 +2653,49 @@ def _replicas_equal(tensors) -> bool:
     return equal
 
 
-def dist_geometry_rank(rank: int, world_size: int, plans: str) -> dict:
+def then_parts(rank: int, world_size: int, then) -> dict:
+    """A world's follow-on parts on this rank, after its own part's state
+    is freed (a world's start costs 15-35 s of the script's time): each
+    (key, fn, args) of ``then`` runs as ``fn(rank, world_size, *args)``,
+    its result and seconds under ``key``."""
+    import torch
+    out = {}
+    for key, fn, args in then:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        out[key] = {"result": fn(rank, world_size, *args),
+                    "seconds": time.time() - t0}
+    return out
+
+
+def run_world_then(fn, ranks: int, args: tuple, then=(), **kw
+                   ) -> tuple[list, dict, float]:
+    """``run_world`` of ``fn(rank, world_size, *args, then)``: the ranks'
+    own results, each follow-on's (results in rank order, seconds of its
+    slowest rank) by key, and the world's seconds less the follow-ons'."""
+    from repro_torch.distributed.world import run_world
+    t0 = time.time()
+    res = run_world(fn, ranks, (*args, tuple(then)), **kw)
+    own_s = time.time() - t0
+    parts = {}
+    for key, _, _ in then:
+        got = [r["then"][key] for r in res]
+        parts[key] = ([g["result"] for g in got],
+                      max(g["seconds"] for g in got))
+        own_s -= parts[key][1]
+    for r in res:
+        del r["then"]
+    return res, parts, own_s
+
+
+def dist_geometry_rank(rank: int, world_size: int, plans: str,
+                       then=()) -> dict:
     """Phase (b), on one rank of the (lat, lon) mesh: Algorithms 1 and 2
     at the fcn3_full latent with the Legendre and band kernels inside,
     against the single-process kernel path, and the band kernel on this
-    rank's masked band against its plain version."""
+    rank's masked band against its plain version; then the world's
+    follow-on parts ``then`` (``then_parts``)."""
     import torch
     from repro_torch.configs import fcn3 as fcn3cfg
     from repro_torch.core import fcn3
@@ -2685,6 +2801,8 @@ def dist_geometry_rank(rank: int, world_size: int, plans: str) -> dict:
     del xc
     out["gloo_cuda"] = _collective_probe(
         lat_g, (1, cw, 1, h, w), dev)
+    del x, xb, local_sht, local_band
+    out["then"] = then_parts(rank, world_size, then)
     return out
 
 
@@ -2751,12 +2869,14 @@ def _collective_probe(group, shape, dev) -> dict:
 
 
 def dist_train_rank(rank: int, world_size: int, plans: str,
-                    argv: list[str]) -> dict:
-    """Phase (c), on one rank: ``launch/train.py``'s CLI with
+                    argv: list[str], then=()) -> dict:
+    """Phases (c) and (d1), on one rank: ``launch/train.py``'s CLI with
     ``--mesh-model`` (the process group is this world's); returns its
     step diagnostics, kernel launches, plain calls on CUDA tensors, peak
     memory, whether its parameters equal rank 0's after the step, and
-    (rank 0) the first step's reduced gradients."""
+    (rank 0) the first step's reduced gradients; then, with the plans
+    installed once and the step's state freed, the world's follow-on
+    parts ``then`` (``then_parts``)."""
     import torch
     from repro_torch.kernels.crps import ops as crps_ops
     from repro_torch.kernels.disco import ops as disco_ops
@@ -2817,6 +2937,12 @@ def dist_train_rank(rank: int, world_size: int, plans: str,
     out["params_equal"] = _replicas_equal(
         [p.detach() for p in model.parameters()])
     out["grads"] = kept["grads"]
+    # the step's model, trainer, buffers and recorded operands go before
+    # the world's next part starts
+    del model, rec
+    kept.clear()
+    trlib.EnsembleTrainer.loss_and_grads = grads_of
+    out["then"] = then_parts(rank, world_size, then)
     return out
 
 
@@ -2935,21 +3061,26 @@ def _worst(got, want, rtol: float, atol: float) -> tuple[float, float]:
     return float(diff.max()), float((diff / (atol + rtol * want.abs())).max())
 
 
-def engine_dist_phase(report, forecast: dict, plans: str) -> dict:
+def engine_dist_phase(report, forecast: dict, plans: str,
+                      part: tuple | None = None) -> dict:
     """(e) the engine's ``member_axes``: [main]'s forecast over
     DIST_ENGINE_RANKS ranks, each lead's scores held to [main]'s and each
     rank's final members to [main]'s at the dispatch bar, then the CRPS
     kernel against its plain version at rank 0's operand shapes; raises
-    on any failed check."""
+    on any failed check.  ``part``: the ranks' results and seconds where
+    (e) rode another world."""
     import torch
     from repro_torch.distributed.world import run_world
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    res = run_world(dist_engine_rank, DIST_ENGINE_RANKS,
-                    (plans, forecast["ckpt"]), backend=DIST_BACKEND,
-                    timeout=900.0)
-    phase_s = time.time() - t0
+    if part is None:
+        res = run_world(dist_engine_rank, DIST_ENGINE_RANKS,
+                        (plans, forecast["ckpt"]), backend=DIST_BACKEND,
+                        timeout=900.0)
+        phase_s = time.time() - t0
+    else:
+        res, phase_s = part
     worst: dict[str, tuple[float, float]] = {}
 
     def note(name, got, want, rtol, atol):
@@ -2998,16 +3129,765 @@ def engine_dist_phase(report, forecast: dict, plans: str) -> dict:
         for r in res], "engine_rows": rows}
 
 
-def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
+def _cut_config(blocks: int):
+    """CONFIG's model with ``blocks`` processor blocks (the first ones:
+    block 0 global, the rest local)."""
+    import dataclasses
+    from repro_torch.configs import fcn3 as fcn3cfg
+    return dataclasses.replace(fcn3cfg.NAMED_CONFIGS[CONFIG](),
+                               n_blocks=blocks)
+
+
+def _with_config(cfg):
+    """``launch/train.py``'s CONFIG as ``cfg`` (a context)."""
+    import contextlib
+    from repro_torch.launch import train as train_mod
+
+    @contextlib.contextmanager
+    def patched():
+        before = train_mod.CONFIGS[CONFIG]
+        train_mod.CONFIGS[CONFIG] = lambda: cfg
+        try:
+            yield
+        finally:
+            train_mod.CONFIGS[CONFIG] = before
+    return patched()
+
+
+def _smoke_step(trainer, model, seed: int):
+    """One fcn3_smoke loss and gradient step of ``trainer`` on the
+    loader's first training batch, from ``seed``'s draws."""
+    import torch
+    from repro_torch.data import era5_synthetic as dlib
+    from repro_torch.inference.engine import GeneratorNoise
+    ds = dlib.SyntheticERA5(model.cfg, device=model.device)
+    it = iter(dlib.Loader(ds, global_batch=TRAIN_BATCH,
+                          rollout=TRAIN_ROLLOUT, seed=0))
+    next(it)
+    bufs = dict(model.make_buffers(), **trainer.make_loss_buffers())
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    return trainer.loss_and_grads(bufs, next(it), GeneratorNoise(gen))
+
+
+def _channel_part(rank: int, world_size: int, argv: list[str],
+                  small_ckpt: str) -> dict:
+    """(f), on one rank of (c)'s world: ``launch/train.py``'s CLI in
+    channel mode at the cut config (the process group is this world's),
+    then one fcn3_smoke channel step; each with its launches, plain calls
+    on CUDA tensors, the step's diagnostics, peak, this rank's gradients
+    (every leaf on rank 0, the split leaves' blocks on the others) and
+    its updated blocks of the split leaves."""
+    import torch
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import trainer as trlib
+    guard = PlainGuard()
+    kept: dict = {}
+    grads_of = trlib.EnsembleTrainer.loss_and_grads
+
+    def loss_and_grads(self, *args):
+        loss, aux, grads = grads_of(self, *args)
+        if "trainer" not in kept:
+            # this rank's first-step gradients to the host: rank 0's every
+            # leaf, the others' the split leaves' blocks (the step's time
+            # grows by the copies)
+            kept["trainer"] = self
+            kept["grads"] = {k: g.cpu() for k, g in grads.items()
+                             if rank == 0 or k in self.split}
+        return loss, aux, grads
+    trlib.EnsembleTrainer.loss_and_grads = loss_and_grads
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _with_config(_cut_config(CHANNEL_BLOCKS)):
+        history = train_mod.main(argv)
+    torch.cuda.synchronize()
+    tr = kept.pop("trainer")
+    out = {"history": history, "launches": launch_counts(),
+           "plain": dict(guard.counts),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "grads": kept.pop("grads"), "split": sorted(tr.split),
+           "specs": tr.channel.specs, "model_rank": tr.par.model_rank,
+           "blocks": {k: p.detach().cpu()
+                      for k, p in tr.model.named_parameters()
+                      if k in tr.split}}
+    del tr
+    trlib.EnsembleTrainer.loss_and_grads = grads_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the smoke step, with the counters and the guard set to 0 before it
+    for mod in _kernel_modules():
+        mod.reset_launches()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    cfg = fcn3cfg.fcn3_smoke()
+    model = FCN3(cfg, device="cuda")
+    train_mod.load_init(model, small_ckpt)
+    tcfg = train_mod.stage_to_tcfg(train_mod.STAGES[TRAIN_STAGE],
+                                   TRAIN_ENSEMBLE, TRAIN_ROLLOUT)
+    mesh = meshlib.make_mesh((1, world_size), train_mod.MESH_AXES, "cuda")
+    tr = trlib.EnsembleTrainer(model, tcfg,
+                               fcn3cfg.channel_weights(cfg.n_levels), mesh,
+                               placement="channel")
+    loss, _, grads = _smoke_step(tr, model, CHANNEL_SMALL_SEED)
+    torch.cuda.synchronize()
+    out["small"] = {"loss": float(loss), "launches": launch_counts(),
+                    "plain": dict(guard.counts), "split": sorted(tr.split),
+                    "specs": tr.channel.specs,
+                    "grads": {k: g.cpu() for k, g in grads.items()}}
+    guard.close()
+    return out
+
+
+def _kernel_modules():
+    from repro_torch.kernels.crps import ops as crps_ops
+    from repro_torch.kernels.disco import ops as disco_ops
+    from repro_torch.kernels.legendre import ops as legendre_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return crps_ops, disco_ops, legendre_ops, ssd_ops
+
+
+def _whole(parts: list[dict], specs: dict) -> dict:
+    """Every rank's gradients (or blocks) in rank order -> whole leaves:
+    a split leaf's blocks concatenated along its split dim, the others
+    rank 0's."""
+    import torch
+    out = {}
+    for k, g in parts[0].items():
+        spec = specs.get(k, ())
+        dims = [d for d, e in enumerate(spec) if e is not None]
+        out[k] = (torch.cat([p[k] for p in parts], dim=dims[0]) if dims
+                  else g)
+    return out
+
+
+def _single_first_step(cfg, ckpt: str) -> dict:
+    """One process's first training step of ``cfg`` on the card from the
+    checkpoint ``ckpt``: the training cell's batch and draws (as
+    ``run_steps`` takes them), its loss, gradients and the leaves after
+    one Adam update (to the host)."""
+    import torch
+    from repro_torch.inference.engine import GeneratorNoise
+    from repro_torch.launch import train as train_mod
+    with _with_config(cfg):
+        run = train_mod.setup(CONFIG, TRAIN_STAGE, TRAIN_BATCH,
+                              TRAIN_ENSEMBLE, TRAIN_ROLLOUT, seed=0,
+                              device="cuda", init_from=ckpt,
+                              report=lambda line: None)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1000)
+    loss, _, grads = run.trainer.loss_and_grads(
+        run.buffers, next(run.batches), GeneratorNoise(gen))
+    params = dict(run.model.named_parameters())
+    run.optimizer_state = run.trainer.optimizer.update(
+        params, grads, run.opt_state, norm=run.trainer.grad_norm(grads))
+    out = {"loss": float(loss),
+           "grads": {k: g.cpu() for k, g in grads.items()},
+           "updated": {k: p.detach().cpu() for k, p in params.items()}}
+    del run, grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grad_worst(got: dict, ref: dict) -> tuple:
+    """The worst |diff| / (atol + rtol |ref|) over every leaf, where, and
+    the relative error over all (``_vs_first_step``'s measures)."""
+    worst, at, sq, sq_ref = 0.0, None, 0.0, 0.0
+    for k, want in ref.items():
+        diff = (got[k] - want).abs()
+        ratio = diff / (GRAD_ATOL + GRAD_RTOL * want.abs())
+        if float(ratio.max()) > worst:
+            i = int(ratio.argmax())
+            worst, at = float(ratio.max()), (
+                k, float(want.reshape(-1)[i]), float(diff.reshape(-1)[i]))
+        sq += float((diff.double() ** 2).sum())
+        sq_ref += float((want.double() ** 2).sum())
+    return worst, at, math.sqrt(sq / sq_ref)
+
+
+def channel_reference(report, step0: dict, tmp: str) -> dict:
+    """(f)'s single-process side, on the card before (c)'s world starts:
+    the training phase's initial parameters cut to CHANNEL_BLOCKS blocks
+    (a checkpoint), one process's first step of that model, fresh
+    fcn3_smoke parameters (a checkpoint) and one process's smoke step;
+    with the channel CLI's argv."""
+    import torch
+    from repro_torch.configs import fcn3 as fcn3cfg
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import checkpoint as ckptlib
+    from repro_torch.train import trainer as trlib
+    t0 = time.time()
+    cut = _cut_config(CHANNEL_BLOCKS)
+    # the training phase's initial parameters, cut to the kept blocks
+    params, _, _ = ckptlib.restore_checkpoint(step0["ckpt"])
+    keep = {f"blocks.{i}." for i in range(CHANNEL_BLOCKS)}
+    params = {k: v for k, v in params.items()
+              if not k.startswith("blocks.") or k[:k.index(".", 7) + 1]
+              in keep}
+    ckpt = ckptlib.save_checkpoint(os.path.join(tmp, "channel"), 0, params)
+    del params
+    single = _single_first_step(cut, ckpt)
+    # fcn3_smoke: fresh parameters from a seed, and one process's step
+    small_model = FCN3(fcn3cfg.fcn3_smoke(), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    small_model.init(gen)
+    small_ckpt = ckptlib.save_checkpoint(
+        os.path.join(tmp, "channel_smoke"), 0,
+        dict(small_model.named_parameters()))
+    tcfg = train_mod.stage_to_tcfg(train_mod.STAGES[TRAIN_STAGE],
+                                   TRAIN_ENSEMBLE, TRAIN_ROLLOUT)
+    small_tr = trlib.EnsembleTrainer(
+        small_model, tcfg, fcn3cfg.channel_weights(small_model.cfg.n_levels))
+    loss, _, grads = _smoke_step(small_tr, small_model, CHANNEL_SMALL_SEED)
+    small_ref = {"loss": float(loss),
+                 "grads": {k: g.cpu() for k, g in grads.items()}}
+    del small_model, small_tr, loss, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.time() - t0
+    argv = ["--config", CONFIG, "--stage", TRAIN_STAGE, "--ensemble",
+            str(TRAIN_ENSEMBLE), "--batch", str(TRAIN_BATCH), "--rollout",
+            str(TRAIN_ROLLOUT), "--steps", str(DIST_TRAIN_STEPS),
+            "--mesh-model", str(CHANNEL_RANKS), "--dist-backend",
+            DIST_BACKEND, "--init-from", ckpt, "--device", "cuda",
+            "--fcn3-sharding", "channel"]
+    report(f"[dist] (f) launch/train.py {' '.join(argv)} on {CHANNEL_RANKS}"
+           f" ranks of one card, fcn3_{CONFIG}'s widths cut to "
+           f"{CHANNEL_BLOCKS} of its "
+           f"{fcn3cfg.NAMED_CONFIGS[CONFIG]().n_blocks} blocks, in (c)'s world "
+           f"after its step; then one fcn3_smoke channel step there; one "
+           f"process's steps on the card {ref_s:.1f} s")
+    return {"ckpt": ckpt, "small_ckpt": small_ckpt, "single": single,
+            "small_ref": small_ref, "argv": argv, "cut": cut, "tcfg": tcfg,
+            "ref_s": ref_s}
+
+
+def channel_report(report, res: list, world_s: float, ref: dict, guard
+                   ) -> dict:
+    """(f) and [dryrun] (iv) from the ranks' ``"channel"`` parts: each
+    held to one process on the card, then the channel step counted as
+    rank 0 of a fake 1 x CHANNEL_RANKS mesh and held to rank 0's
+    launches, peak and collective bytes; raises on any failed check."""
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    single, small_ref = ref["single"], ref["small_ref"]
+    cut, tcfg = ref["cut"], ref["tcfg"]
+    order = sorted(range(len(res)), key=lambda i: res[i]["model_rank"])
+    specs = res[0]["specs"]
+    grads = _whole([res[i]["grads"] for i in order], specs)
+    blocks = {i: res[i]["blocks"] for i in order}
+    loss = res[0]["history"][0]["loss"]
+    loss_rel = abs(loss - single["loss"]) / abs(single["loss"])
+    worst, at, rel_all = _grad_worst(grads, single["grads"])
+    # the split leaves' updated blocks against the slices of one process's
+    # updated leaves: Adam's first step moves each entry by lr times the
+    # sign of its gradient, so an entry may differ only where that sign
+    # is below the gradient bar's atol on one process
+    flips, unresolved = 0, 0
+    for i, part in blocks.items():
+        for k, blk_ in part.items():
+            d = [d for d, e in enumerate(specs[k]) if e is not None][0]
+            n = blk_.shape[d]
+            want = single["updated"][k].narrow(d, res[i]["model_rank"] * n,
+                                               n)
+            g = single["grads"][k].narrow(d, res[i]["model_rank"] * n, n)
+            moved = (blk_ - want).abs() > 1e-7
+            flips += int(moved.sum())
+            unresolved += int((moved & (g.abs() > GRAD_ATOL)).sum())
+    split_n = sum(int(single["grads"][k].numel()) for k in res[0]["split"])
+    for i, r in enumerate(res):
+        h = r["history"][0]
+        report(f"[dist] (f) rank {i} (model rank {r['model_rank']}): "
+               f"step_s={round(h['seconds'], 3)} collective_s="
+               f"{round(h['collective_s'], 3)} (share "
+               f"{round(h['collective_s'] / h['seconds'], 3)}) "
+               f"bytes_by_kind={_nonzero(h['kind_bytes'])} loss="
+               f"{h['loss']:.7f} |g|={h['grad_norm']:.6f} split_leaves="
+               f"{len(r['split'])} ({split_n:,} parameters) launches="
+               f"{_nonzero(r['launches'])} plain_calls_on_cuda={r['plain']} "
+               f"peak_mem_gb={r['peak_gb']:.2f}")
+    report(f"[dist] (f) first step vs one process's (the same "
+           f"{CHANNEL_BLOCKS}-block model on the card): loss {loss:.7f} vs "
+           f"{single['loss']:.7f} (rel {loss_rel:.2e}, bar "
+           f"{DIST_LOSS_RTOL:g}); gradients gathered: |diff| / |ref| over "
+           f"all = {rel_all:.2e}, worst |diff| / (atol + rtol |ref|) = "
+           f"{worst:.3f} at {at[0]} (ref {at[1]:.4e}, diff {at[2]:.3e}; "
+           f"rtol={GRAD_RTOL}, atol={GRAD_ATOL}); updated split blocks vs "
+           f"one process's updated slices: {flips} of {split_n} entries "
+           f"differ, {unresolved} of them where one process's gradient "
+           f"exceeds atol; in the ranks {world_s:.1f} s")
+    # the smoke step
+    sm = [res[i]["small"] for i in order]
+    s_grads = _whole([p["grads"] for p in sm], sm[0]["specs"])
+    s_rel = abs(sm[0]["loss"] - small_ref["loss"]) / abs(small_ref["loss"])
+    s_worst, s_at, s_all = _grad_worst(s_grads, small_ref["grads"])
+    for i in order:
+        report(f"[dist] (f) fcn3_smoke rank {i}: split_leaves="
+               f"{len(res[i]['small']['split'])} loss="
+               f"{res[i]['small']['loss']:.7f} launches="
+               f"{_nonzero(res[i]['small']['launches'])} plain_calls_on_cuda="
+               f"{res[i]['small']['plain']}")
+    report(f"[dist] (f) fcn3_smoke vs one process on the card: loss rel "
+           f"{s_rel:.2e} (bar {DIST_LOSS_RTOL:g}); gradients |diff| / |ref| "
+           f"= {s_all:.2e}, worst {s_worst:.3f} at {s_at[0]}")
+    for i, r in enumerate(res):
+        fam = ("disco_band_contract", "disco_band_transpose",
+               "legendre_contract", "crps_fused", "crps_fused_bwd")
+        if (min(r["launches"][f] for f in fam) <= 0
+                or min(r["small"]["launches"][f] for f in fam) <= 0):
+            raise AssertionError(f"(f) rank {i} launches {r['launches']}, "
+                                 f"smoke {r['small']['launches']}")
+        if any(r["plain"].values()) or any(r["small"]["plain"].values()):
+            raise AssertionError(f"(f) rank {i}: plain {r['plain']}, "
+                                 f"smoke {r['small']['plain']}")
+        if len(r["small"]["split"]) != 9:
+            raise AssertionError(f"(f) rank {i}: fcn3_smoke split "
+                                 f"{r['small']['split']}")
+    if not (loss_rel <= DIST_LOSS_RTOL and worst <= 1.0 and unresolved == 0
+            and s_rel <= DIST_LOSS_RTOL and s_worst <= 1.0):
+        raise AssertionError(f"(f) disagrees with one process: loss rel "
+                             f"{loss_rel:.3e}, gradient {worst:.3f}, "
+                             f"updates {unresolved}; smoke {s_rel:.3e}, "
+                             f"{s_worst:.3f}")
+    # [dryrun] (iv): the same step counted as rank 0 of a fake mesh
+    t2 = time.time()
+    dry = dry_count("fcn3/channel-1x2", lambda d, mesh: (
+        dryrun.build_fcn3_case(
+            "train", mesh, d, fcn3_mode="channel", cfg=cut,
+            sizes=(TRAIN_BATCH, TRAIN_ENSEMBLE, TRAIN_ROLLOUT), tcfg=tcfg)),
+        guard, world=(CHANNEL_RANKS, (1, CHANNEL_RANKS)))
+    h0 = res[0]["history"][0]
+    step_launches = _nonzero(res[0]["launches"])
+    held = dryrun_hold(report, f"(iv) channel step, {CHANNEL_BLOCKS}-block "
+                       f"fcn3_{CONFIG}, rank 0 of a fake 1 x {CHANNEL_RANKS} "
+                       f"mesh", dry, step_launches, h0["seconds"],
+                       res[0]["peak_gb"])
+    pred, got = dry["counts"].collective_bytes(), _nonzero(h0["kind_bytes"])
+    report(f"[dryrun] (iv) collective bytes (predicted / (f) rank 0's): "
+           + " ".join(f"{k} {pred.get(k, 0)} / {got.get(k, 0)}"
+                      for k in sorted(set(pred) | set(got))))
+    for k in ("all_reduce", "all_gather"):
+        if pred.get(k, 0) != got.get(k, 0):
+            raise AssertionError(f"(iv): predicted {k} bytes {pred.get(k)} "
+                                 f"are not (f)'s {got.get(k)}")
+    return {"channel": [{k: v for k, v in r.items()
+                         if k not in ("grads", "blocks", "small", "specs")}
+                        for r in res],
+            "channel_small": [r["small"]["launches"] for r in res],
+            "channel_s": ref["ref_s"] + world_s + time.time() - t0,
+            "channel_world_s": world_s,
+            "dryrun_iv_s": time.time() - t2, "held_iv": held}
+
+
+def expert_rank(rank: int, world_size: int, cases: list) -> list:
+    """(g), on one rank of a (data 2, model 2) mesh: for each (arch,
+    dispatch, numpy parameters, tokens) case, the smoke MoE LM on this
+    rank's slice of the batch with whole experts, then with its experts
+    placed over the model axis: logits, aux, loss and gradients (the
+    placed stacks' blocks), the placed run's collective bytes by kind,
+    its kept pairs per MoE layer, launches and plain calls."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.distributed import compat
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import lm_params_from_numpy
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import lm as lmtrain
+    t0 = time.time()
+    guard = PlainGuard()
+    before = launch_counts()
+    mesh = make_mesh(EXPERT_MESH, ("data", "model"), "cuda")
+    stamps = {"setup": time.time() - t0}
+    data, experts = mesh.get_group("data"), mesh.get_group("model")
+    d = mesh.get_local_rank("data")
+    out = []
+    for arch, dispatch, params, tokens in cases:
+        cfg = archs.smoke_config(arch)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch, dp_axes=("data",)))
+        b = tokens.shape[0] // EXPERT_MESH[0]
+        mine = torch.from_numpy(tokens[d * b:(d + 1) * b]).long().cuda()
+        batch = {"tokens": mine, "labels": mine}
+        group = moe.scatter_group(cfg.moe, data, *tokens.shape)
+        case = {"arch": arch, "dispatch": dispatch,
+                "scatter": group is not None, "model_rank":
+                mesh.get_local_rank("model"), "data_rank": d}
+        for name in ("whole", "placed"):
+            model = LM(cfg, device="cuda")
+            model.load_state_dict(lm_params_from_numpy(params, cfg))
+            eg = experts if name == "placed" else None
+            if eg is not None:
+                case["placed_names"] = model.place_experts(mesh)
+            kept = []
+            compat.start_timing()
+            with torch.no_grad(), moe.observe(
+                    lambda r: kept.append(int(r.keep.sum()))):
+                logits, aux = model.apply_train(mine, moe_group=group,
+                                                expert_group=eg)
+            kinds = compat.timed_kinds()
+            loss, _, grads = lmtrain.loss_and_grads(model, batch, data,
+                                                    group, eg)
+            torch.cuda.synchronize()
+            case[name] = {"logits": logits.cpu(),
+                          "aux": {k: float(v) for k, v in aux.items()},
+                          "loss": float(loss), "kinds": kinds, "kept": kept,
+                          "grads": {k: g.cpu() for k, g in grads.items()},
+                          "shapes": {k: tuple(p.shape) for k, p in
+                                     model.named_parameters()}}
+            del model
+        out.append(case)
+        stamps[f"{arch}/{dispatch}"] = time.time() - t0 - sum(
+            stamps.values())
+    out.append({"launches": _launched(before, launch_counts()),
+                "plain": dict(guard.counts), "seconds": stamps})
+    guard.close()
+    return out
+
+
+def expert_cases() -> tuple[list, dict, float]:
+    """(g)'s inputs and single-process side: for each of EXPERT_ARCHS a
+    smoke LM from a seed on the card, its numpy parameters and tokens for
+    both dispatches, and one process's logits and aux with whole experts
+    on each data slice; with the seconds it took."""
+    import torch
+    from repro_torch.configs import archs
+    from repro_torch.models.params import lm_params_to_numpy
+    from repro_torch.models.transformer import LM
+    t0 = time.time()
+    cases, ref = [], {}
+    for i, arch in enumerate(EXPERT_ARCHS):
+        cfg = archs.smoke_config(arch)
+        model = LM(cfg, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(i)
+        model.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, EXPERT_TOKENS,
+                               generator=torch.Generator().manual_seed(i))
+        b = EXPERT_TOKENS[0] // EXPERT_MESH[0]
+        with torch.no_grad():
+            ref[arch] = [model.apply_train(tokens[j * b:(j + 1) * b].cuda())
+                         for j in range(EXPERT_MESH[0])]
+        params = lm_params_to_numpy(dict(model.named_parameters()), cfg)
+        cases += [(arch, disp, params, tokens.numpy())
+                  for disp in ("dense", "scatter")]
+        del model
+    return cases, ref, time.time() - t0
+
+
+def _full_expert_params(cfg, lo: int, hi: int, device) -> dict:
+    """One MoE layer's parameters at ``cfg``'s widths with experts
+    [lo, hi) of its stacks; every expert drawn from a seed of its own (so
+    a block equals the whole stacks' slice), in ``init_moe``'s scales."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    gen = torch.Generator(device=device)
+
+    def draw(shape, scale, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=device).mul_(scale)
+
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"router": draw((d, cfg.n_experts), d ** -0.5, 1)}
+    if cfg.n_shared:
+        out["shared"] = {
+            k: draw(shape, shape[0] ** -0.5, 2 + i) for i, (k, shape) in
+            enumerate(cm.swiglu_shapes(d, cfg.shared_width).items())}
+    for j, (name, shape) in enumerate(moe.moe_shapes(cfg).items()):
+        if name == "router":
+            continue
+        stack = torch.empty((hi - lo, *shape[1:]), device=device)
+        for e in range(lo, hi):
+            gen.manual_seed(1000 * (j + 1) + e)
+            stack[e - lo].normal_(generator=gen).mul_(
+                (f if name == "w_down" else d) ** -0.5)
+        out[name] = stack
+    return out
+
+
+def _full_expert_run(cfg, params: dict, x, dy, group) -> dict:
+    """The layer's output, aux and gradients (inputs, router, shared and
+    expert stacks) of sum(y dy) + lb_loss, with its seconds."""
+    import torch
+    from repro_torch.models import moe
+    flat = {k: v for k, v in params.items() if k != "shared"}
+    flat.update({f"shared.{k}": v
+                 for k, v in params.get("shared", {}).items()})
+    for v in flat.values():
+        v.requires_grad_(True)
+    x = x.detach().requires_grad_(True)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.time()
+    y, aux = moe.apply_moe(params, cfg, x, expert_group=group)
+    loss = (y * dy).sum() + aux["lb_loss"]
+    grads = torch.autograd.grad(loss, [x, *flat.values()])
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return {"y": y.detach(),
+            "aux": {k: float(v.detach()) for k, v in aux.items()},
+            "grads": dict(zip(["x", *flat], grads)),
+            "seconds": time.time() - t0}
+
+
+def expert_full_rank(rank: int, world_size: int, arch: str,
+                     tokens: int = EXPERT_FULL_TOKENS, cfg=None,
+                     device: str = "cuda") -> dict:
+    """(g) at full width, on one rank of a (data 1, model world_size)
+    mesh: one MoE layer of ``arch`` (``cfg``: its MoE config, or another
+    for a small check) with whole experts on each rank in turn (the
+    others wait, so only one rank holds the whole stacks and their
+    gradients), this rank's slice of the whole stacks' gradients kept;
+    then the experts placed over the model axis, on every rank at once.
+    The placed run against the whole one: outputs, aux, the input,
+    router, shared and block gradients; its collective bytes by kind,
+    seconds, the peak and the launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import archs
+    from repro_torch.distributed import compat
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(cfg or archs.get_arch(arch).moe,
+                              dispatch="dense")
+    guard = PlainGuard() if device == "cuda" else None
+    before = launch_counts()
+    mesh = make_mesh((1, world_size), ("data", "model"), device)
+    group = mesh.get_group("model")
+    m = mesh.get_local_rank("model")
+    n = cfg.n_experts // world_size
+    lo, hi = m * n, (m + 1) * n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=device)
+    dy = torch.randn((1, tokens, cfg.d_model), generator=gen, device=device)
+    stacks = ("w_gate", "w_up", "w_down")
+    whole = None
+    for turn in range(world_size):
+        if turn == m:
+            run = _full_expert_run(cfg, _full_expert_params(
+                cfg, 0, cfg.n_experts, device), x, dy, None)
+            whole = dict(run, grads={
+                k: g[lo:hi].clone() if k in stacks else g
+                for k, g in run["grads"].items()})
+            del run
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    compat.start_timing()
+    placed = _full_expert_run(cfg, _full_expert_params(cfg, lo, hi, device),
+                              x, dy, group)
+    kinds = compat.timed_kinds()
+    out = {"model_rank": m, "experts": (lo, hi), "kinds": kinds,
+           "whole_s": whole["seconds"], "placed_s": placed["seconds"],
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if device == "cuda" else 0.0),
+           "y_rel": float((placed["y"] - whole["y"]).abs().max()
+                          / whole["y"].abs().max()),
+           "aux_rel": max(abs(placed["aux"][k] - v) / abs(v)
+                          for k, v in whole["aux"].items()),
+           "grad_worst": {k: float(((placed["grads"][k] - g).abs() / (
+               GRAD_ATOL + GRAD_RTOL * g.abs())).max())
+               for k, g in whole["grads"].items()},
+           "block_shape": tuple(placed["grads"]["w_gate"].shape),
+           "launches": _launched(before, launch_counts()),
+           "plain": dict(guard.counts) if guard is not None else {}}
+    if guard is not None:
+        guard.close()
+    return out
+
+
+def expert_full_report(report, res: list, world_s: float) -> dict:
+    """(g) at full width from each rank's ``expert_full_rank``: placed
+    against whole at EXPERT_RTOL (outputs, aux) and the gradient bar;
+    raises on any failed check."""
+    from repro_torch.configs import archs
+    cfg = archs.get_arch(EXPERT_FULL_ARCH).moe
+    worst = 0.0
+    for r in res:
+        gw = max(r["grad_worst"].values())
+        worst = max(worst, r["y_rel"] / EXPERT_RTOL,
+                    r["aux_rel"] / EXPERT_RTOL, gw)
+        report(f"[dist] (g) full width rank {r['model_rank']}: "
+               f"{EXPERT_FULL_ARCH} one MoE layer (d_model {cfg.d_model}, "
+               f"d_ff {cfg.d_ff}, top-{cfg.top_k}, {cfg.n_shared} shared), "
+               f"{EXPERT_FULL_TOKENS} tokens, dense dispatch; experts "
+               f"{r['experts']} of {cfg.n_experts} (block "
+               f"{r['block_shape']}); fwd+bwd s whole {r['whole_s']:.3f} "
+               f"placed {r['placed_s']:.3f}; bytes_by_kind="
+               f"{_nonzero(r['kinds'])} peak_mem_gb {r['peak_gb']:.2f} "
+               f"(placed); placed vs whole: output rel {r['y_rel']:.2e} aux "
+               f"rel {r['aux_rel']:.2e} gradients worst " + " ".join(
+                   f"{k} {v:.3f}" for k, v in r["grad_worst"].items()))
+        if r["launches"] or any(r["plain"].values()):
+            raise AssertionError(f"(g) full width: launches "
+                                 f"{r['launches']}, plain {r['plain']}")
+        if r["kinds"]["all_gather"] <= 0 or r["kinds"]["all_to_all"]:
+            raise AssertionError(f"(g) full width: collectives "
+                                 f"{r['kinds']}")
+    report(f"[dist] (g) full width: worst share of the bar {worst:.3f} "
+           f"(outputs, aux at {EXPERT_RTOL:g} relative; gradients rtol="
+           f"{GRAD_RTOL} atol={GRAD_ATOL}); in (c)'s ranks {world_s:.1f} s")
+    if worst > 1.0:
+        raise AssertionError(f"(g) full width: placed experts disagree, "
+                             f"{worst:.3f} of the bar")
+    return {"seconds": world_s, "worst": worst,
+            "ranks": [{k: v for k, v in r.items() if k != "grad_worst"}
+                      for r in res]}
+
+
+def expert_report(report, res: list, world_s: float, ref: dict,
+                  ref_s: float) -> dict:
+    """(g) from each rank's ``expert_rank`` output (run in (b)'s world of
+    EXPERT_MESH's 4 ranks after (b)'s own work): the placed experts
+    against whole experts in the same world (outputs, aux and loss at
+    EXPERT_RTOL, gradients at the gradient bar) and one process with
+    whole experts on each data slice (outputs; the dense dispatch's aux
+    too); raises on any failed check."""
+    from repro_torch.configs import archs
+    report(f"[dist] (g) one process's references {ref_s:.1f} s, the ranks"
+           f" {world_s:.1f} s (in (b)'s world after its checks)")
+    phase_s = ref_s + world_s
+    worst = {}
+    for r, rank_res in enumerate(res):
+        tail = rank_res[-1]
+        for c in rank_res[:-1]:
+            w, p = c["whole"], c["placed"]
+            rel = float((p["logits"] - w["logits"]).abs().max()
+                        / w["logits"].abs().max())
+            aux_rel = max(abs(p["aux"][k] - w["aux"][k]) / abs(w["aux"][k])
+                          for k in w["aux"])
+            loss_rel = abs(p["loss"] - w["loss"]) / abs(w["loss"])
+            gworst = 0.0
+            for k, g in w["grads"].items():
+                got = p["grads"][k]
+                if k in c["placed_names"]:
+                    n = got.shape[-3]
+                    g = g.narrow(-3, c["model_rank"] * n, n)
+                gworst = max(gworst, float(((got - g).abs() / (
+                    GRAD_ATOL + GRAD_RTOL * g.abs())).max()))
+            one, one_aux = ref[c["arch"]][c["data_rank"]]
+            one_rel = float((p["logits"] - one.cpu()).abs().max()
+                            / one.abs().max())
+            one_aux_rel = (max(abs(p["aux"][k] - float(one_aux[k]))
+                               / abs(float(one_aux[k])) for k in one_aux)
+                           if c["dispatch"] == "dense" else 0.0)
+            n_exp = archs.smoke_config(c["arch"]).moe.n_experts
+            over = " (scatter over the data ranks)" if c["scatter"] else ""
+            report(f"[dist] (g) rank {r} (data {c['data_rank']}, model "
+                   f"{c['model_rank']}) {c['arch']} {c['dispatch']}{over}"
+                   f": experts {p['shapes'][c['placed_names'][0]][-3]} of "
+                   f"{n_exp} a stack, {len(c['placed_names'])} stacks placed;"
+                   f" all_gather_bytes={p['kinds']['all_gather']} "
+                   f"bytes_by_kind={_nonzero(p['kinds'])} kept_pairs="
+                   f"{p['kept']}; placed vs whole experts: logits rel "
+                   f"{rel:.2e} aux rel {aux_rel:.2e} loss rel {loss_rel:.2e} "
+                   f"gradients worst {gworst:.3f}; vs one process on the "
+                   f"slice: logits rel {one_rel:.2e}"
+                   + (f" aux rel {one_aux_rel:.2e}"
+                      if c["dispatch"] == "dense" else ""))
+            key = (c["arch"], c["dispatch"])
+            worst[key] = max(worst.get(key, 0.0), rel / EXPERT_RTOL,
+                             aux_rel / EXPERT_RTOL, loss_rel / EXPERT_RTOL,
+                             gworst, one_rel / EXPERT_RTOL,
+                             one_aux_rel / EXPERT_RTOL)
+            if p["kinds"]["all_gather"] <= 0 or p["kinds"]["all_to_all"]:
+                raise AssertionError(f"(g) {key}: collectives {p['kinds']}")
+            if p["kept"] != w["kept"]:
+                raise AssertionError(f"(g) {key}: kept pairs {p['kept']} "
+                                     f"vs {w['kept']}")
+        report(f"[dist] (g) rank {r} host seconds: "
+               + ", ".join(f"{k} {v:.1f}" for k, v in tail["seconds"].items()))
+        if tail["launches"] or any(tail["plain"].values()):
+            raise AssertionError(f"(g) rank {r}: launches "
+                                 f"{tail['launches']}, plain {tail['plain']}")
+    report(f"[dist] (g) worst share of the bar (outputs, aux, loss at "
+           f"{EXPERT_RTOL:g} relative; gradients rtol={GRAD_RTOL} atol="
+           f"{GRAD_ATOL}): "
+           + " ".join(f"{a}/{d} {v:.3f}" for (a, d), v in worst.items())
+           + f"; no kernel launched (einsums), no plain version; phase "
+           f"{phase_s:.1f} s")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"(g) the placed experts disagree: {worst}")
+    return {"experts_s": phase_s, "experts_worst": {
+        f"{a}/{d}": v for (a, d), v in worst.items()}}
+
+
+def examples_phase(report, guard) -> dict:
+    """[examples]: ``examples/quickstart_torch.py`` and
+    ``examples/storm_case_study_torch.py`` on the card, each through its
+    ``main()`` to its last line, with every launch counter and the
+    plain-version guard read just before and just after; every FCN3
+    kernel must launch, no plain version on a CUDA tensor."""
+    import contextlib
+    import importlib.util
+    import io
+    import torch
+    before = launch_counts()
+    guard.counts = dict.fromkeys(guard.counts, 0)
+    out = {}
+    for name, last in (("quickstart_torch", "quickstart OK"),
+                       ("storm_case_study_torch", "(paper Fig. 4/5).")):
+        path = ROOT / "examples" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            if ln.strip():
+                report(f"[examples] {name}: {ln}")
+        report(f"[examples] {name}: {seconds:.1f} s on the card")
+        if not lines or not lines[-1].endswith(last):
+            raise AssertionError(f"{name} did not reach its last line: "
+                                 f"{lines[-3:]}")
+        out[name] = seconds
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = _launched(before, launch_counts())
+    plain = dict(guard.counts)
+    report(f"[examples] launches={launched} plain_calls_on_cuda={plain}")
+    for fam in ("disco_band_contract", "disco_band_transpose",
+                "legendre_contract", "crps_fused", "crps_fused_bwd"):
+        if launched.get(fam, 0) <= 0:
+            raise AssertionError(f"the examples never launched {fam}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors in the "
+                             f"examples: {plain}")
+    return {"seconds": out, "launches": launched}
+
+
+def dist_phase(report, step0: dict, tmp: str, forecast: dict,
+               guard) -> dict:
     """(a) the selftest on the card, (b) Algorithms 1 and 2 at the
-    fcn3_full latent, (c) ensemble-parallel training at fcn3_full against
-    the training phase's first step, (d) the domain decomposition, (e)
-    the engine's ``member_axes`` against ``forecast`` ([main]'s scores,
-    final members and parameters); raises on any failed check."""
+    fcn3_full latent, then (g) the expert placement and (d2) in the same
+    world, (c) ensemble-parallel training at fcn3_full against the
+    training phase's first step, then in the same world (f) channel
+    parallelism (with [dryrun] (iv)), (g) at full width, (d1) the
+    domain-decomposed step with (d4) and (e) the engine's ``member_axes``
+    against ``forecast`` ([main]'s scores, final members and
+    parameters); raises on any failed check.  The parts ride two worlds
+    besides the selftest's: a world's start costs 15-35 s of the
+    script's time."""
     import torch
     from repro_torch.configs import fcn3 as fcn3cfg
     from repro_torch.distributed import selftest
-    from repro_torch.distributed.world import run_world
     out = {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3026,9 +3906,16 @@ def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
     plans = str(Path(tmp) / "latent_plans.pkl")
     nbytes = _plan_payloads(("latent",), ("latent_sht",), plans)
     ranks = DIST_GRID[0] * DIST_GRID[1]
-    res = run_world(dist_geometry_rank, ranks, (plans,),
-                    backend=DIST_BACKEND, timeout=600.0)
-    out["geometry_s"] = time.time() - t0
+    cases, expert_ref, expert_ref_s = expert_cases()
+    # (g), and (d2) when its rank count agrees, ride (b)'s world
+    then = [("experts", expert_rank, (cases,))]
+    if ranks == DIST_SMALL_RANKS:
+        then.append(("small", dist_small_rank, ()))
+    pre_s = time.time() - t0 - expert_ref_s
+    res, parts, own_s = run_world_then(
+        dist_geometry_rank, ranks, (plans,), then, backend=DIST_BACKEND,
+        timeout=600.0)
+    out["geometry_s"] = pre_s + own_s
     cfg = fcn3cfg.NAMED_CONFIGS[CONFIG]()
     report(f"[dist] (b) Algorithms 1-2 at the {CONFIG} latent: "
            f"{cfg.latent_nlat}x{cfg.latent_nlon} {cfg.latent_grid}, "
@@ -3069,6 +3956,8 @@ def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
             raise AssertionError(f"rank {r['coord']}: {worst:.3e} > "
                                  f"{REL_TOL}")
     out["geometry"] = res
+    out.update(expert_report(report, *parts["experts"], expert_ref,
+                             expert_ref_s))
 
     t0 = time.time()
     plans = str(Path(tmp) / "full_plans.pkl")
@@ -3084,9 +3973,21 @@ def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
     report(f"[dist] (c) launch/train.py {' '.join(argv_c)} on "
            f"{DIST_TRAIN_RANKS} ranks of one card (all {cfg.n_blocks} "
            f"blocks: no depth cut); plans {nbytes / 1e9:.3f} GB handed over")
-    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_c),
-                    backend=DIST_BACKEND, timeout=900.0)
-    out["train_s"] = time.time() - t0
+    chan_ref = channel_reference(report, step0, tmp)
+    pre_s = time.time() - t0 - chan_ref["ref_s"]
+    # (f), (g) at full width, (d1) with (d4), and (e) when its rank count
+    # agrees, ride (c)'s world
+    then = [("channel", _channel_part, (chan_ref["argv"],
+                                        chan_ref["small_ckpt"])),
+            ("experts_full", expert_full_rank, (EXPERT_FULL_ARCH,)),
+            ("domain", dist_train_rank,
+             (plans, argv + ["--fcn3-sharding", "domain"]))]
+    if DIST_ENGINE_RANKS == DIST_TRAIN_RANKS:
+        then.append(("engine", dist_engine_rank, (plans, forecast["ckpt"])))
+    res, train_parts, own_s = run_world_then(
+        dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_c), then,
+        backend=DIST_BACKEND, timeout=900.0)
+    out["train_s"] = pre_s + own_s
     loss, loss_rel, gerr, rel_all, worst, at = _vs_first_step(res, step0)
     for i, r in enumerate(res):
         hs = r["history"]
@@ -3122,8 +4023,15 @@ def dist_phase(report, step0: dict, tmp: str, forecast: dict) -> dict:
                              f"{loss_rel:.3e}, gradient {worst:.3f}")
     out["train"] = [{k: v for k, v in r.items() if k != "grads"}
                     for r in res]
-    out.update(domain_phase(report, step0, plans, argv))
-    out.update(engine_dist_phase(report, forecast, plans))
+    out.update(channel_report(report, *train_parts["channel"], chan_ref,
+                              guard))
+    full = expert_full_report(report, *train_parts["experts_full"])
+    out["experts_full"] = full
+    out["experts_s"] += full["seconds"]
+    out.update(domain_phase(report, step0, plans, argv, parts.get("small"),
+                            train_parts["domain"]))
+    out.update(engine_dist_phase(report, forecast, plans,
+                                 train_parts.get("engine")))
     return out
 
 
@@ -3209,12 +4117,17 @@ def dist_small_rank(rank: int, world_size: int) -> dict:
     return out
 
 
-def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
+def domain_phase(report, step0: dict, plans: str, argv: list[str],
+                 small: tuple | None = None, part: tuple | None = None
+                 ) -> dict:
     """(d) the domain-decomposed step: (d1) the training cell through
     ``launch/train.py --fcn3-sharding domain`` against the single
     process's first step, (d2) the ``fcn3_small`` forward over 4 ranks,
     (d3) the band, CRPS and Legendre kernels on rank 0's row-sliced
-    operands at (d1)'s shapes; raises on any failed check."""
+    operands at (d1)'s shapes; raises on any failed check.  ``small``
+    and ``part``: (d2)'s and (d1)'s results and seconds where they rode
+    another world (``dist_train_rank`` with ``argv`` + the domain flags
+    for (d1))."""
     import torch
     from repro_torch.configs import fcn3 as fcn3cfg
     from repro_torch.core import fcn3
@@ -3231,14 +4144,16 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card "
            f"{(total - free) / 1e9:.2f} of {total / 1e9:.2f} GB in use")
-    t0 = time.time()
     argv_d = argv + ["--fcn3-sharding", "domain"]
     report(f"[dist] (d1) launch/train.py {' '.join(argv_d)} on "
            f"{DIST_TRAIN_RANKS} latitude ranks of one card, both members on "
-           "each rank's rows")
-    res = run_world(dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_d),
-                    backend=DIST_BACKEND, timeout=900.0)
-    out["domain_s"] = time.time() - t0
+           "each rank's rows" + (" (in (c)'s world)" if part else ""))
+    if part is None:
+        res, _, out["domain_s"] = run_world_then(
+            dist_train_rank, DIST_TRAIN_RANKS, (plans, argv_d),
+            backend=DIST_BACKEND, timeout=900.0)
+    else:
+        res, out["domain_s"] = part
     loss, loss_rel, gerr, rel_all, worst, at = _vs_first_step(res, step0)
     for i, r in enumerate(res):
         hs = r["history"]
@@ -3297,9 +4212,12 @@ def domain_phase(report, step0: dict, plans: str, argv: list[str]) -> dict:
            f"{step0['eval_s']:.3f} s")
 
     t0 = time.time()
-    res = run_world(dist_small_rank, DIST_SMALL_RANKS, (),
-                    backend=DIST_BACKEND, timeout=600.0)
-    out["small_s"] = time.time() - t0
+    if small is None:
+        res = run_world(dist_small_rank, DIST_SMALL_RANKS, (),
+                        backend=DIST_BACKEND, timeout=600.0)
+        out["small_s"] = time.time() - t0
+    else:
+        res, out["small_s"] = small
     for i, r in enumerate(res):
         report(f"[dist] (d2) {DIST_SMALL_CONFIG} forward rank {i}: io_rows="
                f"{r['rows']} latent_rows={r['latent_rows']} launches="
@@ -3723,19 +4641,39 @@ def domain_dryrun(report, dry: dict, history: list[dict]) -> None:
            f"run {dry['seconds']:.1f} s on the host")
 
 
-def production_dryrun(report) -> None:
-    """One production case through the dry-run CLI: ``--arch fcn3
+def production_dryrun_start() -> dict:
+    """Start one production case of the dry-run CLI, ``--arch fcn3
     --shape train`` as rank 0 of 16 x 16 (domain), its record written
-    with ``--out`` and read back: collective bytes > 0, finite terms."""
-    import contextlib
-    import io
-    from repro_torch.launch import dryrun
+    with ``--out``, in a process of its own without the card: it counts
+    fake tensors on the host, so it runs beside the kernel checks."""
     path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
                         "dryrun.jsonl")
-    t0 = time.time()
-    with contextlib.redirect_stdout(io.StringIO()):
-        rc = dryrun.main(["--arch", "fcn3", "--shape", "train", "--out",
-                          path])
+    src = str(ROOT / "src")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=(
+        src + os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else src))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "fcn3", "--shape", "train", "--out", path],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, env=env)
+    return {"proc": proc, "path": path, "t0": time.time()}
+
+
+def production_dryrun(report, started: dict) -> float:
+    """Wait for ``production_dryrun_start``'s case and read its record
+    back: exit code 0, collective bytes > 0, finite terms.  Returns its
+    seconds."""
+    proc, path, t0 = started["proc"], started["path"], started["t0"]
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rc = proc.returncode
+    if rc != 0:
+        raise AssertionError(f"the production dry run exited {rc}: "
+                             f"{err.decode(errors='replace')[-2000:]}")
     with open(path) as f:
         rec = json.loads(f.readline())
     shutil.rmtree(os.path.dirname(path), ignore_errors=True)
@@ -3755,12 +4693,14 @@ def production_dryrun(report) -> None:
            f"{rec['t_compute_fp32_s']:.4f} t_memory={rec['t_memory_s']:.4f}"
            f" t_collective={rec['t_collective_s']:.4f} s bottleneck="
            f"{rec['bottleneck']} model_flops={rec['model_flops']:.4g} "
-           f"mfu_bound={rec['mfu_bound']:.4f}; {time.time() - t0:.1f} s")
-    if rc != 0 or not rec["collective_bytes_per_device"] > 0 or not all(
+           f"mfu_bound={rec['mfu_bound']:.4f}; {time.time() - t0:.1f} s "
+           f"in a process of its own beside the kernel checks")
+    if not rec["collective_bytes_per_device"] > 0 or not all(
             math.isfinite(t) for t in terms):
-        raise AssertionError(f"the production dry run: rc {rc}, collective "
-                             f"bytes {rec['collective_bytes_per_device']}, "
-                             f"terms {terms}")
+        raise AssertionError(f"the production dry run: collective bytes "
+                             f"{rec['collective_bytes_per_device']}, terms "
+                             f"{terms}")
+    return time.time() - t0
 
 
 def timed_forward(run, members: int) -> dict:
@@ -4150,6 +5090,11 @@ def main() -> int:
         + f" (state rtol={STATE_RTOL} atol={STATE_ATOL}; scores "
           f"rtol={SCORE_RTOL} atol={SCORE_ATOL}, rank_hist atol="
           f"{STATE_ATOL})")
+    log(f"[service] host seconds: plans {svc['plans_build_s']:.1f}, pack "
+        f"{svc['pack_s']:.1f}, boot {svc['boot_s']:.1f}, the three requests "
+        f"{svc['serve_s']:.1f}, server and scheduler closed "
+        f"{svc['close_s']:.1f}, three direct engines and their checks "
+        f"{svc['direct_s']:.1f}")
     log(f"[service] phase_s={service_s:.1f}; from the booted replica to "
         f"the last served request: launches={service_launches} "
         f"plain_calls_on_cuda={svc['plain']}; the boot's calibration "
@@ -4223,17 +5168,26 @@ def main() -> int:
     lap("gradient_check")
     # -- phase 5b: distribution, every rank a process on the card ----------
     try:
-        dist = dist_phase(log, summary.pop("step0"), dist_tmp, forecast)
+        dist = dist_phase(log, summary.pop("step0"), dist_tmp, forecast,
+                          guard)
+        # -- [dryrun] (iii): (d1)'s step counted as rank 0 of a fake 1 x 2
+        # mesh
+        t0 = time.time()
+        dry["(iii)"] = dryrun_domain(guard)
+        domain_dryrun(log, dry["(iii)"], dist["domain"][0]["history"])
+        dist["dryrun_iii_s"] = time.time() - t0
     finally:
         shutil.rmtree(dist_tmp, ignore_errors=True)
-    # -- [dryrun] (iii): (d1)'s step counted as rank 0 of a fake 1 x 2 mesh
-    t0 = time.time()
-    dry["(iii)"] = dryrun_domain(guard)
-    domain_dryrun(log, dry["(iii)"], dist["domain"][0]["history"])
-    dist["dryrun_iii_s"] = time.time() - t0
-    t0 = time.time()
-    production_dryrun(log)
-    dist["dryrun_cli_s"] = time.time() - t0
+    del forecast
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("dist")
+    # (f) with [dryrun] (iv), and (g), ran inside (c)'s and (b)'s worlds:
+    # their seconds (the single-process sides, the ranks' parts, the
+    # checks) apart from the rest of [dist]
+    phase_s["dist_channel"] = dist["channel_s"]
+    phase_s["dist_experts"] = dist["experts_s"]
+    phase_s["dist"] -= phase_s["dist_channel"] + phase_s["dist_experts"]
     d4 = max(r["eval"]["seconds"] for r in dist["domain"])
     log(f"[dist] card: {card}; host seconds by part: (a) selftest "
         f"{dist['selftest_s']:.1f}, (b) Algorithms 1-2 "
@@ -4244,12 +5198,18 @@ def main() -> int:
         f"{dist['small_s']:.1f}, (d3) rank 0's kernels "
         f"{dist['d3_s']:.1f}, (e) engine over ranks "
         f"{dist['engine_s']:.1f}; [dryrun] (iii) "
-        f"{dist['dryrun_iii_s']:.1f}, the CLI's production case "
-        f"{dist['dryrun_cli_s']:.1f}")
-    del forecast
+        f"{dist['dryrun_iii_s']:.1f}; (f) channel "
+        f"{dist['channel_s']:.1f} (in (c)'s ranks "
+        f"{dist['channel_world_s']:.1f}), [dryrun] (iv) "
+        f"{dist['dryrun_iv_s']:.1f}, (g) experts {dist['experts_s']:.1f} "
+        f"(at full width in (c)'s ranks "
+        f"{dist['experts_full']['seconds']:.1f})")
+    # -- [examples]: the twins of examples/ on the card --------------------
+    gc.collect()
     torch.cuda.empty_cache()
-
-    lap("dist")
+    examples = examples_phase(log, guard)
+    torch.cuda.empty_cache()
+    lap("examples")
     # -- phase 6: the LM path (the FCN3 models are gone) ---------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4532,7 +5492,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("lm_moe")
-    # -- phase 7: kernels against their plain versions ---------------------
+    # -- phase 7: kernels against their plain versions, the dry-run CLI's
+    # production case beside them (host only) -----------------------------
+    cli = production_dryrun_start()
+    atexit.register(lambda: cli["proc"].poll() is None and cli["proc"].kill())
     ssd_row, (states, decay) = check_ssd(lm_rec.ssd, LM_PREFILL_BATCH)
     lm_rec.ssd = None
     rows = {"legendre_contract": [], "disco_band_contract": [],
@@ -4707,7 +5670,14 @@ def main() -> int:
                    "dist_domain_eval": dist["domain"][0]["eval"][
                        "launches"].get(name, 0),
                    # one step of [lm-train] (remat: the SSD forwards twice)
-                   "lm_train": lm_train_launches.get(name, 0)}
+                   "lm_train": lm_train_launches.get(name, 0),
+                   # rank 0's channel step at the cut fcn3_full, and its
+                   # fcn3_smoke one
+                   "dist_channel": dist["channel"][0]["launches"].get(name,
+                                                                      0),
+                   "dist_channel_smoke": dist["channel_small"][0].get(name,
+                                                                      0),
+                   "examples": examples["launches"].get(name, 0)}
         ent = {
             "name": name, "route": route, "source": source,
             "replaces": replaces,
@@ -4751,9 +5721,10 @@ def main() -> int:
         kernels.append(ent)
     log(f"[profile] forecast lead: busy_s={profile['busy_s']} "
         f"wall_s={profile['wall_s']:.3f}")
+    production_dryrun(log, cli)
     lap("kernels")
     log(f"[time] phase_s={ {k: round(v, 1) for k, v in phase_s.items()} } "
-        f"total_s={sum(phase_s.values()):.1f} (limit 1200, target 1000)")
+        f"total_s={sum(phase_s.values()):.1f} (limit 1200, target 1100)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,9 @@ Each takes a ``ProcessGroup`` where JAX takes a mesh-axis name:
 * ``psum(x, group)`` -- the sum over ranks; its gradient is the identity,
   as JAX's when every rank backpropagates the same replicated value
   (multiplying it by R would count each rank's contribution R times);
+* ``all_gather(x, group, dim)`` -- every rank's ``x`` concatenated along
+  ``dim`` in rank order (``jax.lax.all_gather`` with ``tiled=True``); no
+  gradient (``distributed/channel.py`` wraps it in autograd functions);
 * ``all_to_all_v(x, group, dim, send_sizes, recv_sizes)`` -- the ragged
   all-to-all: ``dim`` of ``x`` is the blocks for each rank in rank order,
   of ``send_sizes`` rows each, and the result is the blocks received, in
@@ -36,8 +39,9 @@ tensor by two CUDA events recorded on the current stream around it (no
 synchronization of the card; ``timed_seconds`` waits for the last event),
 on a CPU tensor by the host clock; ``timed_kinds()`` counts each kind's
 output bytes on this rank (``all_to_all``, ``all_to_all_v``,
-``all_reduce``, ``broadcast``; an all-to-all's output holds the rank's own
-block, ``all_to_all_v``'s only what the peers sent), and ``timed_bytes()``
+``all_reduce``, ``all_gather``, ``broadcast``; an all-to-all's and an
+all-gather's output hold the rank's own block, ``all_to_all_v``'s only
+what the peers sent), and ``timed_bytes()``
 the bytes ``all_to_all_v`` received.  Outside such a window nothing is
 recorded, except on fake tensors (a dry run): there every collective
 notes its kind, group size and output bytes in ``kernels.tally``.
@@ -59,7 +63,8 @@ _timed: list | None = None
 #: the output bytes of each kind of collective since ``start_timing``
 _kinds: dict[str, int] = {}
 #: the kinds of collective, as ``timed_kinds`` and the dry run name them
-KINDS = ("all_to_all", "all_to_all_v", "all_reduce", "broadcast")
+KINDS = ("all_to_all", "all_to_all_v", "all_reduce", "all_gather",
+         "broadcast")
 #: ``mesh_group``'s groups over several axes, by world, mesh and axes
 _mesh_groups: dict = {}
 
@@ -103,11 +108,12 @@ def axis_index(group) -> int:
     return dist.get_rank(group)
 
 
-def _run(kind: str, op, t: torch.Tensor, group) -> None:
-    """Run the collective ``op`` whose output on this rank is ``t``;
-    count its bytes and time it while timing is on (see the module
-    docstring), note it in ``kernels.tally`` on a fake tensor."""
-    nbytes = t.numel() * t.element_size()
+def _run(kind: str, op, t: torch.Tensor, group, times: int = 1) -> None:
+    """Run the collective ``op`` whose output on this rank is ``times``
+    tensors like ``t``; count its bytes and time it while timing is on
+    (see the module docstring), note it in ``kernels.tally`` on a fake
+    tensor."""
+    nbytes = times * t.numel() * t.element_size()
     if tally.is_fake(t):
         tally.note_collective(kind, dist.get_process_group_ranks(
             group or dist.group.WORLD), nbytes)
@@ -298,6 +304,24 @@ class _Psum(torch.autograd.Function):
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over ``group``; the gradient passes through unchanged."""
     return _Psum.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (all of one shape) concatenated along ``dim`` in
+    the group's rank order; complex tensors as their real views.  No
+    autograd: see ``distributed/channel.py``."""
+    r = axis_size(group)
+    if r == 1:
+        return x
+    dim = dim % x.dim()
+    cplx = x.is_complex()
+    xr = (torch.view_as_real(x) if cplx else x).contiguous()
+    parts = [torch.empty_like(xr) for _ in range(r)]
+    # the list form: gloo gathers CUDA tensors in it
+    _run("all_gather", lambda: dist.all_gather(parts, xr, group=group),
+         xr, group, times=r)
+    out = torch.cat(parts, dim=dim)
+    return torch.view_as_complex(out.contiguous()) if cplx else out
 
 
 def buckets(tensors: list[torch.Tensor], numel: int = 1 << 26):

@@ -1,4 +1,4 @@
-"""Placement rules for the production mesh (paper §G), as tables.
+"""Placement rules for the production mesh (paper §G), and their use.
 
 The JAX package states them as GSPMD ``PartitionSpec`` trees; here each
 leaf's spec is JAX's own form -- a tuple with one entry per tensor
@@ -23,19 +23,29 @@ component and return specs for the *trailing* dimensions, padded with
 ``None`` in front, so stacked and unstacked layer layouts get the same
 rule.
 
-What is applied today, in ensemble-parallel FCN3 training: the trainer
-takes its parameters' placement from ``fcn3_param_specs(mode="domain")``
-(replicated: broadcast from rank 0; it refuses a sharded spec), and the
-launcher slices each batch by ``fcn3_batch_specs`` with no model axis
-(the batch over the data axis; latitude whole, since the model axis
-carries the ensemble there), through ``block_of``.  ``mode="channel"``,
-``fsdp``, the latitude split and the LM rules are tables until a later
-slice applies them.
+The rules are applied, through ``sanitize_specs`` (an entry whose mesh
+size does not divide its dim is dropped, as in the reference), by
+``local_blocks`` -- each rank's block of every split leaf, through
+``block_of`` (a state dict from ``train/checkpoint.py``'s ``arrays.npz``
+onto a rank) -- ``place_parameters`` (a module's split parameters
+replaced by this rank's blocks) and ``gather_blocks``, the inverse,
+which gathers a rank's blocks back into whole leaves (a checkpoint is
+always written whole, in the reference's format).  The trainer places
+FCN3's parameters by ``fcn3_param_specs``: replicated in ``"domain"``
+and ensemble mode, the latent channels over the model axis in
+``"channel"`` mode (``distributed/channel.py``); the launcher slices
+each batch by ``fcn3_batch_specs``.  The LMs apply the expert rule of
+``lm_param_specs`` alone (``lm_expert_specs``: the MoE stacks' experts
+over the model axis); its FSDP and tensor-parallel entries, and
+``fsdp=True`` of ``fcn3_param_specs`` (which the JAX package never
+passes either), stay tables.
 """
 
 from __future__ import annotations
 
 from typing import Any, Mapping
+
+import torch
 
 DP = "data"     # FSDP / batch axis (pod handled by the caller)
 MP = "model"    # tensor/expert/sequence-parallel axis
@@ -122,6 +132,76 @@ def block_of(entry, mesh) -> tuple[int, int]:
     return idx, n
 
 
+def _blocks_index(spec: Spec, shape: tuple, mesh) -> tuple:
+    """The index of this rank's block of a leaf of ``shape`` placed by
+    ``spec`` (a slice per dim)."""
+    index = []
+    for d, entry in enumerate(tuple(spec) + (None,) * (len(shape)
+                                                       - len(spec))):
+        i, n = block_of(entry, mesh)
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {shape} does not split over {n} "
+                             "ranks: sanitize the specs first")
+        size = shape[d] // n
+        index.append(slice(i * size, (i + 1) * size))
+    return tuple(index)
+
+
+def is_split(spec: Spec) -> bool:
+    """Whether ``spec`` places its leaf on any mesh axis."""
+    return any(e is not None for e in spec)
+
+
+def local_blocks(leaves: Mapping[str, Any], specs: Mapping[str, Spec],
+                 mesh) -> dict[str, Any]:
+    """This rank's block of every leaf (tensors or numpy arrays) that
+    ``specs`` splits, a contiguous copy; the other leaves as they are.
+    ``specs`` must be sanitized (``sanitize_specs``)."""
+    out = {}
+    for path, leaf in leaves.items():
+        spec = specs.get(path, ())
+        if not is_split(spec):
+            out[path] = leaf
+            continue
+        block = leaf[_blocks_index(spec, tuple(leaf.shape), mesh)]
+        out[path] = (block.clone(memory_format=torch.contiguous_format)
+                     if isinstance(block, torch.Tensor) else block.copy())
+    return out
+
+
+def gather_blocks(blocks: Mapping[str, Any], specs: Mapping[str, Spec],
+                  mesh) -> dict[str, Any]:
+    """``local_blocks``' inverse: every split leaf's blocks gathered from
+    the ranks that hold them into the whole leaf, on every rank (the call
+    is collective); the other leaves as they are."""
+    from repro_torch.distributed import compat
+    out = {}
+    for path, t in blocks.items():
+        spec = specs.get(path, ())
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                t = compat.all_gather(t, compat.mesh_group(mesh, axes), d)
+        out[path] = t
+    return out
+
+
+def place_parameters(module, specs: Mapping[str, Spec], mesh) -> list[str]:
+    """Replace every parameter of ``module`` that ``specs`` (sanitized,
+    keyed by the module's dotted names) splits by this rank's block of
+    it, a parameter of its own with the same ``requires_grad``; returns
+    the names placed."""
+    params = {k: p for k, p in module.named_parameters()
+              if is_split(specs.get(k, ()))}
+    blocks = local_blocks({k: p.detach() for k, p in params.items()}, specs,
+                          mesh)
+    for name, p in params.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf, torch.nn.Parameter(
+            blocks[name], requires_grad=p.requires_grad))
+    return list(params)
+
+
 # ---------------------------------------------------------------------------
 # LMs
 # ---------------------------------------------------------------------------
@@ -151,6 +231,20 @@ def lm_param_specs(cfg, params: Mapping[str, Any], data_axis=DP,
         return _pad((), nd)  # norms, biases, scalars: replicated
 
     return {p: spec_for(p, leaf) for p, leaf in params.items()}
+
+
+def lm_expert_specs(cfg, params: Mapping[str, Any], model_axis=MP
+                    ) -> dict[str, Spec]:
+    """The part of ``lm_param_specs`` the port applies: its model-axis
+    entry on the expert dim of the MoE stacks (E, D, F) / (E, F, D),
+    stacked or not; every other entry of every leaf replicated."""
+    def experts_only(spec: Spec) -> Spec:
+        n = len(spec)
+        return tuple(e if i == n - 3 and e == _entry(model_axis) else None
+                     for i, e in enumerate(spec))
+
+    return {p: experts_only(s) for p, s in
+            lm_param_specs(cfg, params, model_axis=model_axis).items()}
 
 
 def lm_opt_specs(param_specs: Mapping[str, Spec]) -> dict:

@@ -32,18 +32,21 @@ Usage::
 
 ``--fcn3-sharding`` says what the model axis carries: ``domain``
 (latitude: ``distributed.domain.DomainFCN3`` and the trainer's domain
-step) or ``ensemble`` (the members: ``TrainConfig.member_axes``).
-Refused, one line each naming the ROADMAP item (``--all`` counts them
-apart from failures): ``channel`` and an ensemble that does not split
-over the model axis in ``ensemble`` mode (A10.3).  An LM train step is
+step), ``ensemble`` (the members: ``TrainConfig.member_axes``; an
+ensemble the model axis does not divide, such as ``rollout4``'s 2
+members on 16 ranks, is whole on every model rank, as the reference's
+``sanitize_specs`` replicates it) or ``channel`` (the latent channels:
+``distributed.channel``, rank 0 holding its blocks of the split
+parameters).  An LM train step is
 the loss, its backward (with the layers checkpointed, as the JAX
 ``LM``'s: each SSD forward kernel is counted twice, the backward
 kernels once), the gradients' all-reduce over the data ranks and the
 Adam update (``train/lm.py``).  ``--moe-dispatch`` (dense or scatter) is the
-MoE layers' dispatch; the experts are whole on every rank (the JAX dry
-run places them over the model axis: a difference by design, ROADMAP
-C).  ``--all`` runs every case in a process of its own;
-the fake default group is process-wide, and ``run_case`` destroys it
+MoE layers' dispatch; either runs on rank 0's E/16 experts, placed over
+the model axis as the JAX dry run places them (``LM.place_experts``:
+10 of ``deepseek-v2-236b``'s 160, 8 of ``llama4-maverick-400b-a17b``'s
+128), their outputs gathered over it.  ``--all`` runs every case in a
+process of its own; the fake default group is process-wide, and ``run_case`` destroys it
 before it returns.
 
 The fake tensors stand on the card's device where there is a card, on
@@ -78,11 +81,6 @@ FCN3_SHAPES = {
     "inference": dict(batch=1, ensemble=16, rollout=1, mode="infer"),
 }
 FCN3_MODES = ("domain", "channel", "ensemble")
-
-
-class Refused(NotImplementedError):
-    """A case the port does not run yet; its message names the ROADMAP
-    item."""
 
 
 @contextlib.contextmanager
@@ -159,18 +157,15 @@ def build_fcn3_case(shape_name: str, mesh, dry: counting.DryRun,
     ``shape_name`` picks ``FCN3_SHAPES`` (``sizes`` = (batch, ensemble,
     rollout) overrides it, ``cfg`` the model config, ``tcfg`` the
     ``TrainConfig``); on a ``mesh`` the step is rank 0's of the domain
-    decomposition or of ensemble parallelism (``fcn3_mode``), without one
-    the single process's."""
+    decomposition, of ensemble parallelism or of channel parallelism
+    (``fcn3_mode``), without one the single process's."""
     from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import channel as chlib
     from repro_torch.distributed import domain as domlib
     from repro_torch.inference.engine import GeneratorNoise
-    from repro_torch.optim import adam as adamlib
     from repro_torch.train import trainer as trlib
     if fcn3_mode not in FCN3_MODES:
         raise ValueError(f"--fcn3-sharding {fcn3_mode}")
-    if fcn3_mode == "channel":
-        raise Refused("--fcn3-sharding channel: the port places no sharded "
-                      "parameters yet (ROADMAP A10.3)")
     sh = FCN3_SHAPES[shape_name]
     b, e, t = sizes or (sh["batch"], sh["ensemble"], sh["rollout"])
     if cfg is None:
@@ -204,21 +199,26 @@ def build_fcn3_case(shape_name: str, mesh, dry: counting.DryRun,
         dry.label(x, "inputs")
         return x
 
+    channel = mesh is not None and fcn3_mode == "channel"
     if sh["mode"] == "train":
-        if mesh is not None and not domain and e % n_mp:
-            raise Refused(
-                f"--fcn3-sharding ensemble: {e} members do not split over "
-                f"the model axis's {n_mp} ranks; the reference replicates "
-                "such a dim (sanitize_specs), the port's trainer places no "
-                "replicated member axis yet (ROADMAP A10.3)")
         if tcfg is None:
             tcfg = trlib.TrainConfig(
                 ensemble_size=e, rollout_steps=t,
                 member_axes=(("model", dp if len(dp) > 1 else dp[0])
-                             if mesh is not None and not domain else None))
+                             if fcn3_mode == "ensemble" and mesh is not None
+                             else None))
         tr = trlib.EnsembleTrainer(model, tcfg,
                                    fcn3cfg.channel_weights(cfg.n_levels),
-                                   mesh)
+                                   mesh, placement="channel" if channel
+                                   else "domain")
+        if tr.split:
+            # rank 0's blocks replaced the split parameters
+            params = dict(model.named_parameters())
+            dry.label(params, "parameters")
+            info.update(split_leaves=len(tr.split), split_params=sum(
+                math.prod(tr.channel.shapes[k]) for k in tr.split))
+        if tr.whole_members:
+            info["members_per_rank"] = e
         buffers = (tr.domain.make_buffers() if tr.domain is not None
                    else model.make_buffers())
         buffers.update(tr.make_loss_buffers())
@@ -236,8 +236,8 @@ def build_fcn3_case(shape_name: str, mesh, dry: counting.DryRun,
         def train_step(buffers, opt_state, batch):
             loss, aux, grads = tr.loss_and_grads(buffers, batch, noise)
             dry.label(grads, "gradients")
-            adamlib.global_norm(grads)
-            tr.optimizer.update(params, grads, opt_state)
+            tr.optimizer.update(params, grads, opt_state,
+                                norm=tr.grad_norm(grads))
             return loss
 
         return Case(train_step, (buffers, opt_state, batch), mf, info)
@@ -247,6 +247,14 @@ def build_fcn3_case(shape_name: str, mesh, dry: counting.DryRun,
         d = domlib.DomainFCN3(model, mesh.get_group("model"))
         buffers, fwd = d.make_buffers(), d
         info["latent_rows"] = d.lat_block
+        e_loc, b_loc = _local(e, n_dp), b
+    elif channel:
+        # the members over the data axes, the channels over the model
+        # axis (the reference's inference specs in channel mode)
+        fwd = chlib.ChannelFCN3(model, mesh, chlib.channel_specs(model, mesh))
+        buffers = model.make_buffers()
+        dry.label(dict(model.named_parameters()), "parameters")
+        info.update(split_leaves=len(fwd.split))
         e_loc, b_loc = _local(e, n_dp), b
     else:
         buffers, fwd = model.make_buffers(), model
@@ -272,18 +280,19 @@ def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
                   moe_dispatch: str = "dense", cfg=None) -> Case:
     """One LM step on fake tensors inside ``dry``: the train step, the
     prefill or one decode step on rank 0's slice of the batch (the batch
-    over the data axes; the port's LM has no tensor parallelism, so the
-    model axis holds replicas).
+    over the data axes; the port's LM applies no FSDP or tensor
+    parallelism, so apart from the experts the model axis holds
+    replicas).
 
     A MoE architecture's layers take ``moe_dispatch``: ``scatter``
     dispatches over the data ranks where the batch splits over them
     (``moe.scatter_group``), each rank's capacity from its own slice; a
     batch that does not split is whole on every rank and takes the dense
-    path, as the JAX package's ``apply_moe`` chooses.  The experts are
-    whole on every rank, where the JAX dry run places them over the model
-    axis (``distributed/sharding.py``'s expert rule).  ``shape_name``
-    names one of ``shapes.INPUT_SHAPES`` or is an ``InputShape`` of its
-    own (the smoke test's)."""
+    path, as the JAX package's ``apply_moe`` chooses.  On a mesh the
+    experts are placed over its model axis (``LM.place_experts``, the
+    expert rule of ``distributed/sharding.py``), rank 0 holding E/n of
+    each stack.  ``shape_name`` names one of ``shapes.INPUT_SHAPES`` or
+    is an ``InputShape`` of its own (the smoke test's)."""
     from repro_torch.distributed import compat
     from repro_torch.models import moe as moelib
     from repro_torch.models.transformer import LM
@@ -297,17 +306,25 @@ def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
             cfg.moe, dispatch=moe_dispatch, dp_axes=dp))
     model = LM(cfg, device=dry.device)
     params = dict(model.named_parameters())
-    dry.label(params, "parameters")
     n_active = active_param_count(cfg, params)
+    info = {"params": _count(params), "active_params": n_active}
+    moe_group = expert_group = None
+    if cfg.moe and mesh is not None and "model" in mesh.mesh_dim_names:
+        if model.place_experts(mesh):
+            expert_group = mesh.get_group("model")
+        params = dict(model.named_parameters())
+        info["experts_per_rank"] = next(
+            (p.shape[-3] for k, p in params.items() if k in model.placed),
+            cfg.moe.n_experts)
+        info["local_params"] = _count(params)
+    dry.label(params, "parameters")
     n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in dp)
     b = _local(shape.global_batch, n_dp)
-    moe_group = None
     if cfg.moe and dp:
         moe_group = moelib.scatter_group(
             cfg.moe, compat.mesh_group(mesh, dp), shape.global_batch,
             1 if shape.mode == "decode" else shape.seq_len)
-    info = {"params": _count(params), "active_params": n_active,
-            "local_batch": b}
+    info["local_batch"] = b
     if cfg.moe:
         info["moe_dispatch"] = "scatter" if moe_group is not None else "dense"
     if shape.mode == "train":
@@ -326,9 +343,10 @@ def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
 
         def train_step(opt_state, batch):
             loss, _, grads = lmtrain.loss_and_grads(model, batch, data_group,
-                                                    moe_group)
+                                                    moe_group, expert_group)
             dry.label(grads, "gradients")
-            opt.update(params, grads, opt_state)
+            opt.update(params, grads, opt_state,
+                       norm=lmtrain.grad_norm(model, grads, expert_group))
             return loss
 
         mf = roof.model_flops_train(n_active,
@@ -343,7 +361,8 @@ def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
         dry.label(batch, "inputs")
         mf = roof.model_flops_decode(n_active,
                                      shape.global_batch * shape.seq_len)
-        return Case(lambda batch: model(**batch, moe_group=moe_group),
+        return Case(lambda batch: model(**batch, moe_group=moe_group,
+                                        expert_group=expert_group),
                     (batch,), mf, info)
     tokens = torch.empty((b, 1), dtype=torch.int32, device=dry.device)
     cache = model.init_cache(b, shape.seq_len)
@@ -355,7 +374,8 @@ def build_lm_case(arch: str, shape_name, mesh, dry: counting.DryRun,
     dry.label(cache, "buffers")
     mf = roof.model_flops_decode(n_active, shape.global_batch)
     return Case(lambda tokens, cache, extra: model.decode_step(
-        tokens, cache, shape.seq_len - 1, moe_group=moe_group, **extra),
+        tokens, cache, shape.seq_len - 1, moe_group=moe_group,
+        expert_group=expert_group, **extra),
         (tokens, cache, extra), mf, info)
 
 
@@ -433,10 +453,6 @@ def _all_cases(meshes=("single", "multi")) -> list[tuple[str, str, bool]]:
     return cases
 
 
-#: the exit code of a refused case
-REFUSED = 3
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The JAX dry run's flags."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -456,14 +472,15 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--fcn3-sharding", default="domain", choices=FCN3_MODES,
                     help="domain = latitude over the model axis; ensemble = "
-                         "the members over it; channel is refused (A10.3)")
+                         "the members over it; channel = the latent "
+                         "channels over it")
     return ap
 
 
 def _run_all(args) -> int:
     """Every case in a process of its own, ``args.jobs`` at a time."""
     procs: list = []
-    ok, refused, failed = [], [], []
+    ok, failed = [], []
     with open(args.out or "dryrun_results.jsonl", "w") as f:
         def drain(block=False):
             for p, case in list(procs):
@@ -484,11 +501,6 @@ def _run_all(args) -> int:
                     print(f"[ok] {tag} bottleneck={rec['bottleneck']} "
                           f"build={rec['build_s']}s run={rec['run_s']}s",
                           flush=True)
-                elif p.returncode == REFUSED:
-                    refused.append(tag)
-                    why = next((ln for ln in out.splitlines()
-                                if ln.startswith("DRYRUN REFUSED")), "")
-                    print(f"[refused] {tag} {why}", flush=True)
                 else:
                     failed.append(tag)
                     print(f"[FAIL] {tag}\n{out[-2000:]}", flush=True)
@@ -510,7 +522,7 @@ def _run_all(args) -> int:
                 text=True), case))
         while procs:
             drain(block=True)
-    print(f"\n{len(ok)} ok, {len(refused)} refused, {len(failed)} failed")
+    print(f"\n{len(ok)} ok, {len(failed)} failed")
     if failed:
         print("failures:", failed)
         return 1
@@ -524,14 +536,9 @@ def main(argv: list[str] | None = None) -> int:
         return _run_all(args)
     if args.arch is None or args.shape is None:
         raise SystemExit("--arch and --shape, or --all")
-    try:
-        rec = run_case(args.arch, args.shape, args.multi_pod,
-                       args.reduced_fcn3, fcn3_mode=args.fcn3_sharding,
-                       fcn3_dtype=args.fcn3_dtype,
-                       moe_dispatch=args.moe_dispatch)
-    except Refused as exc:
-        print(f"DRYRUN REFUSED: {args.arch}/{args.shape}: {exc}")
-        return REFUSED
+    rec = run_case(args.arch, args.shape, args.multi_pod, args.reduced_fcn3,
+                   fcn3_mode=args.fcn3_sharding, fcn3_dtype=args.fcn3_dtype,
+                   moe_dispatch=args.moe_dispatch)
     print(json.dumps(rec, indent=1))
     print("RESULT_JSON:" + json.dumps(rec))
     if args.out:

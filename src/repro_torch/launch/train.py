@@ -15,19 +15,28 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) it trains on a ``("data",
 over the data axis.  ``--fcn3-sharding`` (the JAX dry run's flag) says
 what the model axis carries: ``domain`` (the default, as there) latitude
 -- each rank loads and computes the loader's row block of every field,
-the domain-decomposed step of ``distributed.domain`` -- and
-``ensemble`` the members (ensemble parallelism, ``TrainConfig.
-member_axes = ("model", "data")``); ``channel`` is refused (ROADMAP
-A10.3).  The process group uses ``--dist-backend`` (nccl by default on
-``cuda``, gloo on ``cpu``), as the caller names it: nothing switches
-it.  NCCL takes one card per rank; several ranks on one card take gloo,
-which stages each collective through host memory.  Each rank prints a
+the domain-decomposed step of ``distributed.domain`` -- ``ensemble``
+the members (ensemble parallelism, ``TrainConfig.member_axes =
+("model", "data")``; an ensemble the model ranks do not divide is
+whole on each of them) and ``channel`` the latent channels
+(``distributed.channel``: the parameters ``fcn3_param_specs(mode=
+"channel")`` splits, each rank holding its blocks, every rank all
+members on the whole fields of its slice of the batch).  A checkpoint
+is written whole by rank 0 (a channel run's split leaves gathered
+first), in the reference's format.  The process group uses
+``--dist-backend`` (nccl by default on ``cuda``, gloo on ``cpu``), as
+the caller names it: nothing switches it.  NCCL takes one card per
+rank; several ranks on one card take gloo, which stages each collective
+through host memory.  Each rank prints a
 ``[dist]`` line: its seconds per step, the share spent in collectives,
-its row blocks and halo bytes per step (domain) or its members
-(ensemble), its kernel launches and its peak memory.
+its row blocks and halo bytes per step (domain), its members (ensemble)
+or its split leaves (channel), its kernel launches and its peak memory.
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
       --config smoke --device cpu --fcn3-sharding domain --mesh-model 2 \
+      --steps 2
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+      --config smoke --device cpu --fcn3-sharding channel --mesh-model 2 \
       --steps 2
 """
 
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 from typing import Iterator
@@ -102,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "ensemble, as --fcn3-sharding says)")
     ap.add_argument("--fcn3-sharding", choices=SHARDINGS, default="domain",
                     help="what the model axis carries: latitude (domain "
-                         "decomposition) or the ensemble members")
+                         "decomposition), the ensemble members or the "
+                         "latent channels")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None, help="process-group backend: nccl by "
                     "default on cuda, gloo on cpu")
@@ -153,19 +164,18 @@ def setup(config: str, stage: str, batch: int = 1,
     its slice of each batch, the trainer is domain-decomposed or
     ensemble-parallel as ``sharding_mode`` says, and the parameters are
     rank 0's (in the domain decomposition only rank 0 calibrates, on the
-    whole field of its first batch)."""
+    whole field of its first batch); in channel mode the trainer keeps
+    each rank's blocks of rank 0's split parameters."""
     import torch.distributed as dist
-    if sharding_mode not in SHARDINGS[:2]:
-        raise NotImplementedError(
-            f"--fcn3-sharding {sharding_mode}: the trainer places no "
-            "sharded parameters yet (ROADMAP A10.3)")
+    if sharding_mode not in SHARDINGS:
+        raise ValueError(f"--fcn3-sharding {sharding_mode}")
     dev = resolve_device(device)
     cfg = CONFIGS[config]()
     st = STAGES[stage]
     domain = mesh is not None and sharding_mode == "domain"
     tcfg = stage_to_tcfg(st, ensemble, rollout,
-                         MEMBER_AXES if mesh is not None and not domain
-                         else None)
+                         MEMBER_AXES if mesh is not None
+                         and sharding_mode == "ensemble" else None)
     report(f"[train] config={config} stage={st.name} "
            f"E={tcfg.ensemble_size} rollout={tcfg.rollout_steps} "
            f"fair={tcfg.fair_crps} lr={tcfg.lr} on {dev}")
@@ -175,11 +185,13 @@ def setup(config: str, stage: str, batch: int = 1,
     if mesh is not None:
         # the batch's placement is the rules': the batch over the data
         # axis, latitude over the model axis in the domain decomposition
-        # and whole when the model axis carries the ensemble
+        # and whole when the model axis carries the ensemble or the
+        # channels
         spec = sharding.fcn3_batch_specs(
             {"state": torch.empty((batch, 1, 1, 1), device="meta")},
-            (MESH_AXES[0],),
-            model_axis=MESH_AXES[1] if domain else None)["state"]
+            (MESH_AXES[0],), model_axis=MESH_AXES[1] if domain else None,
+            mode="channel" if sharding_mode == "channel" else "domain"
+        )["state"]
         data_block, lat_block = (sharding.block_of(spec[0], mesh),
                                  sharding.block_of(spec[-2], mesh))
 
@@ -202,8 +214,10 @@ def setup(config: str, stage: str, batch: int = 1,
         model.init_calibrated(_generator(dev, seed), batch0["state"], cond0,
                               buffers, calibration_rounds)
     del batch0
-    tr = trlib.EnsembleTrainer(model, tcfg,
-                               fcn3cfg.channel_weights(cfg.n_levels), mesh)
+    tr = trlib.EnsembleTrainer(
+        model, tcfg, fcn3cfg.channel_weights(cfg.n_levels), mesh,
+        placement="channel" if mesh is not None
+        and sharding_mode == "channel" else "domain")
     if tr.domain is not None:
         # this rank's slices of the plans only
         buffers = tr.domain.make_buffers()
@@ -213,6 +227,11 @@ def setup(config: str, stage: str, batch: int = 1,
                f"{cfg.latent_nlat}")
     elif buffers is None:
         buffers = model.make_buffers()
+    if tr.channel is not None:
+        whole = sum(int(math.prod(s)) for k, s in tr.channel.shapes.items()
+                    if k in tr.split)
+        report(f"[train] channel parallelism: {len(tr.split)} leaves "
+               f"({whole:,} parameters) split over {tr.par.n_model} ranks")
     buffers.update(tr.make_loss_buffers())
     params = dict(model.named_parameters())
     report(f"[train] {sum(p.numel() for p in params.values()):,} "
@@ -267,6 +286,9 @@ def dist_line(run: TrainRun, history: list[dict]) -> str:
         where = (f"io_rows={tr.domain.io_block} "
                  f"latent_rows={tr.domain.lat_block} halo_bytes="
                  f"{[int(h['halo_bytes']) for h in history]}")
+    elif tr.whole_members:
+        where = (f"members={tr.tcfg.ensemble_size} (whole) "
+                 f"split_leaves={len(tr.split)}")
     else:
         where = f"members={tr.tcfg.ensemble_size // tr.par.n_model}"
     where += " bytes_by_kind=" + str(
@@ -290,18 +312,22 @@ def train(config: str, stage: str, steps: int, batch: int = 1,
           init_from: str | None = None, rank_report=None,
           sharding_mode: str = "domain") -> list[dict]:
     """``setup``, ``run_steps`` and, with ``ckpt_dir``, a checkpoint of
-    the parameters and optimizer state.  With ``mesh``, each rank's
-    ``[dist]`` line goes to ``rank_report`` after the steps."""
+    the parameters and optimizer state, whole (gathered from the ranks'
+    blocks in channel mode; every rank must pass ``ckpt_dir`` then, and
+    rank 0 writes it).  With ``mesh``, each rank's ``[dist]`` line goes
+    to ``rank_report`` after the steps."""
+    import torch.distributed as dist
     run = setup(config, stage, batch, ensemble, rollout, seed, device,
                 calibration_rounds, report, mesh, init_from, sharding_mode)
     history = run_steps(run, steps, report)
     if mesh is not None and rank_report is not None:
         rank_report(dist_line(run, history))
     if ckpt_dir:
-        path = ckptlib.save_checkpoint(
-            ckpt_dir, run.steps_done, dict(run.model.named_parameters()),
-            run.opt_state)
-        report(f"[train] checkpoint written to {path}")
+        params, opt_state = run.trainer.whole_state(run.opt_state)
+        if mesh is None or dist.get_rank() == 0:
+            path = ckptlib.save_checkpoint(ckpt_dir, run.steps_done, params,
+                                           opt_state)
+            report(f"[train] checkpoint written to {path}")
     return history
 
 
@@ -355,8 +381,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     rank = dist.get_rank()
     try:
         return train(args.config, args.stage, args.steps, args.batch,
-                     args.ensemble, args.rollout,
-                     args.ckpt_dir if rank == 0 else None, args.seed,
+                     args.ensemble, args.rollout, args.ckpt_dir, args.seed,
                      args.device, report=print if rank == 0 else _quiet,
                      mesh=mesh, init_from=args.init_from, rank_report=print,
                      sharding_mode=args.fcn3_sharding)

@@ -14,11 +14,22 @@ expert's capacity is dropped.  Two dispatches compute the same layer:
   ``cap_l``), runs the experts on them and combines locally; the aux
   losses are means over every rank's tokens (a sum over the group).
 
-The experts stay whole on every rank: the port's LM has no tensor
-parallelism, so the JAX package's expert placement over the model axis,
-and the expert all-to-all it implies, have no counterpart here.  The
-expert products are plain einsums (the JAX package computes them outside
-any Pallas kernel); no kernel of the port is launched by this layer.
+The expert placement (the JAX package's ``lm_param_specs``: the stacks'
+experts over the model axis) is shared by both dispatches in
+``_experts``: with the stacks placed (``LM.place_experts``), a rank
+holds E/n experts of every stack and runs only their capacity buffers,
+and the outputs are gathered over the model-axis group (``expert_group``)
+into the whole (E, C, D) before the combine.  The collective follows
+from where the tokens are: the reference replicates them over the model
+axis (the batch is split over the data axes only), so every rank of the
+group dispatches the same tokens into the same buffers, and what it
+lacks is the other experts' outputs -- an all-gather over the group,
+whose gradient is the rank's slice; the buffers' gradient is the
+all-gather of every rank's experts' (``distributed.channel.shard``).  An
+all-to-all would be the collective for tokens split over the same ranks
+as the experts.  The expert products are plain einsums (the JAX package
+computes them outside any Pallas kernel); no kernel of the port is
+launched by this layer.
 
 Supports shared (always-on) SwiGLU experts (deepseek-v2: 2 shared + 160
 routed top-6; llama4-maverick: 1 shared + 128 routed top-1) and the
@@ -184,11 +195,26 @@ def _route(params: Params, cfg: MoEConfig, xt: torch.Tensor):
     return probs, gate_vals, gate_idx
 
 
-def _experts(params: Params, xin: torch.Tensor) -> torch.Tensor:
-    """The SwiGLU experts on their buffers: (E, C, D) -> (E, C, D)."""
+def _experts(params: Params, xin: torch.Tensor, group=None
+             ) -> torch.Tensor:
+    """The SwiGLU experts on their buffers: (E, C, D) -> (E, C, D).  With
+    the stacks placed over ``group`` (``params`` holding E/n experts, this
+    rank's block in the group's rank order), the rank's experts run on
+    their buffers and the outputs are gathered over the group."""
+    placed = params["w_gate"].shape[0] < xin.shape[0]
+    if placed:
+        if group is None:
+            raise ValueError(f"{params['w_gate'].shape[0]} of "
+                             f"{xin.shape[0]} experts on this rank and no "
+                             "expert group to gather the rest over")
+        from repro_torch.distributed import channel
+        xin = channel.shard(xin, group, 0)
     h = (F.silu(torch.einsum("ecd,edf->ecf", xin, params["w_gate"]))
          * torch.einsum("ecd,edf->ecf", xin, params["w_up"]))
-    return torch.einsum("ecf,efd->ecd", h, params["w_down"])
+    out = torch.einsum("ecf,efd->ecd", h, params["w_down"])
+    if placed:
+        out = channel.gather(out, group, 0)
+    return out
 
 
 def _aux(probs: torch.Tensor, gate_idx: torch.Tensor, cfg: MoEConfig,
@@ -202,8 +228,11 @@ def _aux(probs: torch.Tensor, gate_idx: torch.Tensor, cfg: MoEConfig,
                       -(probs * torch.log(probs + 1e-9)).sum()[None]])
     n = probs.shape[0]
     if group is not None:
-        from repro_torch.distributed import compat
-        sums = compat.psum(sums, group)
+        from repro_torch.distributed import channel, compat
+        # every rank's loss holds these aux and the step averages the
+        # gradients over the group, so a rank's sums take the gradient of
+        # every rank (JAX's psum transposes to a psum)
+        sums = channel.copy(compat.psum(sums, group), group)
         n *= compat.axis_size(group)
     sums = sums / n
     frac_tokens, frac_probs, ent = sums[:e], sums[e:2 * e], sums[2 * e]
@@ -237,17 +266,18 @@ def scatter_group(cfg: MoEConfig, group, batch: int, seq_len: int):
     return None
 
 
-def apply_moe(params: Params, cfg: MoEConfig, x: torch.Tensor, group=None
-              ) -> tuple[torch.Tensor, dict]:
+def apply_moe(params: Params, cfg: MoEConfig, x: torch.Tensor, group=None,
+              expert_group=None) -> tuple[torch.Tensor, dict]:
     """x (B, S, D) -> (B, S, D) and the aux {"lb_loss", "router_entropy"}.
 
     ``group``: the data ranks of which ``x`` is this rank's slice of the
     batch (``scatter_group``); with ``dispatch="scatter"`` the layer runs
     ``apply_moe_scatter`` over them.  Otherwise the dense dispatch over
-    ``x``'s own tokens.
+    ``x``'s own tokens.  ``expert_group``: the ranks the experts are
+    placed over, when ``params`` holds this rank's block of them.
     """
     if cfg.dispatch == "scatter" and group is not None:
-        return apply_moe_scatter(params, cfg, x, group)
+        return apply_moe_scatter(params, cfg, x, group, expert_group)
     b, s, d = x.shape
     n_tok = b * s
     xt = x.reshape(n_tok, d)
@@ -276,7 +306,7 @@ def apply_moe(params: Params, cfg: MoEConfig, x: torch.Tensor, group=None
 
     xin = torch.einsum("tec,td->ecd", dispatch, xt)          # (E, C, D)
     del dispatch
-    xout = _experts(params, xin)
+    xout = _experts(params, xin, expert_group)
     y = torch.einsum("tec,ecd->td", combine, xout).to(x.dtype)
     if "shared" in params:
         y = y + cm.swiglu(params["shared"], xt)
@@ -322,12 +352,13 @@ def _local_combine(h: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor,
 
 
 def apply_moe_scatter(params: Params, cfg: MoEConfig, x: torch.Tensor,
-                      group) -> tuple[torch.Tensor, dict]:
+                      group, expert_group=None
+                      ) -> tuple[torch.Tensor, dict]:
     """The scatter dispatch over the data ranks of ``group``: ``x`` (B, S,
     D) is this rank's slice of the batch; each rank dispatches its own
-    tokens into its own capacity buffers, runs the (whole) experts on
-    them and combines locally.  The aux are means over every rank's
-    tokens."""
+    tokens into its own capacity buffers, runs the experts on them (its
+    block of them, gathered over ``expert_group``, where they are placed)
+    and combines locally.  The aux are means over every rank's tokens."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     e, k = cfg.n_experts, cfg.top_k
@@ -338,7 +369,7 @@ def apply_moe_scatter(params: Params, cfg: MoEConfig, x: torch.Tensor,
         from repro_torch.distributed import compat
         _notify(Routing(gate_idx, pos.reshape(-1, k), keep.reshape(-1, k),
                         cap, e, slot=slot, ranks=compat.axis_size(group)))
-    hout = _experts(params, buf)
+    hout = _experts(params, buf, expert_group)
     del buf
     weight = gate_vals.reshape(-1) * keep
     y = _local_combine(hout.to(x.dtype), flat_e, slot, weight.to(x.dtype), k)

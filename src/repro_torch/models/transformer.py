@@ -44,7 +44,10 @@
 
 Both take ``moe_group``: the data ranks of which the call's batch is
 this rank's slice (``moe.scatter_group``); MoE layers of
-``dispatch="scatter"`` dispatch over them.
+``dispatch="scatter"`` dispatch over them.  And ``expert_group``: the
+model-axis ranks over which ``place_experts`` put the MoE layers'
+experts (each rank holding its E/n of every stack); both dispatches run
+the rank's experts and gather their outputs over it (``moe._experts``).
 
 Parameters carry the JAX tree's names with the stacked layer axes split:
 ``layers/mixer/in_proj`` (24, 768, 3352) becomes
@@ -200,11 +203,12 @@ def init_decoder_layer(layer: DecoderLayer, cfg: ArchConfig,
 
 
 def _apply_ffn(layer: DecoderLayer, cfg: ArchConfig, x: torch.Tensor,
-               moe_group=None) -> tuple[torch.Tensor, dict]:
+               moe_group=None, expert_group=None
+               ) -> tuple[torch.Tensor, dict]:
     """The layer's FFN and its aux (zeros without experts)."""
     p = layer.ffn.params()
     if isinstance(layer.ffn, moelib.MoE):
-        return moelib.apply_moe(p, cfg.moe, x, moe_group)
+        return moelib.apply_moe(p, cfg.moe, x, moe_group, expert_group)
     y = cm.gelu_mlp(p, x) if cfg.mlp_kind == "gelu" else cm.swiglu(p, x)
     return y, moelib.zero_aux(x.device)
 
@@ -213,7 +217,7 @@ def apply_decoder_layer_train(layer: DecoderLayer, cfg: ArchConfig,
                               x: torch.Tensor,
                               enc: torch.Tensor | None = None,
                               acfg: attn.AttnConfig | None = None,
-                              moe_group=None
+                              moe_group=None, expert_group=None
                               ) -> tuple[torch.Tensor, dict]:
     """x (B, S, D) -> (B, S, D) over the whole sequence, and the FFN's
     aux; ``enc`` (B, S_enc, D) feeds the cross block where the layer has
@@ -231,14 +235,14 @@ def apply_decoder_layer_train(layer: DecoderLayer, cfg: ArchConfig,
                                      cfg.attn_config(False), h,
                                      kv_states=enc)
     h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
-    y, aux = _apply_ffn(layer, cfg, h, moe_group)
+    y, aux = _apply_ffn(layer, cfg, h, moe_group, expert_group)
     return x + y, aux
 
 
 def apply_decoder_layer_decode(layer: DecoderLayer, cfg: ArchConfig,
                                x: torch.Tensor, cache: dict, pos,
                                enc: torch.Tensor | None = None,
-                               moe_group=None
+                               moe_group=None, expert_group=None
                                ) -> tuple[torch.Tensor, dict]:
     """One token: x (B, 1, D) -> (B, 1, D); ``cache`` ({"self": ...}) is
     updated in place and returned."""
@@ -258,7 +262,7 @@ def apply_decoder_layer_decode(layer: DecoderLayer, cfg: ArchConfig,
                                      kv_states=enc)
         x = x + o
     h = cm.rmsnorm(layer.ln_ffn, x, cfg.norm_eps)
-    y, _ = _apply_ffn(layer, cfg, h, moe_group)
+    y, _ = _apply_ffn(layer, cfg, h, moe_group, expert_group)
     return x + y, cache
 
 
@@ -369,6 +373,8 @@ class LM(nn.Module):
         self.cfg = cfg
         self.kernels = kernels or KernelConfig()
         self.remat = remat
+        #: the parameters held as this rank's block (``place_experts``)
+        self.placed: set[str] = set()
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Parameter(torch.zeros((v, d), device=dev),
                                   requires_grad=False)
@@ -471,7 +477,8 @@ class LM(nn.Module):
     def apply_train(self, tokens: torch.Tensor,
                     patches: torch.Tensor | None = None,
                     enc_frames: torch.Tensor | None = None,
-                    moe_group=None) -> tuple[torch.Tensor, dict]:
+                    moe_group=None, expert_group=None
+                    ) -> tuple[torch.Tensor, dict]:
         """Full-sequence logits and aux, as the JAX package's
         ``apply_train``: tokens (B, S) int -> (B, S', V_pad) fp32, and
         {"lb_loss", "router_entropy"}, the mean over the MoE layers (zeros
@@ -480,7 +487,7 @@ class LM(nn.Module):
         ``vlm``: ``patches`` (B, P, D) are prepended (S' = P + S).
         ``audio``: ``enc_frames`` (B, S_enc, D) go through the encoder
         first, and every decoder layer cross-attends to its output.
-        ``moe_group``: see the module docstring.
+        ``moe_group``, ``expert_group``: see the module docstring.
         """
         cfg = self.cfg
         x = cm.embed(self.embed, tokens)
@@ -496,8 +503,9 @@ class LM(nn.Module):
 
         def dec(layer, enc=None, moe=False):
             def f(x):
-                y, aux = apply_decoder_layer_train(layer, cfg, x, enc=enc,
-                                                   moe_group=moe_group)
+                y, aux = apply_decoder_layer_train(
+                    layer, cfg, x, enc=enc, moe_group=moe_group,
+                    expert_group=expert_group)
                 return y, aux if moe else None
             return f
 
@@ -544,15 +552,15 @@ class LM(nn.Module):
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
              patches: torch.Tensor | None = None,
-             enc_frames: torch.Tensor | None = None, moe_group=None
-             ) -> tuple[torch.Tensor, dict]:
+             enc_frames: torch.Tensor | None = None, moe_group=None,
+             expert_group=None) -> tuple[torch.Tensor, dict]:
         """The JAX package's ``LM.loss``: next-token cross-entropy on the
         text logits (the last S of them: a VLM's patches come first),
         logits at t against labels at t + 1, plus 0.01 x the MoE layers'
         load-balance loss.  Returns (loss, {"ce", "lb_loss",
         "router_entropy"})."""
         logits, aux = self.apply_train(tokens, patches, enc_frames,
-                                       moe_group)
+                                       moe_group, expert_group)
         s = tokens.shape[1]
         ce = cm.cross_entropy_loss(logits[:, -s:][:, :-1], labels[:, 1:])
         return ce + 0.01 * aux["lb_loss"], {"ce": ce, **aux}
@@ -561,9 +569,10 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 patches: torch.Tensor | None = None,
                 enc_frames: torch.Tensor | None = None,
-                moe_group=None) -> torch.Tensor:
+                moe_group=None, expert_group=None) -> torch.Tensor:
         """``apply_train``'s logits alone."""
-        return self.apply_train(tokens, patches, enc_frames, moe_group)[0]
+        return self.apply_train(tokens, patches, enc_frames, moe_group,
+                                expert_group)[0]
 
     def init_cache(self, batch: int, max_len: int = 0) -> dict:
         """Empty caches, stacked over layers as in the JAX package:
@@ -595,15 +604,15 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, pos=None,
-                    enc_states: torch.Tensor | None = None, moe_group=None
-                    ) -> tuple[torch.Tensor, dict]:
+                    enc_states: torch.Tensor | None = None, moe_group=None,
+                    expert_group=None) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> logits (B, 1, V_pad) and ``cache``, updated in
         place.  ``pos`` is the absolute position of the token (an int or
         a 0-d tensor; the recurrent state does not need it).  ``audio``:
         ``enc_states`` (B, S_enc, D) are the encoder's output
         (``encode_audio``), whose keys and values every step computes
         again, as the JAX package does; ``vlm`` takes no patches here.
-        ``moe_group``: see the module docstring."""
+        ``moe_group``, ``expert_group``: see the module docstring."""
         cfg = self.cfg
         fam = cfg.family
         if pos is None and fam != "ssm":
@@ -626,9 +635,9 @@ class LM(nn.Module):
             enc = enc_states if fam == "audio" else None
 
             def step(layer, x, layer_cache):
-                return apply_decoder_layer_decode(layer, cfg, x, layer_cache,
-                                                  pos, enc=enc,
-                                                  moe_group=moe_group)[0]
+                return apply_decoder_layer_decode(
+                    layer, cfg, x, layer_cache, pos, enc=enc,
+                    moe_group=moe_group, expert_group=expert_group)[0]
             for i, layer in enumerate(getattr(self, "dense_layers", ())):
                 x = step(layer, x, _stack_views(cache["dense_layers"], i))
             for i, layer in enumerate(self.layers):
@@ -639,6 +648,21 @@ class LM(nn.Module):
                 x = step(layer, x, _stack_views(cache["layers"], i))
         x = cm.rmsnorm(self.ln_out, x, cfg.norm_eps)
         return cm.linear(self.lm_head, x), cache
+
+    def place_experts(self, mesh, axis: str = "model") -> list[str]:
+        """Put the MoE stacks' experts over the mesh axis ``axis``, as the
+        JAX package's ``lm_param_specs`` places them
+        (``sharding.lm_expert_specs``, sanitized): each stack is replaced
+        by this rank's block of E/n experts; returns the names placed
+        (also kept in ``placed``).  Calls then pass the axis's group as
+        ``expert_group``."""
+        from repro_torch.distributed import sharding
+        params = dict(self.named_parameters())
+        specs = sharding.sanitize_specs(
+            mesh, sharding.lm_expert_specs(self.cfg, params,
+                                           model_axis=axis), params)
+        self.placed = set(sharding.place_parameters(self, specs, mesh))
+        return sorted(self.placed)
 
     def param_count(self) -> int:
         """Number of parameters (padded vocab included)."""

@@ -25,10 +25,14 @@ def global_norm(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors.values()))
 
 
-def clip_by_global_norm(tensors: dict[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(tensors: dict[str, torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None
                         ) -> dict[str, torch.Tensor]:
-    """Scale every tensor by min(1, max_norm / max(norm, 1e-9))."""
-    norm = global_norm(tensors)
+    """Scale every tensor by min(1, max_norm / max(norm, 1e-9)); ``norm``
+    is their global norm (computed here when None: a caller whose tensors
+    are blocks of a parameter set spread over ranks passes the set's)."""
+    if norm is None:
+        norm = global_norm(tensors)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: t * scale.to(t.dtype) for k, t in tensors.items()}
 
@@ -61,11 +65,13 @@ class Adam:
 
     @torch.no_grad()
     def update(self, params: dict[str, torch.Tensor],
-               grads: dict[str, torch.Tensor], state: dict) -> dict:
+               grads: dict[str, torch.Tensor], state: dict,
+               norm: torch.Tensor | None = None) -> dict:
         """One step: writes the new values into ``params``, returns the
-        new state."""
+        new state.  ``norm``: the gradients' global norm for the clipping
+        (see ``clip_by_global_norm``)."""
         if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm)
         step = state["step"] + 1
         b1, b2 = self.b1, self.b2
         mu = {k: b1 * m + (1 - b1) * grads[k].float()

@@ -29,7 +29,10 @@ Scores travel as plain JSON numbers: float32 -> float64 is exact,
 float32 cast on the way back is exact again -- so served scores are
 **bit-identical** to the engine's arrays.  Bulk fp32 tensors (the final
 ensemble state) use base64-encoded raw bytes instead: equally exact,
-~3x denser than decimal text.
+~3x denser than decimal text.  Base64 text needs no JSON escaping, so
+``dump_event`` splices it into the line and ``read_events`` cuts it out
+before parsing (a 2-member ``fcn3_full`` state is 0.8 GB of it): the
+bytes on the wire are ``json.dumps``'s own.
 
 Raw member fields other than an explicitly requested final state never
 enter the transport -- the paper's in-situ scoring design extends to the
@@ -99,9 +102,72 @@ def decode_array(d: dict) -> np.ndarray:
                          ).reshape(d["shape"]).copy()
 
 
+#: an encoded array's base64 text in a line: this key, then the text up
+#: to the next quote (JSON escapes every quote inside a string)
+_B64 = b'"b64":"'
+
+
+def _without_b64(tree, texts: list):
+    """``tree`` with every base64 text (a string under a "b64" key)
+    replaced by "", the texts appended to ``texts`` in the order
+    ``json`` writes them."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "b64" and isinstance(v, str):
+                texts.append(v)
+                out[k] = ""
+            else:
+                out[k] = _without_b64(v, texts)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_without_b64(v, texts) for v in tree]
+    return tree
+
+
+def _put_b64(tree, texts: Iterator[str]) -> None:
+    """Put ``texts`` back where ``_loads`` cut them out of ``tree``: the
+    "b64" strings, in the order ``json`` wrote them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "b64" and isinstance(v, str):
+                tree[k] = next(texts)
+            else:
+                _put_b64(v, texts)
+    elif isinstance(tree, list):
+        for v in tree:
+            _put_b64(v, texts)
+
+
 def dump_event(ev: dict) -> bytes:
-    """One NDJSON line (compact separators, trailing newline)."""
-    return json.dumps(ev, separators=(",", ":")).encode("utf-8") + b"\n"
+    """One NDJSON line (compact separators, trailing newline): the bytes
+    of ``json.dumps``, an encoded array's base64 text spliced in."""
+    texts: list[str] = []
+    head = json.dumps(_without_b64(ev, texts),
+                      separators=(",", ":")).encode("utf-8")
+    parts = head.split(_B64 + b'"')
+    out = [parts[0]]
+    for text, part in zip(texts, parts[1:]):
+        out += [_B64, text.encode("ascii"), b'"', part]
+    return b"".join(out) + b"\n"
+
+
+def _loads(line: bytes) -> dict:
+    """``json.loads`` of one line, its base64 texts cut out before the
+    parse and put back after it."""
+    texts, pieces, pos = [], [], 0
+    while (i := line.find(_B64, pos)) >= 0:
+        i += len(_B64)
+        j = line.index(b'"', i)
+        pieces.append(line[pos:i])
+        texts.append(line[i:j].decode("ascii"))
+        pos = j
+    if not texts:
+        return json.loads(line)
+    pieces.append(line[pos:])
+    ev = json.loads(b"".join(pieces))
+    _put_b64(ev, iter(texts))
+    return ev
 
 
 def read_events(fp) -> Iterator[dict]:
@@ -117,11 +183,12 @@ def read_events(fp) -> Iterator[dict]:
         line = line.strip()
         if line:
             try:
-                yield json.loads(line)
-            except json.JSONDecodeError as e:
+                ev = _loads(line)
+            except (ValueError, StopIteration) as e:
                 raise StreamInterrupted(
                     f"corrupt NDJSON line (connection died mid-write?): "
                     f"{e}") from e
+            yield ev
 
 
 def chunk_event(request_id: str, index: int, block) -> dict:

@@ -47,6 +47,21 @@ are summed over the latitude group and averaged over the data group.
 rank's rows: the nodal CRPS through ``dist_crps``, the ensemble-mean
 RMSE's squared errors summed over the latitude group before the square
 root.
+
+Channel parallelism (the JAX ``mode="channel"``): with a ``DeviceMesh``
+and ``placement="channel"``, the model axis carries the latent channels
+(``distributed.channel``): the parameters that the sanitized
+``fcn3_param_specs(mode="channel")`` splits are replaced by this rank's
+blocks, every rank rolls out all E members on its slice of the data
+group's batch and scores them as one process does, and every gradient
+(a split leaf's block, or a replicated leaf's whole gradient, equal on
+every model rank) is averaged over the data group only; Adam runs on the
+local blocks, and the clipping's global norm sums the split leaves'
+squares over the model group.  The same holds, with nothing split, for
+ensemble parallelism whose ensemble the model axis does not divide: the
+member axis is replicated over the model ranks (as the reference's
+``sanitize_specs`` drops the entry), so every model rank runs every
+member.
 """
 
 from __future__ import annotations
@@ -60,7 +75,7 @@ from repro_torch.core import crps as crpslib
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import noise as noiselib
 from repro_torch.core.sphere import sht as shtlib
-from repro_torch.distributed import compat, domain, sharding
+from repro_torch.distributed import channel, compat, domain, sharding
 from repro_torch.inference.engine import NoiseSource
 from repro_torch.optim import adam as adamlib
 
@@ -156,11 +171,14 @@ class EnsembleTrainer:
     trainable.  With ``tcfg.member_axes``, ``mesh`` is the
     ``DeviceMesh`` those axes name (ensemble parallelism); with a
     ``mesh`` alone, the domain decomposition over its ``DOMAIN_AXES``
-    (``self.domain``; construction is then collective).  On a mesh the
-    parameters are broadcast from rank 0 here."""
+    (``self.domain``), or with ``placement="channel"`` the latent
+    channels over its model axis (``self.channel``); construction is then
+    collective.  On a mesh rank 0's parameters are broadcast here, and in
+    channel mode each rank keeps its blocks of the split ones."""
 
     def __init__(self, model: FCN3, tcfg: TrainConfig,
-                 channel_weights: np.ndarray, mesh=None):
+                 channel_weights: np.ndarray, mesh=None,
+                 placement: str = "domain"):
         self.model = model.requires_grad_(True)
         self.tcfg = tcfg
         self.optimizer = make_optimizer(tcfg)
@@ -169,24 +187,62 @@ class EnsembleTrainer:
             np.asarray(channel_weights, np.float32)).to(dev)
         self.area_weights = torch.from_numpy(
             model.grid_in.area_weights_2d().astype(np.float32)).to(dev)
-        self.par = self.domain = None
+        self.par = self.domain = self.channel = None
+        self.mesh = mesh
+        # every model rank runs every member (channel mode, or an
+        # ensemble the model axis does not divide)
+        self.whole_members = False
+        self.fwd = model
+        if placement == "channel" and (mesh is None
+                                       or tcfg.member_axes is not None):
+            raise ValueError("channel placement needs a mesh and no "
+                             "member_axes: the members stay whole")
         if tcfg.member_axes is not None or mesh is not None:
             self.par = MeshGroups.of(tcfg.member_axes or domain_axes(mesh),
                                      mesh)
-            if tcfg.member_axes is None:
-                self.domain = domain.DomainFCN3(model, self.par.model_group)
-            elif tcfg.ensemble_size % self.par.n_model:
-                raise ValueError(f"ensemble of {tcfg.ensemble_size} does "
-                                 f"not split over {self.par.n_model} ranks")
-            # the parameters' placement is the rules' (fcn3_param_specs,
-            # mode="domain"): replicated, so rank 0's are broadcast
+            # rank 0's parameters, broadcast whole: the placement
+            # (fcn3_param_specs) replicates every leaf but the channel
+            # mode's split ones, of which each rank then keeps its block
             params = dict(model.named_parameters())
-            placed = [k for k, s in sharding.fcn3_param_specs(params).items()
-                      if any(s)]
-            if placed:
-                raise NotImplementedError(f"sharded parameters {placed} are "
-                                          "not placed by the trainer")
             compat.broadcast_([p.detach() for p in params.values()], 0)
+            if placement == "channel":
+                self.channel = channel.ChannelFCN3(
+                    model, mesh, channel.channel_specs(model, mesh))
+                self.fwd, self.whole_members = self.channel, True
+            elif tcfg.member_axes is None:
+                self.domain = domain.DomainFCN3(model, self.par.model_group)
+                self.fwd = self.domain
+            elif tcfg.ensemble_size % self.par.n_model:
+                self.whole_members = True
+
+    @property
+    def split(self) -> set[str]:
+        """The names of the parameters held as this rank's blocks."""
+        return self.channel.split if self.channel is not None else set()
+
+    def whole_state(self, opt_state: dict | None = None
+                    ) -> tuple[dict, dict | None]:
+        """The parameters and ``opt_state`` with every split leaf (its
+        Adam moments too) gathered whole from the model ranks' blocks:
+        what one process would hold, for a checkpoint.  Collective in
+        channel mode; the model's own tensors otherwise."""
+        params = {k: p.detach() for k, p in self.model.named_parameters()}
+        if not self.split:
+            return params, opt_state
+        specs = self.channel.specs
+        params = sharding.gather_blocks(params, specs, self.mesh)
+        if opt_state is not None:
+            opt_state = dict(opt_state, **{
+                k: sharding.gather_blocks(opt_state[k], specs, self.mesh)
+                for k in ("mu", "nu")})
+        return params, opt_state
+
+    def grad_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole parameter set's gradients (a split
+        leaf's blocks summed over the model group)."""
+        if not self.split:
+            return adamlib.global_norm(grads)
+        return channel.split_norm(grads, self.split, self.par.model_group)
 
     def make_loss_buffers(self) -> dict:
         """The loss's forward-SHT table at IO resolution (1.5 GB at
@@ -224,7 +280,7 @@ class EnsembleTrainer:
         p = self.par
         b = z.shape[1] // p.n_data
         z = z[:, p.data_rank * b:(p.data_rank + 1) * b]
-        if self.domain is not None:
+        if self.domain is not None or self.whole_members:
             return z
         e = self.tcfg.ensemble_size // p.n_model
         return z[p.model_rank * e:(p.model_rank + 1) * e]
@@ -310,7 +366,9 @@ class EnsembleTrainer:
         state = batch["state"]
         b_all = state.shape[0] * (p.n_data if p else 1)
         z_hat = noise.initial(m, (e, b_all), nbufs)
-        e_loc = e // p.n_model if p and not d else e
+        # this rank's members: its block of them in ensemble parallelism
+        spread = p is not None and d is None and not self.whole_members
+        e_loc = e // p.n_model if spread else e
         s = state.expand((e_loc,) + tuple(state.shape))
         total = torch.zeros((), dtype=torch.float32, device=state.device)
         aux_out: dict[str, torch.Tensor] = {}
@@ -320,13 +378,13 @@ class EnsembleTrainer:
             z = m.noise.to_grid(self._members(z_hat) if p else z_hat,
                                 nbufs)
             if t.noise_centering:
-                z = (self._centered(z) if p and not d
+                z = (self._centered(z) if spread
                      else noiselib.center_noise(z, 0))
             aux_n = batch["aux"][:, n]                  # (B,A,H,W)
             cond = torch.cat([aux_n.expand((e_loc,) + tuple(aux_n.shape)),
                               z], dim=2)
-            s = (m if d is None else d)(buffers, s, cond)
-            if p:
+            s = self.fwd(buffers, s, cond)
+            if p and not self.whole_members:
                 loss_n, aux = self._mesh_objective(
                     s, batch["targets"][:, n], buffers)
             else:
@@ -352,10 +410,17 @@ class EnsembleTrainer:
         loss = loss.detach()
         p = self.par
         if p is not None:
-            # sum over the model group (the ensemble or latitude), mean
-            # over the data group: one all-reduce over the world, which
-            # the two groups cover
-            compat.all_reduce_(list(grads), None)
+            if self.whole_members:
+                # every model rank holds the whole gradient of a
+                # replicated leaf and its block's of a split one: the
+                # mean over the data group
+                if p.data_group is not None:
+                    compat.all_reduce_(list(grads), p.data_group)
+            else:
+                # sum over the model group (the ensemble or latitude),
+                # mean over the data group: one all-reduce over the
+                # world, which the two groups cover
+                compat.all_reduce_(list(grads), None)
             grads = [g / p.n_data for g in grads]
             if p.data_group is not None:
                 diag = torch.stack([loss, *aux.values()])
@@ -371,9 +436,10 @@ class EnsembleTrainer:
         terms, ``loss`` and ``grad_norm`` (before clipping).
         """
         loss, aux, grads = self.loss_and_grads(buffers, batch, noise)
-        gnorm = adamlib.global_norm(grads)
+        gnorm = self.grad_norm(grads)
         opt_state = self.optimizer.update(
-            dict(self.model.named_parameters()), grads, opt_state)
+            dict(self.model.named_parameters()), grads, opt_state,
+            norm=gnorm)
         return opt_state, dict(aux, loss=loss, grad_norm=gnorm)
 
     @torch.no_grad()
@@ -392,9 +458,9 @@ class EnsembleTrainer:
         before its square root), then averaged over the data group: the
         values of the data group's batch."""
         m, d, p = self.model, self.domain, self.par
-        fwd, area = m, self.area_weights
+        fwd, area = self.fwd, self.area_weights
         if d is not None:
-            fwd, area = d, area[slice(*d.io_block)]
+            area = area[slice(*d.io_block)]
         nbufs = buffers["noise"]
         state = batch["state"]                      # (B, C, H_loc, W)
         b, c = state.shape[:2]

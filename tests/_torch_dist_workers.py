@@ -381,3 +381,124 @@ def moe_scatter_rank(rank: int, world_size: int, setup: dict) -> dict:
         out[cf]["small"] = {"scatter": g is not None, "y": _np(y),
                             "dense": seen[0].dispatch is not None}
     return out
+
+
+def channel_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """One ``fcn3_smoke`` loss, gradient and Adam step on a (data, model)
+    mesh of ``setup["mesh"]`` with the trainer's ``placement`` (channel,
+    or ensemble parallelism whose ensemble may not split), from the given
+    parameters (rank 0's: the others start from halved ones), global
+    batch and noise draws; the gradients and the updated parameters
+    gathered whole, this rank's blocks, and with ``ckpt`` a checkpoint
+    written whole by rank 0."""
+    from repro_torch.configs import fcn3 as tcfgs
+    from repro_torch.core.fcn3 import FCN3
+    from repro_torch.distributed import compat, sharding
+    from repro_torch.inference import params as tparams
+    from repro_torch.inference.engine import InjectedNoise
+    from repro_torch.launch.mesh import make_toy_mesh
+    from repro_torch.train import checkpoint as tckpt
+    from repro_torch.train import trainer as ttr
+    mesh = make_toy_mesh(*setup["mesh"])
+    model = FCN3(tcfgs.fcn3_smoke(), device="cpu")
+    tparams.load_into(model, setup["params"])
+    if rank:
+        for p in model.parameters():
+            p.detach().mul_(0.5)
+    tr = ttr.EnsembleTrainer(model, ttr.TrainConfig(**setup["tcfg"]),
+                             setup["cw"], mesh=mesh,
+                             placement=setup["placement"])
+    bufs = dict(model.make_buffers(), **tr.make_loss_buffers())
+    n_data, d = setup["mesh"][0], mesh.get_local_rank("data")
+    b = setup["batch"]["state"].shape[0] // n_data
+    batch = {k: torch.from_numpy(v[d * b:(d + 1) * b]) for k, v in
+             setup["batch"].items()}
+
+    def noise():
+        return InjectedNoise(setup["z_hat0"], setup["etas"])
+
+    compat.start_timing()
+    loss, aux, grads = tr.loss_and_grads(bufs, batch, noise())
+    kinds = compat.timed_kinds()
+    norm = float(tr.grad_norm(grads))
+    blocks = {k: _np(g) for k, g in grads.items() if k in tr.split}
+    specs = tr.channel.specs if tr.channel is not None else {}
+    whole = sharding.gather_blocks(grads, specs, mesh)
+    state = tr.optimizer.init(dict(model.named_parameters()))
+    state, diag = tr.train_step(bufs, state, batch, noise())
+    params, opt = tr.whole_state(state)
+    out = {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+           "grads": {k: _np(v) for k, v in whole.items()},
+           "blocks": blocks, "norm": norm,
+           "step_norm": float(diag["grad_norm"]), "kinds": kinds,
+           "params": {k: _np(p) for k, p in params.items()},
+           "local_params": {k: _np(p) for k, p in model.named_parameters()
+                            if k in tr.split},
+           "split": sorted(tr.split), "whole_members": tr.whole_members,
+           "jax_loaded": "jax" in sys.modules}
+    if setup.get("ckpt") and rank == 0:
+        out["ckpt"] = tckpt.save_checkpoint(setup["ckpt"], 1, params, opt)
+    return out
+
+
+def moe_placement_rank(rank: int, world_size: int, setup: dict) -> dict:
+    """A smoke MoE LM's logits, aux, loss and gradients on a (data 2,
+    model 2) mesh, this rank's slice of the batch: with whole experts,
+    then with the experts placed over the model axis
+    (``LM.place_experts``; the placed stacks' gradients gathered whole),
+    in ``setup["dispatch"]``; the placed run's collective bytes and kept
+    pairs."""
+    import dataclasses
+    from repro_torch.configs import archs
+    from repro_torch.distributed import compat, sharding
+    from repro_torch.launch.mesh import make_toy_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import lm_params_from_numpy
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import lm as lmtrain
+    mesh = make_toy_mesh(2, 2)
+    data, experts = mesh.get_group("data"), mesh.get_group("model")
+    cfg = archs.smoke_config(setup["arch"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch=setup["dispatch"], dp_axes=("data",)))
+    tokens = setup["tokens"]
+    b = tokens.shape[0] // 2
+    d = mesh.get_local_rank("data")
+    batch = {"tokens": torch.from_numpy(tokens[d * b:(d + 1) * b]).long(),
+             "labels": torch.from_numpy(tokens[d * b:(d + 1) * b]).long()}
+    group = moe.scatter_group(cfg.moe, data, *tokens.shape)
+    out = {"jax_loaded": "jax" in sys.modules, "scatter": group is not None}
+    for name in ("whole", "placed"):
+        model = LM(cfg, device="cpu")
+        model.load_state_dict(lm_params_from_numpy(setup["params"], cfg))
+        eg = None
+        if name == "placed":
+            out["placed_names"] = model.place_experts(mesh)
+            eg = experts
+        kept = []
+        compat.start_timing()
+        with torch.no_grad(), moe.observe(
+                lambda r: kept.append(int(r.keep.sum()))):
+            logits, aux = model.apply_train(batch["tokens"],
+                                            moe_group=group,
+                                            expert_group=eg)
+        kinds = compat.timed_kinds()
+        loss, laux, grads = lmtrain.loss_and_grads(model, batch, data, group,
+                                                   eg)
+        norm = lmtrain.grad_norm(model, grads, eg)
+        if name == "placed":
+            specs = sharding.sanitize_specs(
+                mesh, sharding.lm_expert_specs(
+                    cfg, {k: torch.empty(s, device="meta") for k, s in
+                          out["whole"]["shapes"].items()}),
+                {k: torch.empty(s, device="meta") for k, s in
+                 out["whole"]["shapes"].items()})
+            grads = sharding.gather_blocks(grads, specs, mesh)
+        out[name] = {"logits": _np(logits),
+                     "aux": {k: float(v) for k, v in aux.items()},
+                     "loss": float(loss), "norm": float(norm),
+                     "grads": {k: _np(g) for k, g in grads.items()},
+                     "shapes": {k: tuple(p.shape)
+                                for k, p in model.named_parameters()},
+                     "kinds": kinds, "kept": kept}
+    return out

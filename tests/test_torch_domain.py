@@ -23,7 +23,7 @@ ranks 8 / 8 / 8 / 9 (the JAX loader's ``(h * i) // n``).
   against the JAX ``make_eval_step`` (rtol 1e-4, the bar of
   ``tests/test_torch_train.py``), also on a 2 x 2 data x model mesh;
 * the launcher's ``--fcn3-sharding domain`` on 2 ranks, and ``channel``
-  refused.
+  (once refused) on 2 ranks, its checkpoint written whole.
 """
 
 import jax
@@ -46,7 +46,7 @@ from repro_torch.distributed import domain
 from repro_torch.distributed.compat import row_block
 from repro_torch.distributed.world import run_world
 from repro_torch.kernels import dispatch
-from repro_torch.launch import train as tlaunch
+from repro_torch.train import checkpoint as tckpt
 
 TIMEOUT = 120.0
 EVAL_MEMBERS = 3
@@ -393,7 +393,19 @@ def test_launcher_trains_on_latitude_blocks_in_a_world_of_two():
         assert a["halo_bytes"] > 0 and b["halo_bytes"] > 0
 
 
-def test_launcher_refuses_the_channel_sharding():
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        tlaunch.setup("smoke", "pretrain_stage1", device="cpu",
-                      sharding_mode="channel")
+def test_launcher_refuses_the_channel_sharding(tmp_path):
+    # refused until the channel placement ran: now both ranks take the
+    # same steps and rank 0 writes the split leaves whole
+    argv = ["--config", "smoke", "--device", "cpu", "--steps", "2",
+            "--fcn3-sharding", "channel", "--mesh-model", "2",
+            "--dist-backend", "gloo", "--ckpt-dir", str(tmp_path)]
+    hist = run_world(workers.launcher_rank, 2, (argv,), timeout=TIMEOUT,
+                     threads=1)
+    for a, b in zip(*hist):
+        assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        assert np.isfinite(a["loss"]) and a["grad_norm"] > 0
+        assert a["kind_bytes"]["all_gather"] > 0
+    params, opt, _ = tckpt.restore_checkpoint(str(tmp_path / "ckpt_00000002"))
+    model = TFCN3(tcfgs.fcn3_smoke(), device="cpu")
+    model.load_state_dict(params, strict=True)
+    assert opt["mu"]["blocks.0.mlp.w1"].shape == model.blocks[0].mlp.w1.shape

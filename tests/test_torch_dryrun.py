@@ -49,6 +49,7 @@ from repro_torch.launch import counting, dryrun
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import roofline
 from repro_torch.models import attention as tattn
+from repro_torch.models import moe as tmoe
 from repro_torch.train import trainer as ttr
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -573,7 +574,9 @@ def test_moe_dry_runs_at_full_width(arch, shape, dispatch, world,
     # rank 0 of the 16 x 16 production mesh; the batch splits over the 16
     # data ranks, so scatter runs over them (one all_reduce of the aux
     # sums, 2 E + 1 floats, a MoE layer) and dense runs on the rank's own
-    # slice; no kernel of the port is called; one query tile a layer
+    # slice; either runs rank 0's E/16 experts and all-gathers the (E, C,
+    # D) outputs over the 16 model ranks; no kernel of the port is
+    # called; one query tile a layer
     monkeypatch.setattr(tattn, "TILE_SCORE_BYTES", 1 << 50)
     rec = dryrun.run_case(arch, shape, False, moe_dispatch=dispatch)
     cfg = jarchs.get_arch(arch)
@@ -581,13 +584,17 @@ def test_moe_dry_runs_at_full_width(arch, shape, dispatch, world,
     assert rec["params"] == _jax_count(params)
     assert rec["active_params"] == _jax_active(cfg, params)
     assert rec["moe_dispatch"] == dispatch and rec["kernels"] == {}
+    assert rec["experts_per_rank"] == cfg.moe.n_experts // 16
     n_moe = (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
+    shape_ = tshapes.INPUT_SHAPES[shape]
+    tokens = rec["local_batch"] * (1 if shape_.mode == "decode"
+                                   else shape_.seq_len)
+    cap = tmoe._capacity(tokens, tarchs.get_arch(arch).moe)
+    want = {"all_gather": n_moe * cfg.moe.n_experts * cap * cfg.d_model * 4}
     if dispatch == "scatter":
-        want = n_moe * (2 * cfg.moe.n_experts + 1) * 4
-        assert rec["coll_breakdown"] == {"all_reduce": want}
-        assert {c["group"] for c in rec["collectives"]} == {16}
-    else:
-        assert rec["coll_breakdown"] == {}
+        want["all_reduce"] = n_moe * (2 * cfg.moe.n_experts + 1) * 4
+    assert rec["coll_breakdown"] == want
+    assert {c["group"] for c in rec["collectives"]} == {16}
     assert rec["aten_flops"] > 0 and rec["peak_memory_per_device"] > 0
 
 
@@ -606,7 +613,9 @@ def test_a_batch_that_does_not_split_takes_the_dense_path(world):
     rec = dryrun.run_case(MOE_ARCHS[1], "long_500k", False,
                           moe_dispatch="scatter")
     assert rec["local_batch"] == 1 and rec["moe_dispatch"] == "dense"
-    assert rec["coll_breakdown"] == {}
+    # no aux all-reduce over the data ranks; the experts' outputs are
+    # gathered over the model ranks
+    assert set(rec["coll_breakdown"]) == {"all_gather"}
 
 
 def test_the_16_rank_fcn3_small_layout_gathers_every_halo():
@@ -633,16 +642,43 @@ def test_the_16_rank_fcn3_small_layout_gathers_every_halo():
 # (g) refusals, (h) the CLI
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,shape,kw,item", [
-    ("fcn3", "train", {"fcn3_mode": "channel"}, "A10.3"),
-])
-def test_refusals_name_their_roadmap_item(arch, shape, kw, item):
-    with counting.DryRun("cpu") as dry:
-        with pytest.raises(dryrun.Refused, match=rf"ROADMAP {item}\)"):
-            if arch == "fcn3":
-                dryrun.build_fcn3_case(shape, None, dry, **kw)
-            else:
-                dryrun.build_lm_case(arch, shape, None, dry, **kw)
+@pytest.mark.parametrize("shape,mode", [
+    ("train", "channel"), ("inference", "channel"),
+    ("rollout4", "ensemble")])
+def test_refusals_name_their_roadmap_item(world, shape, mode):
+    # the cases refused until the channel and member placements ran now
+    # return rank 0's record on the 16 x 16 production mesh
+    with dryrun.fake_world(256):
+        mesh = meshlib.make_mesh((16, 16), ("data", "model"), "cpu")
+        with counting.DryRun("cpu") as dry:
+            case = dryrun.build_fcn3_case(shape, mesh, dry, fcn3_mode=mode,
+                                          cfg=tfcn3cfg.fcn3_smoke())
+            rl, counts = roofline.analyze("x", case.step, case.args, 256,
+                                          case.model_flops, dry)
+    coll = counts.collective_bytes()
+    if mode == "channel":
+        # smoke's mlp_hidden 32 splits 16 ways, its 34 channels do not
+        assert case.info["split_leaves"] == 6
+        assert coll["all_reduce"] > 0 and "all_gather" not in coll
+    else:
+        # 2 members whole on each of 16 model ranks, the batch of 4 whole
+        # on each of 16 data ranks (neither divides)
+        assert case.info["members_per_rank"] == 2
+        assert tally.is_fake(case.args[2]["state"])
+        assert case.args[2]["state"].shape[0] == 4
+    assert rl.peak_memory_per_device > 0 and counts.kernels
+
+
+@pytest.mark.parametrize("arch,experts", [("deepseek-v2-236b", 10),
+                                          ("llama4-maverick-400b-a17b", 8)])
+def test_moe_experts_are_placed_over_the_model_axis(world, arch, experts):
+    rec = dryrun.run_case(arch, "decode_32k", False)
+    assert rec["experts_per_rank"] == experts
+    # the expert outputs gathered over the 16 model ranks, nothing else
+    assert set(rec["coll_breakdown"]) == {"all_gather"}
+    assert {c["group"] for c in rec["collectives"]} == {16}
+    # rank 0's fp32 parameters: most of the stacks' bytes are elsewhere
+    assert rec["memory_analysis"]["parameters"] < 4 * rec["params"] / 2
 
 
 def _env():

@@ -43,6 +43,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.launch import dryrun
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcm
+from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.models.params import lm_params_from_numpy, lm_params_to_numpy
 from repro_torch.models.transformer import LM
@@ -412,17 +413,26 @@ def test_mamba2_train_dry_run_counts_the_ssd_backward(world):
 @pytest.mark.parametrize("dispatch", ["dense", "scatter"])
 def test_moe_train_dry_run(world, dispatch, monkeypatch):
     # llama4 at full width: the scatter dispatch adds its aux all-reduce
-    # (2 E + 1 floats a MoE layer, run again by remat) to the gradients'
+    # (2 E + 1 floats a MoE layer, run again by remat, and once more for
+    # the sums' gradient in the backward) to the gradients'
+    # (rank 0's: its 8 of the 128 experts), whose norm sums the placed
+    # stacks' squares over the model ranks (one float); the experts'
+    # outputs are gathered over the model axis in the forward, again in
+    # remat, and their buffers' gradients in the backward
     monkeypatch.setattr(tattn, "TILE_SCORE_BYTES", 1 << 50)
     arch = "llama4-maverick-400b-a17b"
     rec = dryrun.run_case(arch, "train_4k", False, moe_dispatch=dispatch)
     cfg = tarchs.get_arch(arch)
     assert rec["moe_dispatch"] == dispatch and rec["kernels"] == {}
-    grads = (rec["params"] + 4) * 4
+    assert rec["local_params"] < rec["params"]
+    grads = (rec["local_params"] + 4) * 4 + 4
     n_moe = (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
-    aux = 2 * n_moe * (2 * cfg.moe.n_experts + 1) * 4
+    aux = 3 * n_moe * (2 * cfg.moe.n_experts + 1) * 4
     assert rec["coll_breakdown"]["all_reduce"] == grads + (
         aux if dispatch == "scatter" else 0)
+    cap = tmoe._capacity(rec["local_batch"] * 4096, cfg.moe)
+    assert rec["coll_breakdown"]["all_gather"] == 3 * n_moe * (
+        cfg.moe.n_experts * cap * cfg.d_model * 4)
     assert rec["aten_flops"] > 0 and rec["peak_memory_per_device"] > 0
 
 

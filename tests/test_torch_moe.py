@@ -535,3 +535,211 @@ def test_observe_sees_every_moe_layer_in_order():
         port(torch.from_numpy(_tokens(ARCHS[0], (1, 12), 33)).long())
     assert len(seen) == 2 and all(r.gate_idx.shape == (12, 2) for r in seen)
     assert json.dumps([r.cap for r in seen]) == "[8, 8]"
+
+
+# ---------------------------------------------------------------------------
+# the expert placement over the model axis
+# ---------------------------------------------------------------------------
+
+PLACED_TOKENS = (4, 32)        # the global batch, split over 2 data ranks
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_expert_specs_are_the_jax_rules_expert_entries(arch):
+    from jax.sharding import PartitionSpec
+
+    from repro.distributed import sharding as jsharding
+    from repro_torch.distributed import sharding as tsharding
+    _, params, _ = _jax_lm(arch)
+    jcfg, tcfg = jarchs.smoke_config(arch), tarchs.smoke_config(arch)
+    flat = jax.tree_util.tree_flatten_with_path(
+        jsharding.lm_param_specs(jcfg, params),
+        is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
+    full = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): tuple(spec) for path, spec in flat}
+    port = lm_params_to_numpy(_port(arch).state_dict(), tcfg)
+    got = tsharding.lm_expert_specs(tcfg, port)
+    stacks = {p for p in port if p.rsplit("/", 1)[-1] in
+              ("w_gate", "w_up", "w_down") and port[p].ndim >= 3
+              and tcfg.moe.n_experts in port[p].shape[-3:-2]}
+    assert stacks
+    for p, spec in got.items():
+        # the expert dim keeps JAX's model entry, every other one is None
+        want = tuple(e if p in stacks and i == len(spec) - 3 else None
+                     for i, e in enumerate(full[p]))
+        assert spec == want, p
+        assert ("model" in spec) == (p in stacks)
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS
+                                        for d in ("dense", "scatter")],
+                ids=lambda p: f"{p[0].split('-')[0]}-{p[1]}")
+def placed(request):
+    arch, dispatch = request.param
+    setup = {"arch": arch, "dispatch": dispatch,
+             "params": _jax_lm(arch)[2],
+             "tokens": _tokens(arch, PLACED_TOKENS, 41)}
+    res = run_world(workers.moe_placement_rank, RANKS, (setup,),
+                    timeout=120.0, threads=1)
+    return setup, res
+
+
+_JAX_PLACED = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import contextlib, dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import archs
+from repro.models.transformer import LM
+from repro.train.checkpoint import _flatten_with_paths
+src = np.load(sys.argv[1], allow_pickle=True)
+setup = src["setup"].item()
+# Auto axes: the LM's layer scan keeps its carry's type when the scatter
+# hands back its data-split output
+kw = ({"axis_types": (jax.sharding.AxisType.Auto,) * 2}
+      if hasattr(jax.sharding, "AxisType") else {})
+mesh = jax.make_mesh((2, 2), ("data", "model"), **kw)
+if hasattr(jax, "set_mesh"):
+    jax.set_mesh(mesh)
+    ctx = contextlib.nullcontext()
+else:
+    ctx = mesh
+flat = lambda t: {k: np.asarray(v) for k, v in _flatten_with_paths(t).items()}
+out = {}
+with ctx:
+    for arch, tokens in setup["tokens"].items():
+        base = archs.smoke_config(arch)
+        params = LM(base).init(jax.random.PRNGKey(0))
+        b = tokens.shape[0] // 2
+        for dispatch in ("dense", "scatter"):
+            model = LM(dataclasses.replace(base, moe=dataclasses.replace(
+                base.moe, dispatch=dispatch, dp_axes=("data",))))
+            fwd = jax.jit(model.apply_train)
+            grad = jax.jit(jax.value_and_grad(model.loss, has_aux=True))
+            # dense: each data rank's slice on its own, the gradients
+            # averaged; scatter: the global batch, its aux over both slices
+            parts = ([tokens[d * b:(d + 1) * b] for d in range(2)]
+                     if dispatch == "dense" else [tokens])
+            res = []
+            for tok in parts:
+                tok = jnp.asarray(tok)
+                logits, aux = fwd(params, tok)
+                (loss, _), g = grad(params, {"tokens": tok, "labels": tok})
+                res.append(dict(logits=np.asarray(logits),
+                                aux={k: float(v) for k, v in aux.items()},
+                                loss=float(loss), grads=flat(g)))
+            out[arch, dispatch] = dict(
+                logits=np.concatenate([r["logits"] for r in res]),
+                aux=[r["aux"] for r in res],
+                loss=float(np.mean([r["loss"] for r in res])),
+                grads={k: np.mean([r["grads"][k] for r in res], axis=0)
+                       for k in res[0]["grads"]})
+np.save(sys.argv[2], out, allow_pickle=True)
+print("JAX_PLACED_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_placed(tmp_path_factory):
+    """JAX's ``LM`` on the placed runs' tokens, on a (2, 2) mesh of host
+    devices: logits, aux, loss and gradients per (arch, dispatch)."""
+    tmp = tmp_path_factory.mktemp("moe_placed")
+    setup = {"tokens": {a: _tokens(a, PLACED_TOKENS, 41) for a in ARCHS}}
+    np.savez(tmp / "in.npz", setup=np.array(setup, dtype=object))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", _JAX_PLACED,
+                           str(tmp / "in.npz"), str(tmp / "out.npy")],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert "JAX_PLACED_OK" in proc.stdout, proc.stderr[-3000:]
+    return np.load(tmp / "out.npy", allow_pickle=True).item()
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_placed_experts_match_whole_experts(placed):
+    setup, res = placed
+    cfg = tarchs.smoke_config(setup["arch"])
+    e = cfg.moe.n_experts
+    for r in res:
+        assert not r["jax_loaded"]
+        assert r["scatter"] == (setup["dispatch"] == "scatter")
+        w, p = r["whole"], r["placed"]
+        # each rank holds E/2 experts of every stack
+        assert r["placed_names"] and all(
+            p["shapes"][k][-3] == e // 2 for k in r["placed_names"])
+        assert _rel(p["logits"], w["logits"]) <= 1e-5
+        for k in w["aux"]:
+            np.testing.assert_allclose(p["aux"][k], w["aux"][k], rtol=1e-5)
+        np.testing.assert_allclose(p["loss"], w["loss"], rtol=1e-5)
+        np.testing.assert_allclose(p["norm"], w["norm"], rtol=1e-5)
+        for k, g in w["grads"].items():
+            np.testing.assert_allclose(p["grads"][k], g, rtol=2e-3,
+                                       atol=2e-4, err_msg=k)
+        assert p["kept"] == w["kept"]
+
+
+def test_placed_experts_match_one_process_on_each_slice(placed):
+    # a rank's capacity is its slice's (both dispatches), so one process
+    # with whole experts on the slice routes and drops the same pairs;
+    # the scatter dispatch's aux are means over both slices' tokens
+    setup, res = placed
+    port = _port(setup["arch"])
+    b = PLACED_TOKENS[0] // 2
+    for rank, r in enumerate(res):
+        d = rank // 2
+        tok = torch.from_numpy(setup["tokens"][d * b:(d + 1) * b]).long()
+        with torch.no_grad():
+            logits, aux = port.apply_train(tok)
+        assert _rel(r["placed"]["logits"], logits.numpy()) <= 1e-5
+        for k in aux if setup["dispatch"] == "dense" else ():
+            np.testing.assert_allclose(r["placed"]["aux"][k], float(aux[k]),
+                                       rtol=1e-5)
+
+
+def test_placed_experts_match_jax(placed, jax_placed):
+    # every rank's placed logits and aux against JAX's LM on its slice
+    # (dense) or on the global batch with the slices over the data axis
+    # (scatter: the aux are means over both slices), and the gathered
+    # gradients of the step (averaged over the data ranks) against JAX's
+    setup, res = placed
+    want = jax_placed[setup["arch"], setup["dispatch"]]
+    cfg = tarchs.smoke_config(setup["arch"])
+    b = PLACED_TOKENS[0] // 2
+    for rank, r in enumerate(res):
+        d = rank // 2
+        p = r["placed"]
+        np.testing.assert_allclose(p["logits"],
+                                   want["logits"][d * b:(d + 1) * b], **TOL)
+        waux = want["aux"][d if setup["dispatch"] == "dense" else 0]
+        assert sorted(p["aux"]) == sorted(waux)
+        for k, v in waux.items():
+            np.testing.assert_allclose(p["aux"][k], v, **TOL, err_msg=k)
+        np.testing.assert_allclose(p["loss"], want["loss"], rtol=1e-4)
+        got = lm_params_to_numpy(
+            {k: torch.from_numpy(g) for k, g in p["grads"].items()}, cfg)
+        assert sorted(got) == sorted(want["grads"])
+        for k, g in want["grads"].items():
+            np.testing.assert_allclose(got[k], g, rtol=2e-3, atol=2e-4,
+                                       err_msg=k)
+
+
+def test_placement_gathers_the_expert_outputs_over_the_model_axis(placed):
+    # one all-gather of (E, cap, D) fp32 outputs a MoE layer: the tokens
+    # are replicated over the model axis, so no all-to-all
+    setup, res = placed
+    cfg = tarchs.smoke_config(setup["arch"])
+    b = PLACED_TOKENS[0] // 2
+    cap = tmoe._capacity(b * PLACED_TOKENS[1], cfg.moe)
+    for r in res:
+        kinds = r["placed"]["kinds"]
+        n_moe = len(r["placed"]["kept"])
+        assert kinds["all_gather"] == n_moe * (
+            cfg.moe.n_experts * cap * cfg.d_model * 4)
+        assert kinds["all_to_all"] == 0 and kinds["all_reduce"] == (
+            0 if setup["dispatch"] == "dense"
+            else n_moe * (2 * cfg.moe.n_experts + 1) * 4)
+        assert r["whole"]["kinds"]["all_gather"] == 0

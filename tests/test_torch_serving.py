@@ -221,6 +221,27 @@ class TestTransport:
         want = {**done, "final_state": jtransport.encode_array(state)}
         assert transport.dump_event(done) == jtransport.dump_event(want)
 
+    def test_port_reader_parses_the_reference_lines(self):
+        # the reader cuts base64 texts out before the parse: every line
+        # the reference writes (a state, nested and empty texts, a string
+        # holding the key's bytes) parses as json.loads parses it, and a
+        # line cut short is a StreamInterrupted
+        import io
+        _, state = self._payload()
+        evs = [{"event": "done", "request_id": "r1",
+                "final_state": jtransport.encode_array(state)},
+               {"event": "x", "l": [{"b64": ""}, [{"k": 1, "b64": "QUJD"}]],
+                "z": {"q": {"b64": "AAAA"}, "b64": "BBBB"}},
+               {"event": "chunk", "s": '"b64":"x"', "t": "b64"}]
+        raw = b"".join(jtransport.dump_event(ev) for ev in evs)
+        got = list(transport.read_events(io.BytesIO(raw)))
+        assert got == [json.loads(jtransport.dump_event(ev)) for ev in evs]
+        np.testing.assert_array_equal(
+            transport.decode_array(got[0]["final_state"]), state)
+        cut = jtransport.dump_event(evs[0])[:-40] + b"\n"
+        with pytest.raises(transport.StreamInterrupted):
+            list(transport.read_events(io.BytesIO(cut)))
+
     def test_reference_reader_decodes_a_port_stream(self, sched, direct):
         import io
         raw = b"".join(transport.dump_event(ev)
