@@ -1,0 +1,10 @@
+"""Puts the checkout's root and ``src`` on the path, so the benchmark's
+package and the port import as the harness imports them."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
