@@ -26,6 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.core import blocks as blk
 from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import grids as glib
@@ -320,26 +321,34 @@ class FCN3(nn.Module):
 
         state: (..., n_state, H, W); cond_in: (..., n_aux + n_noise, H, W).
         Returns u_{n+1}, same shape as ``state`` (direct prediction, C.7).
-        With gradients on each processor block is rematerialised.
+        With gradients on each processor block is rematerialised.  The
+        spans bracket the calls here, so the recomputation in backward
+        is not spanned.
         """
-        x, cond = self._encode(buffers, state, cond_in)
-        remat = torch.is_grad_enabled() and (
-            x.requires_grad
-            or any(p.requires_grad for p in self.blocks.parameters()))
-        for block in self.blocks:
-            buf = (buffers["latent"] if block.spec.kind == "local"
-                   else buffers["latent_sht"])
-            if remat:
-                # recompute each block in backward, keeping only its
-                # inputs (the JAX model's jax.checkpoint per block)
-                x = checkpoint(block, x, cond, buf, self.cfg.kernels,
-                               use_reentrant=False)
-            else:
-                x = block(x, cond, buf, kernels=self.cfg.kernels)
-        del cond
-        out = self._decode(buffers, x)
-        # Output transformation (C.8): softclamp water channels.
-        return torch.where(self.water_mask, blk.softclamp(out), out)
+        with telemetry.span("fcn3.forward"):
+            with telemetry.span("fcn3.encoder"):
+                x, cond = self._encode(buffers, state, cond_in)
+            remat = torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in self.blocks.parameters()))
+            for i, block in enumerate(self.blocks):
+                local = block.spec.kind == "local"
+                buf = buffers["latent"] if local else buffers["latent_sht"]
+                with telemetry.span("fcn3.block.local" if local
+                                    else "fcn3.block.global", index=i):
+                    if remat:
+                        # recompute each block in backward, keeping only
+                        # its inputs (the JAX model's jax.checkpoint per
+                        # block)
+                        x = checkpoint(block, x, cond, buf, self.cfg.kernels,
+                                       use_reentrant=False)
+                    else:
+                        x = block(x, cond, buf, kernels=self.cfg.kernels)
+            del cond
+            with telemetry.span("fcn3.decoder"):
+                out = self._decode(buffers, x)
+                # Output transformation (C.8): softclamp water channels.
+                return torch.where(self.water_mask, blk.softclamp(out), out)
 
     # ------------------------------------------------------------------
     def sample_noise(self, generator: torch.Generator,

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.core.sphere import fourier
 from repro_torch.core.sphere import grids as glib
 from repro_torch.kernels.config import KernelConfig
@@ -162,7 +163,10 @@ class DiscoPlan:
         """``band_live_taps`` of the band, memoized on the (frozen) plan."""
         cached = getattr(self, "_taps_cache", None)
         if cached is None:
-            cached = band_live_taps(self.banded_split()[0])
+            band = self.banded_split()[0]
+            with telemetry.setup_span("plans.build", kind="disco_taps",
+                                      key=key_label(self.plan_key())):
+                cached = band_live_taps(band)
             object.__setattr__(self, "_taps_cache", cached)
         return cached
 
@@ -170,8 +174,11 @@ class DiscoPlan:
         """``band_row_taps`` of the live taps, memoized on the plan."""
         cached = getattr(self, "_row_taps_cache", None)
         if cached is None:
-            cached = band_row_taps(self.lat_idx, self.live_taps(),
-                                   self.grid_in.nlat)
+            taps = self.live_taps()
+            with telemetry.setup_span("plans.build", kind="disco_row_taps",
+                                      key=key_label(self.plan_key())):
+                cached = band_row_taps(self.lat_idx, taps,
+                                       self.grid_in.nlat)
             object.__setattr__(self, "_row_taps_cache", cached)
         return cached
 
@@ -179,17 +186,31 @@ class DiscoPlan:
         """``split_psi_band(self.psi)``, memoized on the (frozen) plan."""
         cached = getattr(self, "_split_cache", None)
         if cached is None:
-            cached = split_psi_band(self.psi)
+            with telemetry.setup_span("plans.build", kind="disco_band",
+                                      key=key_label(self.plan_key())):
+                cached = split_psi_band(self.psi)
             object.__setattr__(self, "_split_cache", cached)
         return cached
+
+
+def key_label(key: tuple) -> str:
+    """A ``plan_key`` as a short string (the set-up spans' ``key``):
+    ``"721x1440 equiangular -> 360x720 gauss, 2/2/3.0"``."""
+    nlat_in, nlon_in, kind_in, nlat_out, nlon_out, kind_out, *filt = key
+    return (f"{nlat_in}x{nlon_in} {kind_in} -> {nlat_out}x{nlon_out} "
+            f"{kind_out}, {'/'.join(str(f) for f in filt)}")
 
 
 @functools.lru_cache(maxsize=32)
 def _cached_plan(nlat_in, nlon_in, kind_in, nlat_out, nlon_out, kind_out,
                  ell_max, m_max, cutoff_factor) -> DiscoPlan:
-    gi = glib.make_grid(nlat_in, nlon_in, kind_in)
-    go = glib.make_grid(nlat_out, nlon_out, kind_out)
-    return _build_plan(gi, go, ell_max, m_max, cutoff_factor)
+    key = (nlat_in, nlon_in, kind_in, nlat_out, nlon_out, kind_out,
+           ell_max, m_max, cutoff_factor)
+    with telemetry.setup_span("plans.build", kind="disco",
+                              key=key_label(key)):
+        gi = glib.make_grid(nlat_in, nlon_in, kind_in)
+        go = glib.make_grid(nlat_out, nlon_out, kind_out)
+        return _build_plan(gi, go, ell_max, m_max, cutoff_factor)
 
 
 # Plans installed from a warm-start bundle (repro_torch.serving.bundle):

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.sphere import grids as glib
 
 
@@ -31,6 +32,14 @@ class BilinearResample:
     @classmethod
     def create(cls, grid_in: glib.SphereGrid, grid_out: glib.SphereGrid):
         """Plan the bilinear resampling from ``grid_in`` onto ``grid_out``."""
+        with telemetry.setup_span(
+                "plans.build", kind="resample",
+                key=f"{grid_in.nlat}x{grid_in.nlon} {grid_in.kind} -> "
+                    f"{grid_out.nlat}x{grid_out.nlon} {grid_out.kind}"):
+            return cls._plan(grid_in, grid_out)
+
+    @classmethod
+    def _plan(cls, grid_in: glib.SphereGrid, grid_out: glib.SphereGrid):
         ti, to = grid_in.colat, grid_out.colat
         # latitude: find interval; allow virtual pole rows at theta=0, pi.
         idx0 = np.searchsorted(ti, to, side="right") - 1  # in [-1, H_in-1]

@@ -14,6 +14,8 @@ import functools
 
 import numpy as np
 
+from repro_torch import telemetry
+
 
 def legendre_table(lmax: int, mmax: int, colat: np.ndarray) -> np.ndarray:
     """Pbar table of shape (nlat, lmax, mmax): Pbar[h, l, m] = Pbar_l^m(cos theta_h).
@@ -62,7 +64,9 @@ def legendre_table(lmax: int, mmax: int, colat: np.ndarray) -> np.ndarray:
 def _cached_table(lmax: int, mmax: int, colat_key: bytes, nlat: int) -> np.ndarray:
     colat = np.frombuffer(colat_key, dtype=np.float64)
     assert colat.shape[0] == nlat
-    return legendre_table(lmax, mmax, colat)
+    with telemetry.setup_span("plans.build", kind="legendre",
+                              key=f"{nlat} rows, lmax {lmax}, mmax {mmax}"):
+        return legendre_table(lmax, mmax, colat)
 
 
 # Tables installed from a warm-start bundle (repro_torch.serving.bundle):

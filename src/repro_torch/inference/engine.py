@@ -95,6 +95,7 @@ from typing import Any, Callable, Iterator, Protocol
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import disco as discolib
 from repro_torch.core.sphere import legendre as leg
@@ -997,50 +998,61 @@ class ForecastEngine:
                 z_hat = torch.stack([c[1] for c in carries])
             del carries
             active = list(range(b))    # original indices still rolled
+            members = self.block[1] - self.block[0]
             for i, (start, k) in enumerate(bounds):
-                # inference mode per chunk, never held across a yield (it
-                # is thread-local state the caller's code would inherit)
-                with torch.inference_mode():
-                    if survivors is not None:
-                        want = set(survivors())
-                        alive = [j for j in active if j in want]
-                        if alive and len(alive) < len(active):
-                            pos = torch.tensor([active.index(j)
-                                                for j in alive], device=dev)
-                            s, z_hat = s[pos], z_hat[pos]
-                            active = alive
-                            self._count("shrinks")
-                    xs = self._ready(stager.get(i))
-                    if len(active) < b:
-                        idx = torch.tensor(active, device=dev)
-                        xs = {kk: v[idx] for kk, v in xs.items()}
-                    per_lead: list[list[dict]] = []
-                    for j in range(k):
-                        eta = torch.stack([
-                            noises[r].eta(self.model, start + j, z_hat[p],
-                                          self.noise_buffers)
-                            for p, r in enumerate(active)])
-                        s, z_hat = self.step(params, pbufs, s, z_hat,
-                                             xs["aux"][:, j], eta)
-                        sf = s.float()
-                        per_lead.append([self._lead_out(
-                            sf[p], xs["truth"][p, j] if scored else None)
-                            for p in range(len(active))])
-                    self._count("chunks")
-                last = i + 1 == len(bounds)
-                block: list[ForecastResult | None] = [None] * b
-                for p, r in enumerate(active):
-                    outs = [lead[p] for lead in per_lead]
-                    block[r] = ForecastResult(
-                        lead_steps=np.arange(start, start + k),
-                        scores={n: torch.stack([o[n] for o in outs])
-                                for n in SCORE_NAMES if n in outs[0]},
-                        diagnostics=(_tree_map(torch.stack,
-                                               [o["diag"] for o in outs])
-                                     if self.diagnostics is not None
-                                     else None),
-                        final_state=s[p] if last else None,
-                        final_noise=z_hat[p] if last else None)
+                # inference mode and the chunk's span per chunk, never
+                # held across a yield (the caller's code would run inside
+                # them)
+                with telemetry.span("engine.chunk", start=start, steps=k,
+                                    batch=len(active)):
+                    with torch.inference_mode():
+                        if survivors is not None:
+                            want = set(survivors())
+                            alive = [j for j in active if j in want]
+                            if alive and len(alive) < len(active):
+                                pos = torch.tensor([active.index(j)
+                                                    for j in alive],
+                                                   device=dev)
+                                s, z_hat = s[pos], z_hat[pos]
+                                active = alive
+                                self._count("shrinks")
+                        with telemetry.span("engine.stage_wait"):
+                            xs = self._ready(stager.get(i))
+                        if len(active) < b:
+                            idx = torch.tensor(active, device=dev)
+                            xs = {kk: v[idx] for kk, v in xs.items()}
+                        per_lead: list[list[dict]] = []
+                        for j in range(k):
+                            with telemetry.span(
+                                    "engine.lead",
+                                    member_leads=len(active) * members):
+                                eta = torch.stack([
+                                    noises[r].eta(self.model, start + j,
+                                                  z_hat[p],
+                                                  self.noise_buffers)
+                                    for p, r in enumerate(active)])
+                                s, z_hat = self.step(params, pbufs, s, z_hat,
+                                                     xs["aux"][:, j], eta)
+                                sf = s.float()
+                                per_lead.append([self._lead_out(
+                                    sf[p],
+                                    xs["truth"][p, j] if scored else None)
+                                    for p in range(len(active))])
+                        self._count("chunks")
+                    last = i + 1 == len(bounds)
+                    block: list[ForecastResult | None] = [None] * b
+                    for p, r in enumerate(active):
+                        outs = [lead[p] for lead in per_lead]
+                        block[r] = ForecastResult(
+                            lead_steps=np.arange(start, start + k),
+                            scores={n: torch.stack([o[n] for o in outs])
+                                    for n in SCORE_NAMES if n in outs[0]},
+                            diagnostics=(_tree_map(torch.stack,
+                                                   [o["diag"] for o in outs])
+                                         if self.diagnostics is not None
+                                         else None),
+                            final_state=s[p] if last else None,
+                            final_noise=z_hat[p] if last else None)
                 yield block
         finally:
             stager.close()
@@ -1048,7 +1060,8 @@ class ForecastEngine:
     def _lead_out(self, sf: torch.Tensor, truth: torch.Tensor | None
                   ) -> dict:
         """One request's per-lead outputs: its scores and diagnostics."""
-        out = self.scores(sf, truth)
+        with telemetry.span("engine.scores"):
+            out = self.scores(sf, truth)
         if self.diagnostics is not None:
             out["diag"] = self.diagnostics(sf)
         return out

@@ -41,6 +41,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch import telemetry
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch`` (``build/`` is git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -170,8 +172,11 @@ def load_library(name: str, defines=()) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(key)
         if lib is None:
-            build_all((key,))
-            lib = ctypes.CDLL(str(_target(*key)))
+            target = _target(*key)
+            with telemetry.setup_span("kernels.load", name=label(*key),
+                                      built=not target.exists()):
+                build_all((key,))
+                lib = ctypes.CDLL(str(target))
             _libs[key] = lib
         return lib
 

@@ -16,7 +16,7 @@ prints one line per phase with seconds, tokens/s, peak device memory and
 the SSD kernel's launches; a MoE prefill's line adds the share of its
 (token, k) pairs that their experts' capacity dropped.  ``--profile`` runs the phase once more under
 ``torch.profiler`` and prints the device's busy share of that run and
-its kernels by device time (``[profile]`` lines).
+its kernels by summed kernel time (``[profile]`` lines).
 
   PYTHONPATH=src python -m repro_torch.launch.lm --arch mamba2-130m \
       --smoke --shape prefill_32k --device cpu
@@ -210,10 +210,20 @@ def run_decode(model: LM, batch: int, seq_len: int, steps: int,
 
 def report_profile(prof, wall_s: float, report=print, top: int = 8) -> dict:
     """Device busy time of a profiled run and its ``top`` kernels by
-    device time, from the profiler's device events; prints ``[profile]``
-    lines and returns the totals."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    summed kernel time, from the profiler's device events; prints
+    ``[profile]`` lines and returns the totals.
+
+    The busy time is the union of the intervals of every kernel, copy
+    and set on every stream, overlaps counted once.  The ranges of
+    ``record_function`` (the port's spans), mirrored on the device's
+    timeline as user annotations, are no work of the card's and are
+    left out.  The per-name table sums each name's kernel time, so
+    kernels on overlapping streams each count there."""
+    events = prof.events()
+    ranges = {e.name for e in events if e.is_user_annotation}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in ranges]
     if not kernels:
         report("[profile] the profiler saw no device events")
         return {"busy_s": None, "wall_s": wall_s}
@@ -221,13 +231,25 @@ def report_profile(prof, wall_s: float, report=print, top: int = 8) -> dict:
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_s = sum(us for _, us in by_name.values()) / 1e6
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    busy_s = busy_us / 1e6
+    summed_us = sum(us for _, us in by_name.values())
     report(f"[profile] wall_s={wall_s:.3f} device_busy_s={busy_s:.3f} "
            f"busy_share={busy_s / wall_s:.3f} kernel_launches={len(kernels)}")
+    report(f"[profile] by summed kernel time ({summed_us / 1e3:.3f} ms in "
+           "all, overlapping streams each counted):")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (count, us) in ranked[:top]:
-        report(f"[profile]   {us / 1e3:10.3f} ms {us / 1e4 / busy_s:5.1f}% "
-               f"x{count:<6d} {name[:90]}")
+        report(f"[profile]   {us / 1e3:10.3f} ms "
+               f"{100.0 * us / summed_us:5.1f}% x{count:<6d} {name[:90]}")
     return {"busy_s": busy_s, "wall_s": wall_s}
 
 

@@ -22,6 +22,14 @@ Three building blocks:
   threads) and export as Chrome/Perfetto trace-event JSON via
   ``to_chrome``.  ``NULL_TRACE`` is the no-op twin used when tracing is
   disabled, so instrumented code never branches.
+* **Program spans** -- ``span`` brackets a layer of the program (the
+  engine's chunk and lead, the model's blocks, the trainer's phases)
+  while a ``torch.profiler`` collects on the calling thread (the one
+  that started it), and costs one check of torch's profiler state
+  otherwise; ``setup_span`` brackets work done once per key (plan
+  builds, kernel loads), always.  Both record into one bounded
+  process-level ``RequestTrace``, read back by ``process_spans``.
+  torch is reached only once it is in ``sys.modules``.
 * **Logging** -- ``setup_logging`` configures the ``repro_torch`` logger
   hierarchy once, writing to stderr (stdout stays machine-readable for
   CLIs that print artifact paths).
@@ -347,53 +355,70 @@ class RequestTrace:
     """
 
     def __init__(self, request_id: str, meta: dict | None = None,
-                 t0: float | None = None):
+                 t0: float | None = None, capacity: int | None = None):
         """Open the trace (and its root span) for ``request_id``.
 
         ``t0`` backdates the root span to an already-captured
         ``perf_counter`` reading (e.g. the instant a request hit the
-        admission path, before its trace object existed).
+        admission path, before its trace object existed).  With
+        ``capacity`` the trace holds at most that many spans (the root
+        included); each span past it is dropped and counted in
+        ``dropped``, and its ``begin``/``add`` return None.
         """
         self.request_id = request_id
         self.t0 = t0 if t0 is not None else time.perf_counter()
         self.wall_t0 = time.time()
+        self.capacity = capacity
+        self.dropped = 0
         self._lock = threading.Lock()
         self._ids = itertools.count()
         self._spans: list[dict] = []
+        self._by_id: dict[int, dict] = {}
         self.root = self._record("request", self.t0, None, None,
                                  dict(meta or {}))
 
-    def _record(self, name, t0, t1, parent, args, tid=None) -> int:
-        """Append one span record under the lock; returns its id."""
+    def _record(self, name, t0, t1, parent, args, tid=None,
+                device=None) -> int | None:
+        """Append one span record under the lock; returns its id (None
+        when the trace is full)."""
         with self._lock:
+            if self.capacity is not None and \
+                    len(self._spans) >= self.capacity:
+                self.dropped += 1
+                return None
             sid = next(self._ids)
-            self._spans.append({
-                "id": sid, "name": name, "parent": parent,
-                "t0": t0, "t1": t1,
-                "tid": tid or threading.current_thread().name,
-                "args": dict(args or {})})
+            rec = {"id": sid, "name": name, "parent": parent,
+                   "t0": t0, "t1": t1,
+                   "tid": tid or threading.current_thread().name,
+                   "args": dict(args or {})}
+            if device is not None:
+                rec["device"] = device
+            self._spans.append(rec)
+            self._by_id[sid] = rec
             return sid
 
     def begin(self, name: str, parent: int | None = 0,
-              args: dict | None = None) -> int:
-        """Open a span now; close it later with ``end``."""
-        return self._record(name, time.perf_counter(), None, parent, args)
+              args: dict | None = None, device=None) -> int | None:
+        """Open a span now; close it later with ``end``.  ``device``: the
+        span's (start, end) timing events on the card, if any."""
+        return self._record(name, time.perf_counter(), None, parent, args,
+                            device=device)
 
-    def end(self, sid: int, args: dict | None = None) -> None:
+    def end(self, sid: int | None, args: dict | None = None) -> None:
         """Close the span ``sid`` now, merging ``args`` in."""
         t1 = time.perf_counter()
         with self._lock:
-            for s in self._spans:
-                if s["id"] == sid:
-                    if s["t1"] is None:
-                        s["t1"] = t1
-                    if args:
-                        s["args"].update(args)
-                    return
+            s = self._by_id.get(sid)
+            if s is None:
+                return
+            if s["t1"] is None:
+                s["t1"] = t1
+            if args:
+                s["args"].update(args)
 
     def add(self, name: str, t0: float, t1: float,
             parent: int | None = 0, args: dict | None = None,
-            tid: str | None = None) -> int:
+            tid: str | None = None) -> int | None:
         """Record an already-timed ``[t0, t1]`` interval as a span."""
         return self._record(name, t0, t1, parent, args, tid=tid)
 
@@ -417,33 +442,10 @@ class RequestTrace:
         with self._lock:
             return self._spans[0]["t1"] is not None
 
-    def duration_s(self) -> float:
-        """Root span duration (up to now if still open)."""
-        with self._lock:
-            root = self._spans[0]
-            t1 = root["t1"] if root["t1"] is not None else time.perf_counter()
-            return t1 - root["t0"]
-
     def spans(self) -> list[dict]:
         """Copies of every span record."""
         with self._lock:
             return [dict(s) for s in self._spans]
-
-    def tree(self) -> dict:
-        """The spans as a nested dict (``children`` lists), durations in s."""
-        spans = self.spans()
-        now = time.perf_counter()
-        nodes = {}
-        for s in spans:
-            t1 = s["t1"] if s["t1"] is not None else now
-            nodes[s["id"]] = {"name": s["name"], "t0": s["t0"], "t1": t1,
-                              "dur_s": t1 - s["t0"], "args": s["args"],
-                              "tid": s["tid"], "children": []}
-        root = nodes[spans[0]["id"]]
-        for s in spans[1:]:
-            parent = nodes.get(s["parent"], root)
-            parent["children"].append(nodes[s["id"]])
-        return root
 
     def to_chrome(self) -> dict:
         """Export as Chrome/Perfetto trace-event JSON (``ts`` in us)."""
@@ -505,10 +507,6 @@ class _NullTrace:
     def finish(self) -> None:
         """No-op."""
 
-    def duration_s(self) -> float:
-        """Always 0.0."""
-        return 0.0
-
     def spans(self) -> list:
         """Always empty."""
         return []
@@ -520,6 +518,160 @@ class _NullTrace:
 
 #: shared no-op trace: ``stream.trace is NULL_TRACE`` tests "untraced".
 NULL_TRACE = _NullTrace()
+
+
+# ---------------------------------------------------------------------------
+# program spans
+
+
+#: spans the process trace holds (its root included) before it drops
+#: further ones, counted in ``process_trace().dropped``
+PROCESS_SPAN_CAPACITY = 50_000
+
+_process_lock = threading.Lock()
+_process: RequestTrace | None = None
+#: per thread, the ids of the spans open on it, innermost last
+_open = threading.local()
+#: torch's ``_profiler_enabled``, looked up once torch is loaded
+_profiler_enabled = None
+
+
+def _collecting() -> bool:
+    """Whether a ``torch.profiler`` collects on this thread, as torch's
+    own ``record_function`` decides (False while torch is not
+    loaded)."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        try:
+            _profiler_enabled = \
+                sys.modules["torch"]._C._autograd._profiler_enabled
+        except (KeyError, AttributeError):   # torch not (fully) loaded
+            return False
+    return _profiler_enabled()
+
+
+def _device_events():
+    """A (start, end) pair of timing events for the current CUDA stream,
+    or None when the process has not initialized CUDA."""
+    cuda = sys.modules["torch"].cuda
+    if not cuda.is_initialized():
+        return None
+    return cuda.Event(enable_timing=True), cuda.Event(enable_timing=True)
+
+
+def process_trace() -> RequestTrace:
+    """The process's span store, made on first use (its root span is
+    ``"request"`` of ``request_id`` ``"process"``)."""
+    global _process
+    with _process_lock:
+        if _process is None:
+            _process = RequestTrace("process",
+                                    capacity=PROCESS_SPAN_CAPACITY)
+        return _process
+
+
+class _NullSpan:
+    """The span when no profiler collects: enters and exits, records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+#: the one object ``span`` returns while no profiler collects
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One span being recorded into the process trace; with ``hot``, also
+    a ``record_function`` range and, on CUDA, a pair of timing events."""
+
+    __slots__ = ("name", "args", "hot", "_trace", "_sid", "_range",
+                 "_events")
+
+    def __init__(self, name: str, args: dict, hot: bool):
+        self.name, self.args, self.hot = name, args, hot
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self._trace = tr = process_trace()
+        self._range = self._events = None
+        if self.hot:
+            self._range = sys.modules["torch"].profiler.record_function(
+                self.name)
+            self._range.__enter__()
+            self._events = _device_events()
+        self._sid = tr.begin(self.name, parent=stack[-1] if stack
+                             else tr.root, args=self.args,
+                             device=self._events)
+        stack.append(self._sid)
+        if self._events is not None:
+            self._events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[1].record()
+        _open.stack.pop()
+        self._trace.end(self._sid)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return None
+
+
+def span(name: str, /, **args):
+    """A context manager bracketing one layer of the program.
+
+    While a ``torch.profiler`` collects on this thread it opens
+    ``torch.profiler.record_function(name)`` (the range sits in the
+    profiler's trace beside the kernels it launched), records the span
+    into ``process_trace()`` under the innermost span open on this
+    thread, and on CUDA records a timing event on the current stream at
+    entry and at exit (``process_spans``' ``device_ms``).  Otherwise it
+    returns ``NULL_SPAN`` after one check of the profiler's state.
+
+    Never hold a span open across a ``yield``: the caller's code would
+    run inside it.
+    """
+    if not _collecting():
+        return NULL_SPAN
+    return _Span(name, args, hot=True)
+
+
+def setup_span(name: str, /, **args):
+    """A context manager recording work done once per key per process
+    (a plan build, a kernel library's load) into ``process_trace()``,
+    profiler or not, with ``perf_counter`` bounds only."""
+    return _Span(name, args, hot=False)
+
+
+def process_spans() -> list[dict]:
+    """Every span recorded into ``process_trace()`` (the root left out),
+    each with ``dur_s`` (host seconds, None while open) and
+    ``device_ms`` (the card's milliseconds between its two events, None
+    without them); waits for each span's end event first."""
+    with _process_lock:
+        tr = _process
+    if tr is None:
+        return []
+    out = []
+    for s in tr.spans()[1:]:
+        events = s.pop("device", None)
+        done = s["t1"] is not None
+        s["dur_s"] = s["t1"] - s["t0"] if done else None
+        s["device_ms"] = None
+        if events is not None and done:
+            events[1].synchronize()
+            s["device_ms"] = events[0].elapsed_time(events[1])
+        out.append(s)
+    return out
 
 
 # ---------------------------------------------------------------------------

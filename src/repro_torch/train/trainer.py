@@ -71,6 +71,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import crps as crpslib
 from repro_torch.core.fcn3 import FCN3
 from repro_torch.core.sphere import noise as noiselib
@@ -404,8 +405,11 @@ class EnsembleTrainer:
                        ) -> tuple[torch.Tensor, dict, dict[str, torch.Tensor]]:
         """The rollout loss, its terms and its gradient per parameter."""
         params = dict(self.model.named_parameters())
-        loss, aux = self.rollout_loss(buffers, batch, noise)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with telemetry.span("trainer.forward"):
+            loss, aux = self.rollout_loss(buffers, batch, noise)
+        # the recomputation, the band transpose and the CRPS backward
+        with telemetry.span("trainer.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         aux = {k: v.detach() for k, v in aux.items()}
         loss = loss.detach()
         p = self.par
@@ -435,11 +439,13 @@ class EnsembleTrainer:
         Returns the new optimizer state and the diagnostics: the loss
         terms, ``loss`` and ``grad_norm`` (before clipping).
         """
-        loss, aux, grads = self.loss_and_grads(buffers, batch, noise)
-        gnorm = self.grad_norm(grads)
-        opt_state = self.optimizer.update(
-            dict(self.model.named_parameters()), grads, opt_state,
-            norm=gnorm)
+        with telemetry.span("trainer.step"):
+            loss, aux, grads = self.loss_and_grads(buffers, batch, noise)
+            with telemetry.span("trainer.adam"):
+                gnorm = self.grad_norm(grads)
+                opt_state = self.optimizer.update(
+                    dict(self.model.named_parameters()), grads, opt_state,
+                    norm=gnorm)
         return opt_state, dict(aux, loss=loss, grad_norm=gnorm)
 
     @torch.no_grad()
